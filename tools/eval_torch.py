@@ -1,0 +1,112 @@
+"""Evaluation entry point of the PyTorch port (counterpart of tools/eval.py).
+
+Reads a JAX-trained checkpoint (``model.npz`` + the infos pickle), overlays
+the eval options on the training opts exactly as tools/eval.py does, and
+evaluates with ``captioning_tpu_torch.utils.eval_utils.eval_split`` on
+``--device`` (cuda by default; the CUDA kernels build at first use).
+With ``--device cuda`` and no GPU it raises: it never carries on on the
+CPU.  Only the transformer is ported so far.
+
+    python tools/eval_torch.py --model log/model-best.npz \\
+        --infos_path log/infos_<id>-best.pkl --beam_size 5 --split test
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import pickle
+import sys
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), '..'))
+
+import torch  # noqa: E402
+
+import captioning_tpu.utils.misc as utils  # noqa: E402
+import captioning_tpu.utils.opts as opts  # noqa: E402
+from captioning_tpu_torch.models.api import setup  # noqa: E402
+from captioning_tpu_torch.utils import eval_utils  # noqa: E402
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument('--model', type=str, default='',
+                        help='path to model .npz to evaluate')
+    parser.add_argument('--cnn_model', type=str, default='resnet101')
+    parser.add_argument('--infos_path', type=str, default='',
+                        help='path to infos pkl to evaluate')
+    parser.add_argument('--only_lang_eval', type=int, default=0)
+    parser.add_argument('--annfile', type=str, default='',
+                        help='explicit coco-format annotations json for '
+                             'language eval')
+    parser.add_argument('--force', type=int, default=0)
+    parser.add_argument('--device', type=str, default='cuda',
+                        choices=('cuda', 'cpu'))
+    opts.add_eval_options(parser)
+    opts.add_diversity_opts(parser)
+    opt = parser.parse_args(argv)
+    if opt.device == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError('--device cuda: no CUDA device is available '
+                           '(pass --device cpu to run the plain twins)')
+
+    with open(opt.infos_path, 'rb') as f:
+        infos = utils.pickle_load(f)
+
+    # override and collect parameters (reference eval.py:46-54)
+    replace = ['input_fc_dir', 'input_att_dir', 'input_box_dir',
+               'input_label_h5', 'input_json', 'batch_size', 'id']
+    ignore = ['start_from']
+    for k in vars(infos['opt']).keys():
+        if k in replace:
+            setattr(opt, k, getattr(opt, k) or getattr(infos['opt'], k, ''))
+        elif k not in ignore:
+            if k not in vars(opt):
+                vars(opt).update({k: vars(infos['opt'])[k]})
+
+    vocab = infos['vocab']
+    pred_fn = os.path.join('eval_results/', '.saved_pred_' + opt.id + '_' +
+                           opt.split + '.pkl')
+    result_fn = os.path.join('eval_results/', opt.id + '_' + opt.split +
+                             '.json')
+
+    if opt.only_lang_eval == 1 or (not opt.force and os.path.isfile(pred_fn)):
+        if not opt.force and os.path.isfile(result_fn):
+            try:
+                with open(result_fn) as f:
+                    json.load(f)
+                print('already evaluated')
+                return
+            except ValueError:
+                pass
+        with open(pred_fn, 'rb') as f:
+            predictions, n_predictions = pickle.load(f)
+        print(eval_utils.language_eval(opt.annfile or opt.input_json,
+                                       predictions, n_predictions, vars(opt),
+                                       opt.split))
+        return
+
+    if opt.image_folder:
+        raise NotImplementedError('--image_folder (raw images through the '
+                                  'CNN) is not ported yet; see ROADMAP.md')
+    opt.vocab_size = len(vocab)
+    captioner = setup(opt, vocab, device=opt.device).load_params(opt.model)
+
+    from captioning_tpu.data.dataset import DataLoader
+    loader = DataLoader(opt)
+    loader.dataset.ix_to_word = infos['vocab']
+
+    opt.dataset = opt.annfile or opt.input_json
+    loss, split_predictions, lang_stats = eval_utils.eval_split(
+        captioner, loader, vars(opt))
+    print('loss: ', loss)
+    if lang_stats:
+        print(lang_stats)
+    if opt.dump_json == 1:
+        os.makedirs('vis', exist_ok=True)
+        with open('vis/vis.json', 'w') as f:
+            json.dump(split_predictions, f)
+
+
+if __name__ == '__main__':
+    main()
