@@ -2,13 +2,17 @@
 
 Port of the eval routes of ``captioning_tpu/engine/decoding.py``:
 
-* ``sample`` — the fused greedy stats route (``k = 1`` vocab epilogue,
-  entropy / chosen-logprob sums carried, exact early exit once every row
-  has finished);
-* ``sample_beam`` -> the fused branch of ``_beam_search_fast`` — single
-  group, per-row top-``bdash`` survivors from the vocab epilogue, the
-  t = 0 lane-0 top-k, the candidate merge, the finished-beam pool merge
-  and the exact early exit.
+* ``sample`` — greedy with the entropy / chosen-logprob sums carried and
+  the exact early exit once every row has finished; through the fused
+  ``k = 1`` vocab epilogue when the model has ``step_topk``, else through
+  the plain step's float32 log-softmax table;
+* ``sample_beam`` -> ``_beam_search_fast`` — single group, with the
+  finished-beam pool merge and the exact early exit; fused (per-row
+  top-``bdash`` survivors from the vocab epilogue, the t = 0 lane-0 top-k)
+  when the model has ``step_topk``, else the plain branch (the full
+  [B*bdash, V+1] candidate table, its ``[B, bdash*(V+1)]`` top-k, UNK
+  adjust, temperature log-softmax).  Beam state follows the model's
+  ancestry table when it has one, else a plain row gather.
 
 The JAX scans become host loops; the early-exit condition costs one host
 sync per step.  Every ``top_k`` goes through ``ops.logit_topk.top_k``
@@ -41,16 +45,21 @@ _ROADMAP = 'not ported yet; see ROADMAP.md, Queue A'
 class DecodeModel:
     """A captioner bound for decoding.
 
+    ``step(it, feats, state, rng, logsoftmax, uniform_t, beam_width) ->
+    (float32 [N, V+1] log-probs or logits, state)``: one plain step.
     ``step_topk(it, feats, state, rng, k, temp, unk_bias, unk_idx,
     beam_width) -> (top_lsm [N, k], top_ix [N, k], row_sum [N], ent [N],
-    state)``: one step plus the fused vocab epilogue.  ``beam_init(state,
-    bdash)`` adds the ancestry table after lane replication;
-    ``beam_reorder(state, flat_idx)`` gathers every leaf but the physical
-    caches.  The JAX protocol's plain ``step`` and bad-ending ids serve
-    routes not ported yet and come back with them."""
+    state)``: one step plus the fused vocab epilogue, used when set.
+    ``beam_init(state, bdash)`` adds the ancestry table after lane
+    replication; ``beam_reorder(state, flat_idx)`` gathers every leaf but
+    the physical caches; without them beam rows are reordered by a plain
+    gather.  The JAX protocol's bad-ending ids serve routes not ported yet
+    and come back with them."""
     prepare: Callable  # (fc, att, att_masks, rng) -> feats
     init_state: Callable  # (batch, beam=False) -> state
+    step: Callable
     seq_length: int
+    vocab_plus: int  # V + 1
     bos_idx: int = 0
     eos_idx: int = 0
     pad_idx: int = 0
@@ -70,6 +79,13 @@ def repeat_tree(n: int, tree):
     if isinstance(tree, torch.Tensor):
         return tree.repeat_interleave(n, dim=0)
     return tree
+
+
+def reorder_state(tree, idx):
+    """Beam-reorder every tensor leaf's leading dim by ``idx`` (a row
+    gather; the JAX engine's one-hot matmul is an exact TPU substitute)."""
+    return {k: v.index_select(0, idx) if torch.is_tensor(v) else v
+            for k, v in tree.items()}
 
 
 def penalty_fn(length_penalty: str):
@@ -143,6 +159,8 @@ def sample(dm: DecodeModel, fc_feats, att_feats, att_masks, rng,
     sample_n = int(opt.get('sample_n', 1) or 1)
     L = dm.seq_length
     feats = dm.prepare(fc_feats, att_feats, att_masks, rng)
+    if not dm.shared_beam_feats:
+        feats = repeat_tree(sample_n, feats)
     N = fc_feats.shape[0] * sample_n
     state = dm.init_state(N)
     dev = att_feats.device
@@ -153,15 +171,22 @@ def sample(dm: DecodeModel, fc_feats, att_feats, att_masks, rng,
     lp_sum = torch.zeros(N, dtype=torch.float32, device=dev)
     for t in range(L):
         # eval stats and the argmax are taken on the untempered
-        # log-softmax: the epilogue runs at temp 1 without UNK suppression
-        tv, ti, _, en, state = dm.step_topk(it, feats, state, rng, 1, 1.0,
-                                            0.0, -1, 0)
+        # log-softmax (no UNK suppression outside beam search)
+        if dm.step_topk is not None:
+            tv, ti, _, en, state = dm.step_topk(it, feats, state, rng, 1,
+                                                1.0, 0.0, -1, 0)
+            tv, ti = tv[:, 0], ti[:, 0]
+        else:
+            lsm, state = dm.step(it, feats, state, rng, True, uniform_t=True)
+            ti = lsm.argmax(1)       # the first maximum, as jnp.argmax
+            tv = lsm.gather(1, ti[:, None])[:, 0]
+            en = -(lsm.exp() * lsm).sum(-1)
         keep = unfinished if t else torch.ones_like(unfinished)
-        it = torch.where(keep, ti[:, 0], dm.pad_idx)
+        it = torch.where(keep, ti, dm.pad_idx)
         unfinished = keep & (it != dm.eos_idx)
         seq[:, t] = it
         ent_sum += torch.where(keep, en, 0.0)
-        lp_sum += torch.where(keep, tv[:, 0], 0.0)
+        lp_sum += torch.where(keep, tv, 0.0)
         # EXACT early exit: once every row has finished, the remaining
         # steps only write pads and gated-off stats (one host sync)
         if not bool(unfinished.any()):
@@ -170,7 +195,7 @@ def sample(dm: DecodeModel, fc_feats, att_feats, att_masks, rng,
 
 
 # ---------------------------------------------------------------------------
-# beam search (single group, fused vocab epilogue)
+# beam search (single group)
 # ---------------------------------------------------------------------------
 
 def _gather(x, ix):
@@ -180,31 +205,59 @@ def _gather(x, ix):
     return torch.gather(x, 1, ix[..., None].expand(-1, -1, x.shape[2]))
 
 
+def _unk_adjust(lsm, unk_bias: float, unk_idx: int):
+    if unk_idx < 0:
+        return lsm
+    lsm = lsm.clone()
+    lsm[:, unk_idx] += unk_bias
+    return lsm
+
+
 def _beam_search_fast(dm: DecodeModel, init, init_state, feats_per_beam,
                       rng, opt: Dict[str, Any]):
-    """Single-group beam search over per-row top-``bdash`` survivors.
+    """Single-group beam search.
 
-    ``init`` = (tv0 [B, bdash], ti0, row_sum0 [B], ent0 [B]): the vocab
-    epilogue of the bos step (UNK-adjusted, temperature 1).  Returns the
-    finished-beam pool as {'seq' [B, 1, bdash, L], 'p', 'unaug_p',
+    With ``dm.step_topk`` (fused): ``init`` = (tv0 [B, bdash], ti0,
+    row_sum0 [B], ent0 [B]), the vocab epilogue of the bos step
+    (UNK-adjusted, temperature 1), and each step carries per-row
+    top-``bdash`` survivors.  Without it: ``init`` is the bos step's
+    float32 log-softmax [B, V+1], and each step carries the full candidate
+    table ``lsm' + beam sum`` [B*bdash, V+1] (``_finish_table``).  Returns
+    the finished-beam pool as {'seq' [B, 1, bdash, L], 'p', 'unaug_p',
     'ent_sum', 'lp_sum' [B, 1, bdash]}, sorted descending by ``p``."""
     temperature, length_penalty, unk_bias, unk_idx = _beam_dynamic_setup(
         dm, opt)
     bdash = int(opt.get('beam_size', 10))
-    tv0, ti0, rs0, en0 = init
-    B = tv0.shape[0]
+    fused = dm.step_topk is not None
+    use_anc = dm.beam_init is not None and dm.beam_reorder is not None
+    step_bw = bdash if use_anc else 0
+    B = init[0].shape[0] if fused else init.shape[0]
     L = dm.seq_length
     NBG = B * bdash
-    dev = tv0.device
+    if fused:
+        tv0, ti0, rs0, en0 = init
+    else:
+        V1 = dm.vocab_plus
+        lsm0 = _unk_adjust(init, unk_bias, unk_idx)         # [B, V1]
+        rs0 = lsm0.sum(-1)
+        en0 = -(lsm0.exp() * lsm0).sum(-1)
+    dev = rs0.device
     f32 = dict(dtype=torch.float32, device=dev)
 
-    state = dm.beam_init(repeat_tree(bdash, init_state), bdash)
+    state = repeat_tree(bdash, init_state)
+    if use_anc:
+        state = dm.beam_init(state, bdash)
 
-    # t = 0: every lane holds the bos distribution; lane 0's top-bdash is
-    # the global top-bdash, the other lanes are masked off
+    # t = 0: every lane holds the bos distribution; lane 0's candidates
+    # are the bos ones, the other lanes are masked off
     lane0 = (torch.arange(bdash, device=dev) == 0).view(1, bdash, 1)
-    tv_c = torch.where(lane0, tv0[:, None, :], NEG).reshape(NBG, bdash)
-    ti_c = ti0[:, None, :].expand(B, bdash, bdash).reshape(NBG, bdash)
+    if fused:
+        # lane 0's top-bdash is the global top-bdash
+        tv_c = torch.where(lane0, tv0[:, None, :], NEG).reshape(NBG, bdash)
+        ti_c = ti0[:, None, :].expand(B, bdash, bdash).reshape(NBG, bdash)
+    else:
+        cand = (lsm0[:, None, :] + torch.where(lane0, 0.0, NEG)
+                ).reshape(NBG, V1)
     row_sum = rs0[:, None].expand(B, bdash)
     ent_row = en0[:, None].expand(B, bdash)
 
@@ -221,14 +274,22 @@ def _beam_search_fast(dm: DecodeModel, init, init_state, feats_per_beam,
     base = torch.arange(B, device=dev)[:, None] * bdash
 
     for t in range(L):
-        # ---- selection over the per-row survivors + the beam-sum shift;
-        # entries are (beam, rank)-ordered, so flat ties resolve to the
-        # lowest beam, then the lowest vocab index ----
-        cand = (tv_c.view(B, bdash, bdash) + beam_sums[:, :, None]
-                ).view(B, bdash * bdash)
-        ys, jx = top_k(cand, bdash)
-        beam_ix = jx // bdash
-        sel_ix = torch.gather(ti_c.reshape(B, bdash * bdash), 1, jx)
+        if fused:
+            # ---- selection over the per-row survivors + the beam-sum
+            # shift; entries are (beam, rank)-ordered, so flat ties resolve
+            # to the lowest beam, then the lowest vocab index ----
+            cand_s = (tv_c.view(B, bdash, bdash) + beam_sums[:, :, None]
+                      ).view(B, bdash * bdash)
+            ys, jx = top_k(cand_s, bdash)
+            beam_ix = jx // bdash
+            sel_ix = torch.gather(ti_c.reshape(B, bdash * bdash), 1, jx)
+        else:
+            # ---- selection over the full candidate table (the beam sums
+            # are already in it); flat ties go to the lowest beam, then
+            # the lowest vocab index ----
+            ys, ix = top_k(cand.view(B, bdash * V1), bdash)
+            beam_ix = ix // V1
+            sel_ix = ix % V1
 
         new_seq = _gather(beam_seq, beam_ix)
         new_seq[:, :, t] = sel_ix
@@ -271,17 +332,39 @@ def _beam_search_fast(dm: DecodeModel, init, init_state, feats_per_beam,
         if not bool((bound > pool_p.min(1).values).any()):
             break
 
-        # ---- model step + fused vocab epilogue ----
-        state = dm.beam_reorder(state, (base + beam_ix).view(-1))
-        tv_c, ti_c, rs, en, state = dm.step_topk(
-            sel_ix.view(NBG), feats_per_beam, state, rng, bdash,
-            temperature, unk_bias, unk_idx, bdash)
-        row_sum = rs.view(B, bdash)
-        ent_row = en.view(B, bdash)
+        # ---- model step + vocab epilogue ----
+        flat_idx = (base + beam_ix).view(-1)
+        state = (dm.beam_reorder(state, flat_idx) if use_anc
+                 else reorder_state(state, flat_idx))
+        it = sel_ix.view(NBG)
+        if fused:
+            tv_c, ti_c, rs, en, state = dm.step_topk(
+                it, feats_per_beam, state, rng, bdash, temperature,
+                unk_bias, unk_idx, step_bw)
+            row_sum = rs.view(B, bdash)
+            ent_row = en.view(B, bdash)
+        else:
+            logits, state = dm.step(it, feats_per_beam, state, rng, False,
+                                    uniform_t=True, beam_width=step_bw)
+            cand, row_sum, ent_row = _finish_table(
+                torch.log_softmax(logits / temperature, dim=-1), beam_sums,
+                unk_bias, unk_idx)
 
     return {'seq': pool_seq[:, None], 'p': pool_p[:, None],
             'unaug_p': pool_unaug[:, None], 'ent_sum': pool_ent[:, None],
             'lp_sum': pool_lpc[:, None]}
+
+
+def _finish_table(lsm, sums, unk_bias: float, unk_idx: int):
+    """The plain branch's pass over a fresh [B*bdash, V+1] log-softmax
+    table: UNK adjust, the two carried-stat reductions and the candidate
+    add for the next selection."""
+    B, bdash = sums.shape
+    lsm = _unk_adjust(lsm, unk_bias, unk_idx)
+    row_sum = lsm.sum(-1)
+    ent_row = -(lsm.exp() * lsm).sum(-1)
+    cand = lsm + sums.reshape(-1, 1)
+    return cand, row_sum.view(B, bdash), ent_row.view(B, bdash)
 
 
 def sample_beam(dm: DecodeModel, fc_feats, att_feats, att_masks, rng,
@@ -292,9 +375,6 @@ def sample_beam(dm: DecodeModel, fc_feats, att_feats, att_masks, rng,
     if want_logps:
         raise NotImplementedError('want_logps=True (winner-logprob '
                                   'replay): %s' % _ROADMAP)
-    if dm.step_topk is None or dm.beam_init is None:
-        raise ValueError('sample_beam needs a DecodeModel with step_topk '
-                         'and beam ancestry')
     bdash = int(opt.get('beam_size', 10))
     sample_n = int(opt.get('sample_n', 1) or 1)
     if sample_n not in (1, bdash):
@@ -309,13 +389,15 @@ def sample_beam(dm: DecodeModel, fc_feats, att_feats, att_masks, rng,
                     device=att_feats.device)
     # the bos step's distribution is untempered (the reference applies the
     # temperature from the second step on)
-    tv0, ti0, rs0, en0, state = dm.step_topk(it, feats, state, rng, bdash,
-                                             1.0, unk_bias, unk_idx, 0)
-    # beam lanes of one image share its memory row (shared_beam_feats)
+    if dm.step_topk is not None:
+        *init, state = dm.step_topk(it, feats, state, rng, bdash, 1.0,
+                                    unk_bias, unk_idx, 0)
+    else:
+        init, state = dm.step(it, feats, state, rng, True, uniform_t=True)
+    # beam lanes of one image share its feats row (shared_beam_feats)
     feats_per_beam = feats if dm.shared_beam_feats else repeat_tree(
         bdash, feats)
-    done = _beam_search_fast(dm, (tv0, ti0, rs0, en0), state,
-                             feats_per_beam, rng, opt)
+    done = _beam_search_fast(dm, init, state, feats_per_beam, rng, opt)
     if sample_n == 1:
         seq = done['seq'][:, 0, 0]
         stats = {'ent_sum': done['ent_sum'][:, 0, 0],

@@ -1,7 +1,8 @@
 """Captioner: a ported model bound into the decode engine's protocol.
 
 Port of ``captioning_tpu/models/api.py`` for the eval slice: ``setup``
-builds the transformer (other model keys raise), ``bind`` returns the
+builds the transformer or one of the RNN attention captioners of
+``harness.MODELS`` (other model keys raise), ``bind`` returns the
 ``DecodeModel`` the engine drives, and ``sample_beam``/``sample_stats``/
 ``forward_tf`` are the entry points ``eval_split`` calls.  Parameters live
 in ``self.module`` on ``self.device``; there is no jit cache, PyTorch runs
@@ -17,8 +18,11 @@ import torch
 from ..engine import decoding
 from ..engine.decoding import DecodeModel
 from ..ops.logit_topk import logit_topk
+from . import harness
 from .config import ModelConfig, config_from_opt
+from .harness import AttCaptioner
 from .transformer import TransformerCaptioner
+
 
 def _unk_index(vocab: Optional[Dict[str, str]], vocab_size: int):
     """The UNK id: ``vocab[str(vocab_size)] == 'UNK'`` in the COCO vocab."""
@@ -32,14 +36,19 @@ def _is_cache(name: str) -> bool:
 
 
 class Captioner:
-    """The transformer module + static decode metadata, on one device."""
+    """A model module + static decode metadata, on one device."""
 
     def __init__(self, cfg: ModelConfig, vocab: Optional[Dict[str, str]] = None,
                  device='cpu'):
-        if cfg.caption_model != 'transformer':
+        if cfg.caption_model == 'transformer':
+            self.module_cls = TransformerCaptioner
+        elif cfg.caption_model in harness.MODELS:
+            self.module_cls = AttCaptioner
+        else:
             raise NotImplementedError(
-                'caption model %r is not ported yet (only transformer); '
-                'see ROADMAP.md' % cfg.caption_model)
+                'caption model %r is not ported yet (transformer, %s are); '
+                'see ROADMAP.md' % (cfg.caption_model,
+                                    ', '.join(harness.MODELS)))
         self.cfg = cfg
         self.unk_idx = _unk_index(vocab, cfg.vocab_size)
         if self.unk_idx is None:
@@ -51,7 +60,7 @@ class Captioner:
     def init_params(self, generator: torch.Generator):
         """Random weights with the JAX package's init, drawn on the CPU from
         ``generator`` and moved to the device in the compute dtype."""
-        module = TransformerCaptioner(self.cfg).init_weights(generator)
+        module = self.module_cls(self.cfg).init_weights(generator)
         return self._install(module.state_dict())
 
     def load_params(self, npz_path: str):
@@ -68,7 +77,7 @@ class Captioner:
         return self._install(state_dict_from_jax(variables, self.cfg))
 
     def _install(self, state_dict):
-        module = TransformerCaptioner(self.cfg)
+        module = self.module_cls(self.cfg)
         module.load_state_dict(state_dict, strict=True)
         # eval only: no autograd graph is ever needed
         self.module = (module.requires_grad_(False).to(self.device)
@@ -85,6 +94,23 @@ class Captioner:
 
         def init_state(batch, beam=False):
             return module.init_state(batch)
+
+        def step(it, feats, state, rng, logsoftmax=True, uniform_t=False,
+                 beam_width=0):
+            # eval steps draw no randomness: the rng is accepted and unused
+            return module.step(it, feats, state, logsoftmax, uniform_t,
+                               beam_width)
+
+        common = dict(
+            prepare=prepare, init_state=init_state, step=step,
+            seq_length=cfg.seq_length, vocab_plus=cfg.vocab_size + 1,
+            bos_idx=cfg.bos_idx, eos_idx=cfg.eos_idx, pad_idx=cfg.pad_idx,
+            unk_idx=self.unk_idx)
+        if self.module_cls is AttCaptioner:
+            # the attention head reads one feats row per beam block; the
+            # state is reordered by a plain row gather (no ancestry) and
+            # the vocab epilogue is the engine's plain-step route
+            return DecodeModel(shared_beam_feats=True, **common)
 
         def step_topk(it, feats, state, rng, k, temp, unk_bias, unk_idx,
                       beam_width=0):
@@ -112,17 +138,15 @@ class Captioner:
                          else vv.index_select(0, flat_idx))
                     for kk, vv in state.items()}
 
-        return DecodeModel(
-            prepare=prepare, init_state=init_state,
-            seq_length=cfg.seq_length, bos_idx=cfg.bos_idx,
-            eos_idx=cfg.eos_idx, pad_idx=cfg.pad_idx, unk_idx=self.unk_idx,
-            beam_init=beam_init, beam_reorder=beam_reorder,
-            shared_beam_feats=True, step_topk=step_topk)
+        return DecodeModel(beam_init=beam_init, beam_reorder=beam_reorder,
+                           shared_beam_feats=True, step_topk=step_topk,
+                           **common)
 
     # -- entry points ------------------------------------------------------------
     @torch.inference_mode()
     def forward_tf(self, fc_feats, att_feats, seq, att_masks):
-        """Eval teacher-forced logprobs [N, T, V+1] over input tokens."""
+        """Eval teacher-forced logprobs [N, T, V+1] over input tokens
+        ``seq`` [N, T] or [B, seq_per_img, T]."""
         return self.module.forward_tf(fc_feats, att_feats, seq, att_masks)
 
     @torch.inference_mode()
@@ -142,5 +166,6 @@ class Captioner:
 
 def setup(opt, vocab: Optional[Dict[str, str]] = None,
           device='cpu') -> Captioner:
-    """Model factory: the transformer only, for now."""
+    """Model factory: the transformer and the RNN attention captioners of
+    ``harness.MODELS``, for now."""
     return Captioner(config_from_opt(opt, opt.vocab_size), vocab, device)

@@ -1,10 +1,12 @@
 """Model configuration (port of ``captioning_tpu/models/harness.py:35-126``).
 
-Only the fields the ported eval transformer reads are kept (no dropout:
-there is no training yet); the compute dtype is a torch dtype.  Old infos
-pickles carry ``use_pallas``: it is read by nothing here, because the port
-always takes its CUDA kernel path for CUDA tensors and the plain PyTorch
-twins for CPU tensors.
+Only the fields the ported eval models read are kept (the transformer and
+the RNN attention harness; ``drop_prob_lm`` is read by nothing yet, there
+is no training); the compute dtype is a torch dtype.  ``use_pallas``
+chooses, for CPU tensors only, which JAX branch the RNN attention head
+mirrors (the fused kernel's twin or the plain jnp math); CUDA tensors
+always take the CUDA kernels.  Its "auto" value (None / -1) resolves as
+the JAX package resolves it off a TPU: 0.
 """
 
 from __future__ import annotations
@@ -21,8 +23,15 @@ _DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
 class ModelConfig:
     caption_model: str
     vocab_size: int
+    input_encoding_size: int = 512
+    rnn_size: int = 512
+    num_layers: int = 1
+    drop_prob_lm: float = 0.5
     seq_length: int = 20           # max sample length (max_length opt)
+    fc_feat_size: int = 2048
     att_feat_size: int = 2048
+    att_hid_size: int = 512
+    logit_layers: int = 1
     use_bn: int = 0
     bos_idx: int = 0
     eos_idx: int = 0
@@ -34,7 +43,12 @@ class ModelConfig:
     d_model: int = 512
     d_ff: int = 2048
     num_att_heads: int = 8
+    use_pallas: int = 0
     dtype: torch.dtype = torch.float32
+
+
+def _resolve_use_pallas(flag) -> int:
+    return 0 if flag is None or int(flag) < 0 else int(flag)
 
 
 def config_from_opt(opt, vocab_size: int) -> ModelConfig:
@@ -44,8 +58,15 @@ def config_from_opt(opt, vocab_size: int) -> ModelConfig:
     return ModelConfig(
         caption_model=opt.caption_model,
         vocab_size=vocab_size,
+        input_encoding_size=opt.input_encoding_size,
+        rnn_size=opt.rnn_size,
+        num_layers=opt.num_layers,
+        drop_prob_lm=opt.drop_prob_lm,
         seq_length=seq_length,
+        fc_feat_size=opt.fc_feat_size,
         att_feat_size=opt.att_feat_size,
+        att_hid_size=opt.att_hid_size,
+        logit_layers=g('logit_layers', 1),
         use_bn=g('use_bn', 0),
         bos_idx=g('bos_idx', 0), eos_idx=g('eos_idx', 0),
         pad_idx=g('pad_idx', 0), unk_idx=g('unk_idx', None),
@@ -53,5 +74,6 @@ def config_from_opt(opt, vocab_size: int) -> ModelConfig:
         d_model=g('d_model', opt.input_encoding_size),
         d_ff=g('d_ff', opt.rnn_size),
         num_att_heads=g('num_att_heads', 8),
+        use_pallas=_resolve_use_pallas(g('use_pallas', None)),
         dtype=_DTYPES[g('compute_dtype', 'float32')],
     )

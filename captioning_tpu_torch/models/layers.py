@@ -1,10 +1,11 @@
-"""Shared building blocks (port of ``captioning_tpu/models/layers.py:21-143``).
+"""Shared building blocks (port of ``captioning_tpu/models/layers.py``).
 
 Init semantics follow the JAX package, which follows torch's defaults:
-``Dense`` kernels and biases are U(+-1/sqrt(fan_in)).  Parameters are
-float32; a Linear computes in the dtype its weight was cast to
-(``TransformerCaptioner.to_compute_dtype``), as the JAX ``Dense`` casts
-its float32 params to the compute dtype at every use.
+``Dense`` kernels and biases are U(+-1/sqrt(fan_in)), ``Embedding`` tables
+N(0, 1).  Parameters are float32; a Linear or an Embedding computes in the
+dtype its weight was cast to (the models' ``to_compute_dtype``), as the
+JAX ``Dense`` and ``Embedding`` cast their float32 params to the compute
+dtype at every use.
 """
 
 from __future__ import annotations
@@ -33,6 +34,21 @@ def init_dense(lin: nn.Linear, generator: torch.Generator):
 def linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
     """``layers.Dense`` compute: the input is cast to the weight's dtype."""
     return F.linear(x.to(lin.weight.dtype), lin.weight, lin.bias)
+
+
+class Embedding(nn.Module):
+    """``layers.Embedding``: an N(0, 1) table looked up by id."""
+
+    def __init__(self, num_embeddings: int, features: int):
+        super().__init__()
+        self.embedding = nn.Parameter(torch.zeros(num_embeddings, features))
+
+    def init_weights(self, generator: torch.Generator):
+        with torch.no_grad():
+            self.embedding.normal_(generator=generator)
+
+    def forward(self, ids):
+        return self.embedding[ids]
 
 
 class MLPEmbed(nn.Module):
@@ -65,3 +81,25 @@ class MaskedBatchNorm(nn.Module):
     def forward(self, x, mask: Optional[torch.Tensor] = None):
         y = (x - self.mean) * torch.rsqrt(self.var + self.eps)
         return y * self.scale + self.bias
+
+
+def additive_attention(h, att_feats, p_att_feats, att_masks,
+                       h2att: nn.Linear, alpha_net: nn.Linear):
+    """The JAX ``layers.additive_attention`` (reference AttModel.py:719-748):
+    h [N, H] queries; att_feats [nb, M, H]; p_att_feats [nb, M, A];
+    att_masks [nb, M] or None (then no renormalisation).  nb == N is the
+    row-aligned branch; otherwise bw = N // nb consecutive query rows share
+    one attention row (block-shared beam lanes)."""
+    N = h.shape[0]
+    nb, M, H = att_feats.shape
+    bw = N // nb
+    att_h = linear(h, h2att).view(nb, bw, 1, -1)          # [nb, bw, 1, A]
+    dot = torch.tanh(p_att_feats[:, None] + att_h)        # [nb, bw, M, A]
+    e = linear(dot, alpha_net)[..., 0]                    # [nb, bw, M]
+    weight = torch.softmax(e, dim=-1)
+    if att_masks is not None:
+        weight = weight * att_masks[:, None]
+        weight = weight / weight.sum(-1, keepdim=True).clamp_min(1e-9)
+    dt = torch.promote_types(weight.dtype, att_feats.dtype)
+    att_res = torch.einsum('bqm,bmh->bqh', weight.to(dt), att_feats.to(dt))
+    return att_res.reshape(N, H)

@@ -31,6 +31,11 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # entry point -> argtypes (each returns cudaError_t as int)
 SIGNATURES = {
+    'additive_attention': {
+        # att_h, att, p_att, mask, w, b, out, nb, bw, M, H, A, dtype,
+        # att_dtype, stream
+        'additive_attention': [_P] * 7 + [_I] * 7 + [_P],
+    },
     'beam_attend': {
         # q, k_cache, v_cache, k_new, v_new, anc, ctx,
         # N, Tp, D, h, bw, t0, dtype, stream

@@ -6,8 +6,12 @@ Input: ``Captioner.init_params(...)`` of the JAX package as numpy arrays
 of ``misc._flatten_tree``.  Flax kernels are [in, out] and nn.Linear
 weights [out, in]; the transformer's layer weights come stacked on a
 leading [L] axis (``enc_self_wq_kernel`` [L, D, D], ``dec_norm1_a2``
-[L, D], ...).  Every JAX key is consumed exactly once; a key left over or
-one the port needs but does not find raises.
+[L, D], ...).  The RNN attention harness maps its keys one to one, since
+the port's modules carry the JAX names (``core/attention/h2att/kernel`` ->
+``core.attention.h2att.weight``, ``logit_hidden_0`` -> ``logit_hidden.0``,
+``batch_stats/att_bn_in/mean`` -> ``att_bn_in.mean``).  Every JAX key is
+consumed exactly once; a key left over or one the port needs but does not
+find raises.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import torch
 
 from captioning_tpu.utils.misc import _flatten_tree
 
+from ..models import harness
 from ..models.config import ModelConfig
 
 # stacked JAX prefix -> (port layer list, attribute)
@@ -44,10 +49,13 @@ def _flat(tree_or_flat) -> Dict[str, np.ndarray]:
 
 def state_dict_from_jax(tree_or_flat, cfg: ModelConfig
                         ) -> Dict[str, torch.Tensor]:
-    """The port's TransformerCaptioner state_dict from JAX params."""
+    """The port's TransformerCaptioner / AttCaptioner state_dict from JAX
+    params."""
+    if cfg.caption_model in harness.MODELS:
+        return _harness_state_dict(_flat(tree_or_flat), cfg)
     if cfg.caption_model != 'transformer':
-        raise NotImplementedError('weight bridge: only the transformer is '
-                                  'ported; see ROADMAP.md')
+        raise NotImplementedError('weight bridge: %r is not ported; see '
+                                  'ROADMAP.md' % cfg.caption_model)
     flat = _flat(tree_or_flat)
     out: Dict[str, torch.Tensor] = {}
 
@@ -92,4 +100,40 @@ def state_dict_from_jax(tree_or_flat, cfg: ModelConfig
     if flat:
         raise KeyError('weight bridge: JAX keys not consumed: %s'
                        % sorted(flat))
+    return out
+
+
+def _harness_name(key: str) -> str:
+    """'params/core/att_lstm/ih/kernel' -> 'core.att_lstm.ih.weight'."""
+    parts = key.split('/')[1:]
+    if parts[0].startswith('logit_hidden_'):
+        parts[0:1] = ['logit_hidden', parts[0][len('logit_hidden_'):]]
+    if parts[-1] == 'kernel':
+        parts[-1] = 'weight'
+    return '.'.join(parts)
+
+
+def _harness_state_dict(flat: Dict[str, np.ndarray], cfg: ModelConfig
+                        ) -> Dict[str, torch.Tensor]:
+    with torch.device('meta'):
+        want = harness.AttCaptioner(cfg).state_dict()
+    out: Dict[str, torch.Tensor] = {}
+    for key in sorted(flat):
+        name = _harness_name(key)
+        if name not in want or name in out:
+            continue
+        value = torch.from_numpy(np.array(flat.pop(key), np.float32))
+        if key.endswith('/kernel'):
+            value = value.T.contiguous()        # [in, out] -> [out, in]
+        if tuple(value.shape) != tuple(want[name].shape):
+            raise ValueError('weight bridge: %s has shape %s, the port needs '
+                             '%s' % (key, tuple(value.shape),
+                                     tuple(want[name].shape)))
+        out[name] = value
+    if flat:
+        raise KeyError('weight bridge: JAX keys not consumed: %s'
+                       % sorted(flat))
+    missing = sorted(set(want) - set(out))
+    if missing:
+        raise KeyError('weight bridge: JAX keys for %s missing' % missing)
     return out

@@ -6,12 +6,14 @@
 Phases, in order; any failure raises and exits non-zero:
 
 1. print the card's name and power limit (nvidia-smi);
-2. build both CUDA kernels from ``captioning_tpu_torch/csrc`` (nvcc);
+2. build the three CUDA kernels from ``captioning_tpu_torch/csrc`` (one
+   nvcc per source, all started together);
 3. hold each kernel against its plain PyTorch twin on the card at the main
-   path's shapes (N = 5120 beam rows and N = 1024 greedy rows, D = 512,
-   8 heads, Tp in {8, 24, 32, 48}, bw in {5, 1}; V1 = 9488, k in {5, 1},
-   temperature 0.8, UNK bias on), in float32 with tight tolerances and in bf16 with stated ones,
-   plus one ragged small shape;
+   paths' shapes (B1: N = 5120 beam rows and N = 1024 greedy rows,
+   D = 512, 8 heads, Tp in {8, 24, 32, 48}, bw in {5, 1}; B2: V1 = 9488,
+   k in {5, 1}, temperature 0.8, UNK bias on; B3: 1024 images, bw in
+   {1, 5}, M = 36, H = 1000, A = 512), in float32 with tight tolerances and
+   in bf16 with stated ones, plus ragged small shapes;
 4. build the full-width transformer (6 + 6 layers, d_model 512, d_ff 2048,
    8 heads, vocab 9487 + 1, 36 x 2048 features, max length 20) from the
    port's own init with a seeded generator;
@@ -19,7 +21,11 @@ Phases, in order; any failure raises and exits non-zero:
    B = 1024, bf16 — with the kernels' launch counters reset just before
    and required to have grown just after; report cap/s; then decode a
    small batch in float32 with the kernels (CUDA) and with the twins (CPU)
-   and report the token agreement.
+   and report the token agreement;
+6. the same for the full-width UpDown of ``configs/updown/updown.yml``
+   (rnn_size 1000, input_encoding_size 1000, att_hid_size 512, 36 x 2048
+   bottom-up features and their mean as the fc feature), whose attention
+   runs kernel B3 on every step.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
@@ -33,6 +39,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -206,6 +213,105 @@ def phase_kernels(torch, ba, lt):
     return errs
 
 
+def _aa_inputs(torch, nb, bw, M, H, A, dtype, seed, ragged, att_dtype=None):
+    """Attention inputs at the scales of a trained model's step: att ~
+    N(0, 1), keys and queries ~ N(0, 0.5^2), alpha_net U(+-1/sqrt(A)).
+    ``att_dtype`` (default ``dtype``) is the features' type."""
+    g = torch.Generator(device='cuda').manual_seed(seed)
+    dev = 'cuda'
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * scale
+                ).to(dtype)
+    att_h = rnd(nb * bw, A, scale=0.5)
+    att = rnd(nb, M, H).to(att_dtype or dtype)
+    p_att = rnd(nb, M, A, scale=0.5)
+    bound = A ** -0.5
+    w = ((torch.rand(A, generator=g, device=dev) * 2 - 1) * bound).to(dtype)
+    b = ((torch.rand(1, generator=g, device=dev) * 2 - 1) * bound).to(dtype)
+    mask = torch.ones(nb, M, device=dev)
+    if ragged:
+        # per-image region counts 1..M, and one image with none valid
+        n = torch.randint(1, M + 1, (nb,), generator=g, device=dev)
+        mask = (torch.arange(M, device=dev)[None] < n[:, None]).float()
+        mask[nb // 2] = 0
+    return att_h, att, p_att, mask, w, b
+
+
+def bf16_tol(torch, att):
+    """2 bf16 ulps of max |att|: the kernel and the twin round the same
+    products and weights, and sum them in float32 in another order, so
+    the output can land one rounding step apart (plus one for a weight
+    whose bf16 rounding flips)."""
+    return 2.0 * 2.0 ** (torch.floor(torch.log2(att.float().abs().max()))
+                         .item() - 7)
+
+
+def check_additive_attention(torch, aa, nb, bw, M, H, A, dtype, seed,
+                             ragged=False, att_dtype=None):
+    """Kernel vs twin on the same inputs; returns (max |out| error, atol).
+    float32: atol 1e-5; bf16 (also with float32 features): ``bf16_tol``."""
+    att_h, att, p_att, mask, w, b = _aa_inputs(torch, nb, bw, M, H, A, dtype,
+                                               seed, ragged, att_dtype)
+    got = aa.additive_attention_fused(att_h, att, p_att, mask, w, b)
+    want = aa.additive_attention_ref(att_h, att, p_att, mask, w, b)
+    torch.cuda.synchronize()
+    atol = 1e-5 if dtype == torch.float32 else bf16_tol(torch, att)
+    err = (got.float() - want.float()).abs().max().item()
+    what = ('additive_attention %s/%s nb=%d bw=%d M=%d H=%d A=%d%s'
+            % (dtype, att.dtype, nb, bw, M, H, A,
+               ' ragged' if ragged else ''))
+    if (not err <= atol or got.shape != want.shape
+            or got.dtype != att.dtype):
+        raise AssertionError('%s: max err %g > %g' % (what, err, atol))
+    if ragged:
+        dead = slice((nb // 2) * bw, (nb // 2 + 1) * bw)
+        if bool(got[dead].any()):
+            raise AssertionError('%s: an all-masked row is not 0' % what)
+    return err, atol
+
+
+def phase_additive_attention(torch, aa):
+    err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for bw in (1, 5):
+            e, atol = check_additive_attention(torch, aa, 1024, bw, 36, 1000,
+                                               512, dtype, seed=bw)
+            if dtype == torch.bfloat16 and bw == 5:
+                err = e
+            log('  additive_attention %s N=%d bw=%d: ok (max err %.3g, atol '
+                '%.3g)' % (dtype, 1024 * bw, bw, e, atol))
+    # ragged: odd row count, M = 13, H and A no multiples of 32, ragged
+    # masks with one all-masked image
+    for dtype in (torch.float32, torch.bfloat16):
+        for bw in (1, 5):
+            check_additive_attention(torch, aa, 37, bw, 13, 40, 24, dtype,
+                                     seed=10 + bw, ragged=True)
+    check_additive_attention(torch, aa, 1024, 5, 36, 1000, 512,
+                             torch.float32, seed=3, ragged=True)
+    # bf16 queries and keys with float32 features (a bf16 model whose
+    # masked BatchNorm, use_bn 2, hands float32 features to the head)
+    for bw in (1, 5):
+        check_additive_attention(torch, aa, 37, bw, 13, 40, 24,
+                                 torch.bfloat16, seed=20 + bw, ragged=True,
+                                 att_dtype=torch.float32)
+    log('  additive_attention ragged shapes and masks, float32 features '
+        'with bf16 queries: ok')
+    return err
+
+
+def time_additive_attention(torch, aa):
+    """Kernel vs twin device time at the UpDown step shapes, bf16, for
+    beam 5 (bw = 5) and greedy (bw = 1) at B = 1024."""
+    out = {}
+    for bw in (5, 1):
+        args = _aa_inputs(torch, 1024, bw, 36, 1000, 512, torch.bfloat16,
+                          seed=7, ragged=False)
+        out[bw] = (cuda_ms(lambda: aa.additive_attention_fused(*args), 50),
+                   cuda_ms(lambda: aa.additive_attention_ref(*args), 20))
+    return out
+
+
 def time_kernels(torch, ba, lt):
     """Kernel vs twin device time at the beam-5 B=1024 step shapes, bf16."""
     g = torch.Generator(device='cuda').manual_seed(7)
@@ -242,15 +348,25 @@ def time_kernels(torch, ba, lt):
 V = 9487
 
 
-def make_captioner(torch, dtype_name, device):
+# the flagships' widths: configs/transformer/transformer.yml and
+# configs/updown/updown.yml (the shapes bench.py measures)
+MODELS = {
+    'transformer': dict(input_encoding_size=512, rnn_size=2048, num_layers=6,
+                        drop_prob_lm=0.1, att_hid_size=512, N_enc=6, N_dec=6,
+                        d_model=512, d_ff=2048, num_att_heads=8),
+    'updown': dict(input_encoding_size=1000, rnn_size=1000, num_layers=2,
+                   drop_prob_lm=0.5, att_hid_size=512),
+}
+
+
+def make_captioner(torch, model, dtype_name, device):
     from types import SimpleNamespace
 
     from captioning_tpu_torch.models.api import setup
-    opt = SimpleNamespace(
-        caption_model='transformer', vocab_size=V, input_encoding_size=512,
-        rnn_size=2048, num_layers=6, att_feat_size=2048, max_length=20,
-        compute_dtype=dtype_name, N_enc=6, N_dec=6, d_model=512, d_ff=2048,
-        num_att_heads=8)
+    opt = SimpleNamespace(caption_model=model, vocab_size=V,
+                          fc_feat_size=2048, att_feat_size=2048,
+                          max_length=20, compute_dtype=dtype_name,
+                          **MODELS[model])
     vocab = {str(i): 'w%d' % i for i in range(1, V + 1)}
     vocab[str(V)] = 'UNK'          # the COCO vocab's last entry
     return setup(opt, vocab, device).init_params(
@@ -258,9 +374,11 @@ def make_captioner(torch, dtype_name, device):
 
 
 def features(torch, B, device, seed):
+    """36 x 2048 region features and their mean as the fc feature, as the
+    bottom-up features give them."""
     g = torch.Generator().manual_seed(seed)
     att = torch.randn(B, 36, 2048, generator=g).to(device)
-    fc = torch.zeros(B, 2048, device=device)
+    fc = att.mean(1)
     am = torch.ones(B, 36, device=device)
     return fc, att, am
 
@@ -290,15 +408,20 @@ def check_output(torch, seq, stats, B, L):
         raise AssertionError('decode output: positive logprob sum')
 
 
-def phase_decode(torch, ba, lt):
-    torch.cuda.empty_cache()      # phase 3's blocks: start from a clean pool
-    cap = make_captioner(torch, 'bfloat16', 'cuda')
-    B, L, batches = 1024, 20, 3
+def phase_decode(torch, model, wrappers, batches=3):
+    """Beam 5 and greedy at B = 1024, bf16, through ``Captioner``; each
+    mode runs with the launch counters of ``wrappers`` (name -> wrapper)
+    set to 0 just before it, and every one must have grown just after.
+    Then the f32 agreement of the kernels (CUDA) with the twins (CPU)."""
+    torch.cuda.empty_cache()      # earlier phases' blocks: a clean pool
+    cap = make_captioner(torch, model, 'bfloat16', 'cuda')
+    B, L = 1024, 20
     fc, att, am = features(torch, B, 'cuda', seed=1)
     rates = {}
-    ba.attend_write_merged.launches = 0
-    lt.logit_topk.launches = 0
+    launches = dict.fromkeys(wrappers, 0)
     for mode in ('beam5', 'greedy'):
+        for fn in wrappers.values():
+            fn.launches = 0
         seq, stats = decode(cap, mode, fc, att, am)     # warm-up
         torch.cuda.synchronize()
         check_output(torch, seq, stats, B, L)
@@ -309,26 +432,25 @@ def phase_decode(torch, ba, lt):
             torch.cuda.synchronize()
             ms.append(1000 * (time.time() - t))
             check_output(torch, seq, stats, B, L)
+        counts = {name: fn.launches for name, fn in wrappers.items()}
+        for name, n in counts.items():
+            if n <= 0:
+                raise AssertionError('%s was never launched on the %s %s '
+                                     'path' % (name, model, mode))
+            launches[name] += n
         rates[mode] = B / (sorted(ms)[batches // 2] / 1000)
         steps = int((seq > 0).sum(1).max()) + 1
-        log('  %s B=%d: %.1f cap/s at the median batch (ms per batch: %s; '
-            'longest caption %d steps), mean ent_sum %.3f'
-            % (mode, B, rates[mode], ', '.join('%.1f' % v for v in ms),
-               steps, float(stats['ent_sum'].mean())))
-    launches = {'attend_write_merged': ba.attend_write_merged.launches,
-                'logit_topk': lt.logit_topk.launches}
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError('%s was never launched on the main path'
-                                 % name)
-    log('  launches on the main path: %s' % launches)
+        log('  %s %s B=%d: %.1f cap/s at the median batch (ms per batch: '
+            '%s; longest caption %d steps), mean ent_sum %.3f, launches %s'
+            % (model, mode, B, rates[mode], ', '.join('%.1f' % v for v in ms),
+               steps, float(stats['ent_sum'].mean()), counts))
     del cap
 
     # f32: kernels (CUDA) against twins (CPU) on one small batch
     torch.set_num_threads(min(8, os.cpu_count() or 1))
     agree = {}
-    capg = make_captioner(torch, 'float32', 'cuda')
-    capc = make_captioner(torch, 'float32', 'cpu')
+    capg = make_captioner(torch, model, 'float32', 'cuda')
+    capc = make_captioner(torch, model, 'float32', 'cpu')
     fc, att, am = features(torch, 8, 'cpu', seed=2)
     for mode in ('beam5', 'greedy'):
         sg, stg = decode(capg, mode, fc.cuda(), att.cuda(), am.cuda())
@@ -336,8 +458,8 @@ def phase_decode(torch, ba, lt):
         same = (sg.cpu() == sc).all(1).float().mean().item()
         err = (stg['ent_sum'].cpu() - stc['ent_sum']).abs().max().item()
         agree[mode] = same
-        log('  f32 %s: captions identical kernels vs twins %.3f, max '
-            'ent_sum diff %.2e' % (mode, same, err))
+        log('  %s f32 %s: captions identical kernels vs twins %.3f, max '
+            'ent_sum diff %.2e' % (model, mode, same, err))
         if same < 0.75:
             raise AssertionError('f32 decode: kernels and twins agree on '
                                  'only %.3f of the captions' % same)
@@ -351,6 +473,7 @@ def main():
         return 2
     sys.path.insert(0, HERE)
     from captioning_tpu_torch.ops import _build
+    from captioning_tpu_torch.ops import attention as aa
     from captioning_tpu_torch.ops import beam_attend as ba
     from captioning_tpu_torch.ops import logit_topk as lt
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -361,18 +484,32 @@ def main():
                                         torch.cuda.get_device_name(0),
                                         torch.cuda.device_count()))
     t = time.time()
-    for name in ('beam_attend', 'logit_topk'):
-        log('phase 2: built %s' % os.path.relpath(_build.build(name), HERE))
+    names = ('beam_attend', 'logit_topk', 'additive_attention')
+    with ThreadPoolExecutor(len(names)) as pool:
+        for path in pool.map(_build.build, names):
+            log('phase 2: built %s' % os.path.relpath(path, HERE))
     log('phase 2: build %.1f s' % (time.time() - t))
 
     log('phase 3: kernels against their twins')
     errs = phase_kernels(torch, ba, lt)
+    errs['additive_attention'] = phase_additive_attention(torch, aa)
     times = time_kernels(torch, ba, lt)
+    aa_times = time_additive_attention(torch, aa)
+    times['additive_attention'] = aa_times[5]
     for name, (ms, plain) in times.items():
         log('  %s: kernel %.4f ms, twin %.4f ms' % (name, ms, plain))
+    log('  additive_attention greedy (N=1024, bw=1): kernel %.4f ms, twin '
+        '%.4f ms' % aa_times[1])
 
     log('phase 4-5: full-width transformer through Captioner')
-    rates, launches, agree = phase_decode(torch, ba, lt)
+    rates, launches, agree = phase_decode(
+        torch, 'transformer', {'attend_write_merged': ba.attend_write_merged,
+                               'logit_topk': lt.logit_topk})
+    log('phase 6: full-width UpDown through Captioner')
+    u_rates, u_launches, u_agree = phase_decode(
+        torch, 'updown',
+        {'additive_attention': aa.additive_attention_fused})
+    launches.update(u_launches)
 
     bad = [m for m in sys.modules
            if m.split('.')[0] in ('jax', 'flax', 'optax', 'captioning_tpu')]
@@ -383,14 +520,18 @@ def main():
                 ('captioning_tpu_torch/csrc/beam_attend.cu',
                  'captioning_tpu/ops/beam_attend.py:208'),
                 'logit_topk': ('captioning_tpu_torch/csrc/logit_topk.cu',
-                               'captioning_tpu/ops/logit_topk.py:53')}
+                               'captioning_tpu/ops/logit_topk.py:53'),
+                'additive_attention':
+                ('captioning_tpu_torch/csrc/additive_attention.cu',
+                 'captioning_tpu/ops/attention.py:56')}
     kernels = [{'name': name, 'route': 'cuda', 'source': src,
                 'replaces': rep, 'launches': launches[name],
                 'max_abs_err': errs[name], 'ms': times[name][0],
                 'plain_ms': times[name][1]}
                for name, (src, rep) in replaces.items()]
-    log('cap/s: %s; f32 caption agreement: %s' % (json.dumps(rates),
-                                                   json.dumps(agree)))
+    log('cap/s: transformer %s, updown %s; f32 caption agreement: '
+        'transformer %s, updown %s' % (json.dumps(rates), json.dumps(u_rates),
+                                       json.dumps(agree), json.dumps(u_agree)))
     log(gpu_line())
     log(json.dumps({'kernels': kernels}))
     log(json.dumps({'ok': True, 'device': {

@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from captioning_tpu_torch.ops import _build
+from captioning_tpu_torch.ops.attention import additive_attention_fused
 from captioning_tpu_torch.ops.beam_attend import attend_write_merged
 from captioning_tpu_torch.ops.logit_topk import logit_topk
 
@@ -21,7 +22,8 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
         _build.build('beam_attend')
 
 
-@pytest.mark.parametrize('name', ['beam_attend', 'logit_topk'])
+@pytest.mark.parametrize('name', ['beam_attend', 'logit_topk',
+                                  'additive_attention'])
 def test_library_is_keyed_by_source_hash(name, tmp_path, monkeypatch):
     path = _build.library_path(name)
     assert os.path.basename(path).startswith(name + '-')
@@ -44,3 +46,26 @@ def test_non_cpu_tensors_never_take_the_twins():
     with pytest.raises(ValueError, match='CUDA'):
         logit_topk(q, w, b, k=5)
     assert attend_write_merged.launches == 0 and logit_topk.launches == 0
+
+
+@pytest.mark.parametrize('bw', [1, 5])
+@pytest.mark.parametrize('masked', [False, True])
+def test_non_cpu_tensors_never_take_the_attention_twin(bw, masked):
+    meta = dict(device='meta')
+    nb, M, H, A = 4, 6, 10, 8
+    att_h = torch.empty(nb * bw, A, **meta)
+    att, p_att = torch.empty(nb, M, H, **meta), torch.empty(nb, M, A, **meta)
+    mask = torch.ones(nb, M, **meta) if masked else None
+    with pytest.raises(ValueError, match='CUDA'):
+        additive_attention_fused(att_h, att, p_att, mask,
+                                 torch.empty(A, **meta),
+                                 torch.empty(1, **meta))
+    assert additive_attention_fused.launches == 0
+
+
+def test_every_source_has_a_signature():
+    """Each csrc/*.cu is bound: ``_build.load`` sets argtypes from
+    SIGNATURES, so a source without an entry could not be called."""
+    sources = sorted(f[:-3] for f in os.listdir(_build.CSRC)
+                     if f.endswith('.cu'))
+    assert sources == sorted(_build.SIGNATURES)

@@ -120,3 +120,33 @@ def test_off_slice_options_raise(models, opt, what):
         with pytest.raises(NotImplementedError, match='want_logps'):
             pcap.sample_beam(fc, att, am, None, {'beam_size': 3},
                              want_logps=True)
+
+
+@pytest.mark.parametrize('lp', ['', 'wu_0.9'])
+def test_plain_step_routes_match_jax(models, lp):
+    """The transformer bound without its fused epilogue takes the engine's
+    plain-step routes (the full log-softmax table; in beam search with the
+    ancestry table, as the JAX engine's non-fused branch on the CPU)."""
+    jcap, variables, pcap, _ = models
+    fc, att, am = inputs(B=3, seed=7)
+    dm = dataclasses.replace(pcap.bind(), step_topk=None)
+    beam = {'beam_size': 3, 'sample_n': 1, 'group_size': 1,
+            'suppress_UNK': 1, 'length_penalty': lp}
+    js, jst, _ = jcap.sample_beam_jit(
+        variables, jnp.asarray(fc), jnp.asarray(att), jnp.asarray(am),
+        jax.random.PRNGKey(1), beam, want_logps=False)
+    greedy = {'sample_method': 'greedy', 'beam_size': 1, 'sample_n': 1}
+    jg, jgst = jcap.sample_stats_jit(variables, jnp.asarray(fc),
+                                     jnp.asarray(att), jnp.asarray(am),
+                                     jax.random.PRNGKey(1), greedy)
+    with torch.inference_mode():
+        ps, pst, _ = decoding.sample_beam(dm, *_torch(fc, att, am), None,
+                                          beam)
+        pg, pgst = decoding.sample(dm, *_torch(fc, att, am), None, greedy)
+    np.testing.assert_array_equal(ps.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(pg.numpy(), np.asarray(jg))
+    for got, want in ((pst, jst), (pgst, jgst)):
+        for key in ('ent_sum', 'lp_sum'):
+            np.testing.assert_allclose(got[key].numpy(),
+                                       np.asarray(want[key]), atol=ATOL,
+                                       rtol=0)

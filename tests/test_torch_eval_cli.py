@@ -1,8 +1,8 @@
 """tools/eval_torch.py end to end on the synthetic dataset (--device cpu):
-a JAX-initialised tiny transformer saved as model.npz + infos pickle, the
-port's CLI run on it, and its predictions compared with the JAX
-``eval_split`` on the same checkpoint: identical captions, entropy and
-perplexity within 1e-4."""
+a JAX-initialised tiny transformer or UpDown saved as model.npz + infos
+pickle, the port's CLI run on it, and its predictions compared with the
+JAX ``eval_split`` on the same checkpoint: identical captions, entropy and
+perplexity within 1e-4, the val loss within rtol 1e-5."""
 
 import json
 import os
@@ -18,19 +18,17 @@ from tests.util_synth import build_synthetic_dataset, make_opt
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-@pytest.fixture(scope='module')
-def checkpoint(tmp_path_factory):
+def _checkpoint(tmp_path_factory, model, **kw):
     import jax
 
     from captioning_tpu.data.dataset import DataLoader
     from captioning_tpu.models import setup
     from captioning_tpu.utils import misc
 
-    root = tmp_path_factory.mktemp('torch_evalcli')
+    root = tmp_path_factory.mktemp('torch_evalcli_' + model)
     ds = build_synthetic_dataset(str(root / 'synth'))
-    opt = make_opt(ds, 'transformer', id='tcli', use_pallas=1)
-    for k, v in dict(N_enc=2, N_dec=2, d_model=16, d_ff=32,
-                     num_att_heads=4, max_length=6).items():
+    opt = make_opt(ds, model, id='tcli', use_pallas=1)
+    for k, v in dict(kw, max_length=6).items():
         setattr(opt, k, v)
     loader = DataLoader(opt)
     opt.vocab_size = loader.vocab_size
@@ -44,8 +42,29 @@ def checkpoint(tmp_path_factory):
     return ds, root, ckpt, cap, variables, opt
 
 
+@pytest.fixture(scope='module')
+def checkpoint(tmp_path_factory):
+    return _checkpoint(tmp_path_factory, 'transformer', N_enc=2, N_dec=2,
+                       d_model=16, d_ff=32, num_att_heads=4)
+
+
+@pytest.fixture(scope='module')
+def updown_checkpoint(tmp_path_factory):
+    return _checkpoint(tmp_path_factory, 'updown')
+
+
 @pytest.mark.parametrize('beam', [1, 3])
 def test_eval_cli_matches_jax_eval_split(checkpoint, beam, monkeypatch):
+    _cli_matches_jax(checkpoint, beam, monkeypatch)
+
+
+@pytest.mark.parametrize('beam', [1, 3])
+def test_eval_cli_updown_matches_jax_eval_split(updown_checkpoint, beam,
+                                                monkeypatch):
+    _cli_matches_jax(updown_checkpoint, beam, monkeypatch)
+
+
+def _cli_matches_jax(checkpoint, beam, monkeypatch):
     from captioning_tpu.data.dataset import DataLoader
     from captioning_tpu.utils import eval_utils
 

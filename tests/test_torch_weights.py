@@ -1,5 +1,6 @@
 """The weight bridge: every JAX param key consumed exactly once, with the
-right shapes, into a strict load of the port's module."""
+right shapes, into a strict load of the port's module (the transformer
+and the RNN attention captioners)."""
 
 import numpy as np
 import pytest
@@ -7,9 +8,11 @@ import torch
 
 from captioning_tpu.utils.misc import _flatten_tree
 from captioning_tpu_torch.models.config import config_from_opt
+from captioning_tpu_torch.models.harness import AttCaptioner
 from captioning_tpu_torch.models.transformer import TransformerCaptioner
 from captioning_tpu_torch.utils.weights import state_dict_from_jax
-from tests.torch_port_util import V, jax_and_port, tiny_opt
+from tests.torch_port_util import (RNN_MODELS, V, jax_and_port, tiny_opt,
+                                   tiny_rnn_opt)
 
 
 @pytest.fixture(autouse=True)
@@ -63,3 +66,52 @@ def test_bridge_accepts_nested_tree_and_params_subtree():
     assert set(a) == set(b)
     for k in a:
         assert torch.equal(a[k], b[k])
+
+
+@pytest.mark.parametrize('model', RNN_MODELS)
+@pytest.mark.parametrize('use_bn,logit_layers', [(0, 1), (2, 2)])
+def test_rnn_bridge_consumes_every_key(model, use_bn, logit_layers):
+    opt = tiny_rnn_opt(model, use_bn=use_bn, logit_layers=logit_layers)
+    _, variables, _ = jax_and_port(opt=opt)
+    cfg = config_from_opt(opt, V)
+    flat = _flatten_tree(variables)
+    sd = state_dict_from_jax(flat, cfg)
+    module = AttCaptioner(cfg)
+    ref = module.state_dict()
+    assert set(sd) == set(ref)
+    for k, v in ref.items():
+        assert tuple(sd[k].shape) == tuple(v.shape), k
+    module.load_state_dict(sd, strict=True)
+    assert sum(v.size for v in flat.values()) == sum(
+        v.numel() for v in sd.values())
+    p = variables['params']
+    np.testing.assert_array_equal(
+        sd['core.attention.alpha_net.weight'].numpy(),
+        p['core']['attention']['alpha_net']['kernel'].T)
+    np.testing.assert_array_equal(sd['embed.embedding'].numpy(),
+                                  p['embed']['embedding'])
+    if logit_layers == 2:
+        np.testing.assert_array_equal(sd['logit_hidden.0.weight'].numpy(),
+                                      p['logit_hidden_0']['kernel'].T)
+    if use_bn:
+        np.testing.assert_array_equal(
+            sd['att_bn_out.var'].numpy(),
+            variables['batch_stats']['att_bn_out']['var'])
+
+
+def test_rnn_bridge_rejects_leftover_and_missing_keys():
+    opt = tiny_rnn_opt('updown')
+    _, variables, _ = jax_and_port(opt=opt)
+    cfg = config_from_opt(opt, V)
+    flat = _flatten_tree(variables)
+    with pytest.raises(KeyError, match='not consumed'):
+        state_dict_from_jax(dict(flat, **{'params/core/extra/kernel':
+                                          np.zeros((2, 2))}), cfg)
+    # an att2in2 tree is no updown tree: a2c is left over, lstms missing
+    a2i2 = tiny_rnn_opt('att2in2')
+    _, a2i2_vars, _ = jax_and_port(opt=a2i2)
+    with pytest.raises(KeyError, match='not consumed'):
+        state_dict_from_jax(a2i2_vars, cfg)
+    flat.pop('params/core/lang_lstm/hh/bias')
+    with pytest.raises(KeyError, match='missing'):
+        state_dict_from_jax(flat, cfg)

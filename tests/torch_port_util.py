@@ -1,4 +1,5 @@
-"""Shared set-up of the PyTorch port's parity tests: one tiny transformer
+"""Shared set-up of the PyTorch port's parity tests: one tiny model (the
+transformer, or an RNN attention captioner of ``tiny_rnn_opt``)
 initialised by the JAX package and loaded into the port, fed the same
 numpy inputs on both sides (float32, CPU)."""
 
@@ -24,32 +25,46 @@ def tiny_opt(**kw):
     return opt
 
 
+RNN_MODELS = ('updown', 'att2in2', 'att2all2')
+
+
+def tiny_rnn_opt(caption_model='updown', **kw):
+    """An RNN attention captioner at tiny widths that all differ (so a
+    swapped dimension cannot pass): rnn 24, word embedding 20, attention
+    hidden 12, fc 10, att 12."""
+    return tiny_opt(**dict(dict(caption_model=caption_model, rnn_size=24,
+                                input_encoding_size=20, att_hid_size=12),
+                           **kw))
+
+
 def tiny_vocab():
     vocab = {str(i): 'w%d' % i for i in range(1, V + 1)}
     vocab[str(V)] = 'UNK'
     return vocab
 
 
-def jax_and_port(seed=0, eos_boost=0.0, **kw):
-    """(JAX Captioner, its variables as numpy, port Captioner).
+def jax_and_port(seed=0, eos_boost=0.0, opt=None, **kw):
+    """(JAX Captioner, its variables as numpy, port Captioner) for ``opt``
+    (default ``tiny_opt(**kw)``).
 
-    ``eos_boost`` raises the generator's EOS bias so captions end early
-    (the early exits then fire)."""
+    ``eos_boost`` raises the vocab projection's EOS bias so captions end
+    early (the early exits then fire)."""
     import jax
     import torch
 
     from captioning_tpu.models import setup as jax_setup
     from captioning_tpu_torch.models.api import setup as port_setup
 
-    opt = tiny_opt(**kw)
+    opt = opt or tiny_opt(**kw)
     jcap = jax_setup(opt, tiny_vocab())
     variables = jax.device_get(jcap.init_params(jax.random.PRNGKey(seed),
                                                 att_len=M))
     variables = jax.tree.map(np.asarray, variables)
     if eos_boost:
-        variables['params']['generator']['bias'] = (
-            variables['params']['generator']['bias'].copy())
-        variables['params']['generator']['bias'][0] += eos_boost
+        out = variables['params'][
+            'generator' if 'generator' in variables['params'] else 'logit']
+        out['bias'] = out['bias'].copy()
+        out['bias'][0] += eos_boost
     pcap = port_setup(opt, tiny_vocab()).load_jax_variables(variables)
     torch.manual_seed(0)
     return jcap, variables, pcap

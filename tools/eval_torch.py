@@ -5,7 +5,9 @@ the eval options on the training opts exactly as tools/eval.py does, and
 evaluates with ``captioning_tpu_torch.utils.eval_utils.eval_split`` on
 ``--device`` (cuda by default; the CUDA kernels build at first use).
 With ``--device cuda`` and no GPU it raises: it never carries on on the
-CPU.  Only the transformer is ported so far.
+CPU.  The ported models are the transformer and the RNN attention
+captioners updown / topdown, att2in2 and att2all2; the others raise
+``NotImplementedError``.
 
     python tools/eval_torch.py --model log/model-best.npz \\
         --infos_path log/infos_<id>-best.pkl --beam_size 5 --split test
