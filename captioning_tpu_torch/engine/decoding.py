@@ -15,12 +15,15 @@ Port of the eval routes of ``captioning_tpu/engine/decoding.py``:
   ancestry table when it has one, else a plain row gather.
 
 The JAX scans become host loops; the early-exit condition costs one host
-sync per step.  Every ``top_k`` goes through ``ops.logit_topk.top_k``
-(lowest index wins a tie, as ``lax.top_k``): the beam and pool merges are
-full of exact ties (NEG fills, lane-0 masking, pool entries that must win
-ties against candidates).  The JAX gates ``NBG % 8 == 0`` and
-``N % 8 == 0`` in front of the fused branches are TPU tiling rules and are
-dropped: the CUDA kernels take any row count.
+sync per step.  Every top-k resolves a tie to the lowest index, as
+``lax.top_k``: the beam and pool merges are full of exact ties (NEG fills,
+lane-0 masking, pool entries that must win ties against candidates).  The
+plain branch's selection over the full ``[B, bdash*(V+1)]`` table goes
+through ``ops.topk.topk_lastdim`` (a CUDA kernel on the card); the small
+merges over [B, bdash²] and [B, 2·bdash] use the stable-sort ``top_k``.
+The JAX gates ``NBG % 8 == 0`` and ``N % 8 == 0`` in front of the fused
+branches are TPU tiling rules and are dropped: the CUDA kernels take any
+row count.
 
 Not ported yet (each raises ``NotImplementedError``; see ROADMAP.md):
 diverse groups, decoding constraints, bad-ending removal, trigram
@@ -35,7 +38,7 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
-from ..ops.logit_topk import top_k
+from ..ops.topk import top_k, topk_lastdim
 
 NEG = -1e30  # "never selected" sentinel (finite to keep arithmetic NaN-free)
 _ROADMAP = 'not ported yet; see ROADMAP.md, Queue A'
@@ -287,7 +290,7 @@ def _beam_search_fast(dm: DecodeModel, init, init_state, feats_per_beam,
             # ---- selection over the full candidate table (the beam sums
             # are already in it); flat ties go to the lowest beam, then
             # the lowest vocab index ----
-            ys, ix = top_k(cand.view(B, bdash * V1), bdash)
+            ys, ix = topk_lastdim(cand.view(B, bdash * V1), bdash)
             beam_ix = ix // V1
             sel_ix = ix % V1
 

@@ -1,7 +1,7 @@
 """Captioner: a ported model bound into the decode engine's protocol.
 
 Port of ``captioning_tpu/models/api.py`` for the eval slice: ``setup``
-builds the transformer or one of the RNN attention captioners of
+builds the transformer or one of the RNN captioners of
 ``harness.MODELS`` (other model keys raise), ``bind`` returns the
 ``DecodeModel`` the engine drives, and ``sample_beam``/``sample_stats``/
 ``forward_tf`` are the entry points ``eval_split`` calls.  Parameters live
@@ -107,10 +107,12 @@ class Captioner:
             bos_idx=cfg.bos_idx, eos_idx=cfg.eos_idx, pad_idx=cfg.pad_idx,
             unk_idx=self.unk_idx)
         if self.module_cls is AttCaptioner:
-            # the attention head reads one feats row per beam block; the
+            # the attention heads of the shared-feats models read one feats
+            # row per beam block, the other RNN models get one per lane; the
             # state is reordered by a plain row gather (no ancestry) and
             # the vocab epilogue is the engine's plain-step route
-            return DecodeModel(shared_beam_feats=True, **common)
+            return DecodeModel(shared_beam_feats=module.shared_feats,
+                               **common)
 
         def step_topk(it, feats, state, rng, k, temp, unk_bias, unk_idx,
                       beam_width=0):
@@ -166,6 +168,6 @@ class Captioner:
 
 def setup(opt, vocab: Optional[Dict[str, str]] = None,
           device='cpu') -> Captioner:
-    """Model factory: the transformer and the RNN attention captioners of
+    """Model factory: the transformer and the RNN captioners of
     ``harness.MODELS``, for now."""
     return Captioner(config_from_opt(opt, opt.vocab_size), vocab, device)

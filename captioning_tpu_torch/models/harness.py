@@ -1,26 +1,38 @@
-"""The RNN attention captioners (eval): UpDown / TopDown, Att2in2, Att2all2.
+"""The RNN captioners (eval): UpDown / TopDown, Att2in2, Att2all2, StackAtt /
+DenseAtt, AdaAtt / AdaAttMO, NewFC / FC / LM.
 
 Port of the eval paths of ``captioning_tpu/models/harness.py``: the shared
-embeds of ``AttCaptioner`` (word embedding with ReLU, fc / att embeds, the
-optional masked BatchNorm, the ``ctx2att`` key projection, the logit MLP)
-around a per-step core, exposing the engine's step protocol
+embeds of ``AttCaptioner`` (word embedding, with ReLU except for the FC
+family; the fc embed as an ``MLPEmbed``, a plain Linear (NewFC / FC) or
+none; att embeds, the optional masked BatchNorm and the ``ctx2att`` key
+projection for the models with attention; the logit MLP, none for the
+legacy 'fc') around a per-step core, exposing the engine's step protocol
 (``prepare_feature``, ``init_state``, ``step``) and an eval ``forward_tf``.
 There is no dropout: nothing here trains yet.  Module and parameter names
-follow the JAX tree (``core.attention.h2att``, ``logit_hidden.0``, ...), so
-the weight bridge maps keys one to one.
+follow the JAX tree (``core.attention.h2att``, ``core.lstm0.i2h``,
+``core.h2h_0``, ``logit_hidden.0``, ...), so the weight bridge maps keys
+one to one.
 
-The attention head runs kernel B3 (``ops.attention.additive_attention_fused``)
-for CUDA tensors, row-aligned or block-shared.  For CPU tensors it follows
-the JAX branch that ``cfg.use_pallas`` selects: the fused kernel's twin
-when the rows are aligned and ``use_pallas`` is set, the plain
-``layers.additive_attention`` otherwise.
+Two kernels run inside the cores for CUDA tensors:
+
+* the attention heads (UpDown, Att2in2, Att2all2, StackAtt's two) run
+  kernel B3 (``ops.attention.additive_attention_fused``), row-aligned or
+  block-shared.  For CPU tensors the head follows the JAX branch that
+  ``cfg.use_pallas`` selects: the fused kernel's twin when the rows are
+  aligned and ``use_pallas`` is set, the plain ``layers.additive_attention``
+  otherwise;
+* every maxout LSTM chain (``MaxoutLSTMCell`` of StackAtt / DenseAtt and
+  the FC family, the AdaAttMO cells, the Att2in2 / Att2all2 cells) runs
+  ``ops.lstm.maxout_lstm_gates_fused``, whose twin is the JAX chain.
+
+AdaAtt's sentinel attention, AdaAtt's tanh cell and UpDown's torch-style
+LSTM cells are plain PyTorch, as the JAX package left them to XLA.
 
 Parameters are float32; ``to_compute_dtype`` casts the Linear and Embedding
 weights to ``cfg.dtype`` (the masked BatchNorm stays float32), and the LSTM
 state h / c is kept in the compute dtype, as the JAX cells keep it.
 
-StackAtt / DenseAtt, AdaAtt, FC / NewFC / ShowTell and att2in are not
-ported yet (ROADMAP.md).
+ShowTell, att2in and AoA are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -32,12 +44,21 @@ import torch
 from torch import nn
 
 from ..ops.attention import additive_attention_fused
+from ..ops.lstm import maxout_lstm_gates_fused
 from .config import ModelConfig
 from .layers import (Embedding, MaskedBatchNorm, MLPEmbed, additive_attention,
                      init_dense, linear, uniform_)
 
 # model keys served by this module; 'topdown' is UpDown
-MODELS = ('updown', 'topdown', 'att2in2', 'att2all2')
+MODELS = ('updown', 'topdown', 'att2in2', 'att2all2', 'stackatt',
+          'denseatt', 'adaatt', 'adaattmo', 'newfc', 'fc', 'language_model')
+# the models whose cores read attention features only through
+# AttentionHead, which takes one feats row per block of query rows (the JAX
+# api's _SHARED_FEATS_RNN); AdaAtt reads them directly
+SHARED_FEATS = ('updown', 'topdown', 'att2in2', 'att2all2', 'stackatt',
+                'denseatt')
+# the FC family: no attention features, words embedded without the ReLU
+_NO_ATT = ('newfc', 'fc', 'language_model')
 
 
 class TorchLSTMCell(nn.Module):
@@ -88,13 +109,18 @@ class AttentionHead(nn.Module):
                                   self.alpha_net)
 
 
-def _maxout_cell(s, in_a, in_b, c_prev, H: int):
-    """The att2in2 / att2all2 cell: sigmoid gates from s [N, 3H], the
-    input transform max(in_a, in_b)."""
-    gates = torch.sigmoid(s[:, :3 * H])
-    next_c = (gates[:, H:2 * H] * c_prev
-              + gates[:, :H] * torch.maximum(in_a, in_b))
-    return gates[:, 2 * H:3 * H] * torch.tanh(next_c), next_c
+class MaxoutLSTMCell(nn.Module):
+    """The 5-gate maxout LSTM (reference FCModel.py:13-42): ``i2h`` and
+    ``h2h`` stay GEMMs, the gate chain runs ``maxout_lstm_gates_fused``."""
+
+    def __init__(self, in_features: int, rnn_size: int):
+        super().__init__()
+        self.i2h = nn.Linear(in_features, 5 * rnn_size)
+        self.h2h = nn.Linear(rnn_size, 5 * rnn_size)
+
+    def forward(self, x, h, c):
+        s = linear(x, self.i2h) + linear(h, self.h2h)
+        return maxout_lstm_gates_fused(s, c.contiguous())
 
 
 class Att2in2Core(nn.Module):
@@ -115,8 +141,10 @@ class Att2in2Core(nn.Module):
         h_prev, c_prev = state['h'][:, -1], state['c'][:, -1]
         att_res = self.attention(h_prev, feats)
         s = linear(xt, self.i2h) + linear(h_prev, self.h2h)
-        in_t = s[:, 3 * H:] + linear(att_res, self.a2c)
-        next_h, next_c = _maxout_cell(s, in_t[:, :H], in_t[:, H:], c_prev, H)
+        # the JAX in_transform = s[:, 3H:5H] + a2c(att), in s's dtype; s is
+        # a fresh sum, so the add may go in place
+        s[:, 3 * H:] += linear(att_res, self.a2c)
+        next_h, next_c = maxout_lstm_gates_fused(s, c_prev.contiguous())
         return next_h, dict(state, h=next_h[:, None], c=next_c[:, None])
 
 
@@ -134,13 +162,11 @@ class Att2all2Core(nn.Module):
         self.a2h = nn.Linear(H, 5 * H)
 
     def forward(self, xt, feats, state):
-        H = self.h2h.in_features
         h_prev, c_prev = state['h'][:, -1], state['c'][:, -1]
         att_res = self.attention(h_prev, feats)
         s = (linear(xt, self.i2h) + linear(h_prev, self.h2h)
              + linear(att_res, self.a2h))
-        next_h, next_c = _maxout_cell(s, s[:, 3 * H:4 * H], s[:, 4 * H:],
-                                      c_prev, H)
+        next_h, next_c = maxout_lstm_gates_fused(s, c_prev.contiguous())
         return next_h, dict(state, h=next_h[:, None], c=next_c[:, None])
 
 
@@ -167,8 +193,160 @@ class UpDownCore(nn.Module):
                             c=torch.stack([c_att, c_lang], 1))
 
 
+class StackAttCore(nn.Module):
+    """Three maxout LSTMs and two attention heads in a chain; DenseAtt adds
+    the ``MLPEmbed`` fusions (reference AttModel.py:650-717)."""
+
+    def __init__(self, cfg: ModelConfig, dense_fusion: bool = False):
+        super().__init__()
+        E, H = cfg.input_encoding_size, cfg.rnn_size
+        use_pallas = bool(cfg.use_pallas)
+        self.att1 = AttentionHead(H, cfg.att_hid_size, use_pallas)
+        self.att2 = AttentionHead(H, cfg.att_hid_size, use_pallas)
+        self.lstm0 = MaxoutLSTMCell(E + H, H)        # [xt, fc_embed(fc)]
+        self.lstm1 = MaxoutLSTMCell(2 * H, H)
+        self.emb2 = nn.Linear(H, H)
+        self.lstm2 = MaxoutLSTMCell(2 * H, H)
+        self.fusion1 = MLPEmbed(2 * H, H) if dense_fusion else None
+        self.fusion2 = MLPEmbed(3 * H, H) if dense_fusion else None
+
+    def forward(self, xt, feats, state):
+        h, c = state['h'], state['c']
+        h0, c0 = self.lstm0(torch.cat([xt, feats['fc_feats']], 1), h[:, 0],
+                            c[:, 0])
+        att1 = self.att1(h0, feats)
+        h1, c1 = self.lstm1(torch.cat([h0, att1], 1), h[:, 1], c[:, 1])
+        att2 = self.att2(h1 + linear(att1, self.emb2), feats)
+        if self.fusion1 is not None:
+            h2_in = torch.cat([self.fusion1(torch.cat([h0, h1], 1)), att2], 1)
+        else:
+            h2_in = torch.cat([h1, att2], 1)
+        h2, c2 = self.lstm2(h2_in, h[:, 2], c[:, 2])
+        out = (self.fusion2(torch.cat([h0, h1, h2], 1))
+               if self.fusion2 is not None else h2)
+        return out, dict(state, h=torch.stack([h0, h1, h2], 1),
+                         c=torch.stack([c0, c1, c2], 1))
+
+
+class AdaAttCore(nn.Module):
+    """Adaptive attention with a visual sentinel (reference
+    AttModel.py:451-613): ``num_layers`` LSTMs, the last one also gating
+    the sentinel ``fake_region``, then attention over [sentinel, regions].
+    AdaAtt's cells use a tanh input transform; AdaAttMO's are maxout cells
+    and run ``maxout_lstm_gates_fused``.  The sentinel joins the regions,
+    so ``input_encoding_size`` must equal ``rnn_size``."""
+
+    def __init__(self, cfg: ModelConfig, use_maxout: bool = False):
+        super().__init__()
+        E, H, A, L = (cfg.input_encoding_size, cfg.rnn_size,
+                      cfg.att_hid_size, cfg.num_layers)
+        n = (5 if use_maxout else 4) * H
+        self.use_maxout = use_maxout
+        self.num_layers = L
+        self.w2h = nn.Linear(E, n)
+        self.v2h = nn.Linear(H, n)               # fc_embed(fc) is [H]
+        for layer in range(L):
+            if layer:
+                self.add_module('i2h_%d' % (layer - 1), nn.Linear(H, n))
+            self.add_module('h2h_%d' % layer, nn.Linear(H, n))
+        if L == 1:
+            self.r_w2h = nn.Linear(E, H)
+            self.r_v2h = nn.Linear(H, H)
+        else:
+            self.r_i2h = nn.Linear(H, H)
+        self.r_h2h = nn.Linear(H, H)
+        self.fr_linear = nn.Linear(H, E)
+        self.fr_embed = nn.Linear(E, A)
+        self.ho_linear = nn.Linear(H, E)
+        self.ho_embed = nn.Linear(E, A)
+        self.alpha_net = nn.Linear(A, 1)
+        self.att2h = nn.Linear(E, H)
+
+    def _cell(self, s, c_prev):
+        """(next_h, next_c, tanh(next_c)) from the gate sums s."""
+        if self.use_maxout:
+            next_h, next_c = maxout_lstm_gates_fused(s, c_prev.contiguous())
+            return next_h, next_c, torch.tanh(next_c)
+        H = c_prev.shape[-1]
+        gates = torch.sigmoid(s[:, :3 * H])
+        next_c = (gates[:, H:2 * H] * c_prev
+                  + gates[:, :H] * torch.tanh(s[:, 3 * H:]))
+        tanh_c = torch.tanh(next_c)
+        return gates[:, 2 * H:] * tanh_c, next_c, tanh_c
+
+    def forward(self, xt, feats, state):
+        img_fc = feats['fc_feats']
+        hs, cs = [], []
+        x = xt
+        for layer in range(self.num_layers):
+            prev_h, prev_c = state['h'][:, layer], state['c'][:, layer]
+            if layer == 0:
+                i2h = linear(x, self.w2h) + linear(img_fc, self.v2h)
+            else:
+                x = hs[-1]
+                i2h = linear(x, getattr(self, 'i2h_%d' % (layer - 1)))
+            s = i2h + linear(prev_h, getattr(self, 'h2h_%d' % layer))
+            next_h, next_c, tanh_c = self._cell(s, prev_c)
+            if layer == self.num_layers - 1:
+                if layer == 0:
+                    r = linear(x, self.r_w2h) + linear(img_fc, self.r_v2h)
+                else:
+                    r = linear(x, self.r_i2h)
+                n5 = r + linear(prev_h, self.r_h2h)
+                fake_region = torch.sigmoid(n5) * tanh_c
+            hs.append(next_h)
+            cs.append(next_c)
+
+        # AdaAtt_attention (reference AttModel.py:539-602)
+        fr = torch.relu(linear(fake_region, self.fr_linear))
+        fr_embed = linear(fr, self.fr_embed)
+        h_out_linear = torch.tanh(linear(hs[-1], self.ho_linear))
+        h_out_embed = linear(h_out_linear, self.ho_embed)
+        img_all = torch.cat([fr[:, None], feats['att_feats']], 1)
+        img_all_embed = torch.cat([fr_embed[:, None], feats['p_att_feats']],
+                                  1)
+        hA = torch.tanh(img_all_embed + h_out_embed[:, None])
+        weight = torch.softmax(linear(hA, self.alpha_net)[..., 0], dim=-1)
+        masks = feats['att_masks']
+        if masks is not None:
+            weight = weight * torch.cat([masks[:, :1], masks], 1)
+            weight = weight / weight.sum(-1, keepdim=True).clamp_min(1e-9)
+        dt = torch.promote_types(weight.dtype, img_all.dtype)
+        vis_att = torch.einsum('bm,bmh->bh', weight.to(dt), img_all.to(dt))
+        h = torch.tanh(linear(vis_att + h_out_linear, self.att2h))
+        return h, dict(state, h=torch.stack(hs, 1), c=torch.stack(cs, 1))
+
+
+class FCCore(nn.Module):
+    """NewFC / FC / LM: one maxout LSTM whose state is seeded with the image
+    embedding at the first step (reference AttModel.py:904-968,
+    FCModel.py:79-115).  The JAX core runs the seeding cell every step and
+    selects it per row where ``t == 0``; here every row shares the host
+    int ``t``, so the seeding cell runs once, at ``t == 0``: the same
+    values."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.lstm = MaxoutLSTMCell(cfg.input_encoding_size, cfg.rnn_size)
+
+    def forward(self, xt, feats, state):
+        h, c = state['h'][:, -1], state['c'][:, -1]
+        if state['t'] == 0:
+            h, c = self.lstm(feats['fc_feats'], torch.zeros_like(h),
+                             torch.zeros_like(c))
+        next_h, next_c = self.lstm(xt, h, c)
+        return next_h, dict(state, h=next_h[:, None], c=next_c[:, None])
+
+
 def state_num_layers(cfg: ModelConfig) -> int:
-    return 2 if cfg.caption_model in ('updown', 'topdown') else 1
+    m = cfg.caption_model
+    if m in ('updown', 'topdown'):
+        return 2
+    if m in ('stackatt', 'denseatt'):
+        return 3
+    if m in ('adaatt', 'adaattmo'):
+        return cfg.num_layers
+    return 1
 
 
 def make_core(cfg: ModelConfig) -> nn.Module:
@@ -179,6 +357,12 @@ def make_core(cfg: ModelConfig) -> nn.Module:
         return Att2all2Core(cfg)
     if m in ('updown', 'topdown'):
         return UpDownCore(cfg)
+    if m in ('stackatt', 'denseatt'):
+        return StackAttCore(cfg, dense_fusion=m == 'denseatt')
+    if m in ('adaatt', 'adaattmo'):
+        return AdaAttCore(cfg, use_maxout=m == 'adaattmo')
+    if m in ('newfc', 'fc', 'language_model'):
+        return FCCore(cfg)
     raise NotImplementedError('caption model %r is not ported yet; see '
                               'ROADMAP.md' % m)
 
@@ -190,26 +374,43 @@ class AttCaptioner(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.cfg = cfg
+        m = cfg.caption_model
         E, H = cfg.input_encoding_size, cfg.rnn_size
         V1 = cfg.vocab_size + 1
         self.core = make_core(cfg)
+        # the FC family embeds words without the ReLU
+        self.embed_relu = m not in _NO_ATT
         self.embed = Embedding(V1, E)
-        self.fc_embed = (MLPEmbed(cfg.fc_feat_size, H)
-                         if cfg.caption_model in ('updown', 'topdown')
-                         else None)
-        self.att_bn_in = (MaskedBatchNorm(cfg.att_feat_size) if cfg.use_bn
-                          else None)
-        self.att_embed = MLPEmbed(cfg.att_feat_size, H)
-        self.att_bn_out = MaskedBatchNorm(H) if cfg.use_bn == 2 else None
-        self.ctx2att = nn.Linear(H, cfg.att_hid_size)
+        if m in ('att2in2', 'att2all2', 'language_model'):
+            self.fc_embed = None
+        elif m in ('newfc', 'fc'):
+            self.fc_embed = nn.Linear(cfg.fc_feat_size, E)
+        else:
+            self.fc_embed = MLPEmbed(cfg.fc_feat_size, H)
+        has_att = m not in _NO_ATT
+        self.att_bn_in = (MaskedBatchNorm(cfg.att_feat_size)
+                          if has_att and cfg.use_bn else None)
+        self.att_embed = MLPEmbed(cfg.att_feat_size, H) if has_att else None
+        self.att_bn_out = (MaskedBatchNorm(H) if has_att and cfg.use_bn == 2
+                           else None)
+        self.ctx2att = nn.Linear(H, cfg.att_hid_size) if has_att else None
+        # 'fc' keeps the legacy logit: no hidden layers
         self.logit_hidden = nn.ModuleList(
-            nn.Linear(H, H) for _ in range(cfg.logit_layers - 1))
+            nn.Linear(H, H)
+            for _ in range(0 if m == 'fc' else cfg.logit_layers - 1))
         self.logit = nn.Linear(H, V1)
+
+    @property
+    def shared_feats(self) -> bool:
+        """Whether one feats row may serve a block of query rows (beam lanes,
+        seq_per_img captions): the JAX ``_SHARED_FEATS_RNN``."""
+        return self.cfg.caption_model in SHARED_FEATS
 
     # -- parameters ----------------------------------------------------------
     def init_weights(self, generator: torch.Generator):
         """The JAX module's init, drawn from ``generator``: Dense
-        U(+-1/sqrt(fan_in)), Embedding N(0, 1), LSTM U(+-1/sqrt(H))."""
+        U(+-1/sqrt(fan_in)), Embedding N(0, 1), LSTM U(+-1/sqrt(H)); the
+        legacy 'fc' embedding and logit U(+-0.1) with a zero logit bias."""
         for m in self.modules():
             if isinstance(m, nn.Linear):
                 init_dense(m, generator)
@@ -217,6 +418,11 @@ class AttCaptioner(nn.Module):
         for m in self.modules():
             if isinstance(m, (Embedding, TorchLSTMCell)):
                 m.init_weights(generator)
+        if self.cfg.caption_model == 'fc':
+            uniform_(self.embed.embedding, 0.1, generator)
+            uniform_(self.logit.weight, 0.1, generator)
+            with torch.no_grad():
+                self.logit.bias.zero_()
         return self
 
     def to_compute_dtype(self):
@@ -228,8 +434,22 @@ class AttCaptioner(nn.Module):
 
     # -- public protocol -------------------------------------------------------
     def prepare_feature(self, fc_feats, att_feats, att_masks):
-        """reference AttModel.py:114-124."""
-        p_fc = fc_feats if self.fc_embed is None else self.fc_embed(fc_feats)
+        """reference AttModel.py:114-124 and the NewFC / LM overrides
+        (:942-968).  The FC family's cores read no attention features, so
+        its feats carry none (the JAX tree carries them along unread)."""
+        cfg = self.cfg
+        if cfg.caption_model == 'language_model':
+            p_fc = torch.zeros(fc_feats.shape[0], cfg.input_encoding_size,
+                               dtype=cfg.dtype, device=fc_feats.device)
+        elif isinstance(self.fc_embed, nn.Linear):
+            p_fc = linear(fc_feats, self.fc_embed)
+        elif self.fc_embed is not None:
+            p_fc = self.fc_embed(fc_feats)
+        else:
+            p_fc = fc_feats
+        if self.att_embed is None:
+            return {'fc_feats': p_fc, 'att_feats': None,
+                    'p_att_feats': None, 'att_masks': None}
         x = att_feats
         if self.att_bn_in is not None:
             x = self.att_bn_in(x, att_masks)
@@ -242,8 +462,8 @@ class AttCaptioner(nn.Module):
 
     def init_state(self, batch_size: int) -> Dict:
         """h / c [N, L, rnn_size] in the compute dtype, and the step ``t``
-        as a Python int (nothing here reads it: the state is
-        positionless)."""
+        as a Python int, shared by every row (FCCore seeds its state at
+        ``t == 0``; the other cores are positionless)."""
         cfg = self.cfg
         shape = (batch_size, state_num_layers(cfg), cfg.rnn_size)
         dev = self.logit.weight.device
@@ -256,18 +476,21 @@ class AttCaptioner(nn.Module):
         """get_logprobs_state (reference AttModel.py:166-176); float32
         log-probs (or logits) [N, V+1].
 
-        ``feats`` may hold one attention row per block of N // nb query
-        rows (block-shared beam lanes or seq_per_img captions): the
-        attention head reads them shared, and only fc_feats, which the
-        cores consume per row, is repeated here.  ``uniform_t`` and
-        ``beam_width`` are layout hints of KV-cached models, unused by a
-        positionless RNN state."""
+        ``feats`` of a ``shared_feats`` model may hold one attention row
+        per block of N // nb query rows (block-shared beam lanes or
+        seq_per_img captions): the attention heads read them shared, and
+        only fc_feats, which the cores consume per row, is repeated here.
+        The other models get one feats row per query row.  ``uniform_t``
+        and ``beam_width`` are layout hints of KV-cached models, unused by
+        an RNN state."""
         N = it.shape[0]
         af, fc = feats['att_feats'], feats['fc_feats']
-        if af.shape[0] != N and fc.shape[0] != N:
+        if af is not None and af.shape[0] != N and fc.shape[0] != N:
             feats = dict(feats, fc_feats=fc.repeat_interleave(
                 N // fc.shape[0], dim=0))
-        xt = torch.relu(self.embed(it))
+        xt = self.embed(it)
+        if self.embed_relu:
+            xt = torch.relu(xt)
         output, state = self.core(xt, feats, state)
         for lin in self.logit_hidden:
             output = torch.relu(linear(output, lin))
@@ -281,10 +504,15 @@ class AttCaptioner(nn.Module):
     def forward_tf(self, fc_feats, att_feats, seq, att_masks):
         """Eval teacher-forced log-probs [N, T, V+1] over input tokens
         ``seq`` [N, T] or [B, seq_per_img, T] (reference AttModel._forward
-        without scheduled sampling); the feats stay one row per image."""
+        without scheduled sampling); the feats stay one row per image for a
+        ``shared_feats`` model and are repeated per caption otherwise."""
         if seq.dim() == 3:
             seq = seq.reshape(-1, seq.shape[2])
         feats = self.prepare_feature(fc_feats, att_feats, att_masks)
+        if not self.shared_feats:
+            n = seq.shape[0] // fc_feats.shape[0]
+            feats = {k: v if v is None else v.repeat_interleave(n, dim=0)
+                     for k, v in feats.items()}
         state = self.init_state(seq.shape[0])
         out = []
         for t in range(seq.shape[1]):

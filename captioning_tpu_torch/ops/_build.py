@@ -41,6 +41,14 @@ SIGNATURES = {
         # N, Tp, D, h, bw, t0, dtype, stream
         'attend_write_merged': [_P] * 7 + [_I] * 7 + [_P],
     },
+    'maxout_lstm': {
+        # s, c_prev, h, c, N, H, dtype, stream
+        'maxout_lstm_gates': [_P] * 4 + [_I] * 3 + [_P],
+    },
+    'topk': {
+        # x, vals, idx, B, C, k, stream
+        'topk_lastdim': [_P] * 3 + [_I] * 3 + [_P],
+    },
     'logit_topk': {
         # x, w, b, ws_f, ws_i, out_vals, out_idx, out_rowsum, out_ent,
         # N, D, V1, k, unk_idx, splits, temp, unk_bias, dtype, stream

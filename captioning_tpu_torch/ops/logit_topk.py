@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from .topk import top_k
 
 MAX_K = 16
 _ROWS, _TV = 64, 128          # the kernel's row block and vocab tile
@@ -47,14 +48,6 @@ def _splits(N: int, V1: int, device) -> int:
     want = max(1, min(tiles, -(-2 * sms // -(-N // _ROWS))))
     per = -(-tiles // want)
     return -(-tiles // per)
-
-
-def top_k(x: torch.Tensor, k: int):
-    """``lax.top_k`` over the last dim: values descending, ties resolved to
-    the lowest index (a stable descending sort keeps equal values in index
-    order)."""
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
 
 
 def logit_topk_ref(x, w, b, temp=1.0, unk_bias=0.0, *, k: int,

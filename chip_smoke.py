@@ -6,14 +6,17 @@
 Phases, in order; any failure raises and exits non-zero:
 
 1. print the card's name and power limit (nvidia-smi);
-2. build the three CUDA kernels from ``captioning_tpu_torch/csrc`` (one
+2. build the five CUDA kernels from ``captioning_tpu_torch/csrc`` (one
    nvcc per source, all started together);
 3. hold each kernel against its plain PyTorch twin on the card at the main
    paths' shapes (B1: N = 5120 beam rows and N = 1024 greedy rows,
    D = 512, 8 heads, Tp in {8, 24, 32, 48}, bw in {5, 1}; B2: V1 = 9488,
    k in {5, 1}, temperature 0.8, UNK bias on; B3: 1024 images, bw in
-   {1, 5}, M = 36, H = 1000, A = 512), in float32 with tight tolerances and
-   in bf16 with stated ones, plus ragged small shapes;
+   {1, 5}, M = 36, H = 1000, A = 512; the maxout gates: N in {5120, 1024},
+   H in {512, 1000}; the top-k: [1024, 5 x 9488] and [1024, 9488], k in
+   {5, 1}, on random, integer-tied and NEG-masked rows), in float32 with
+   tight tolerances and in bf16 with stated ones, plus ragged small shapes
+   (the top-k bit-identical everywhere); and time each against its twin;
 4. build the full-width transformer (6 + 6 layers, d_model 512, d_ff 2048,
    8 heads, vocab 9487 + 1, 36 x 2048 features, max length 20) from the
    port's own init with a seeded generator;
@@ -25,7 +28,16 @@ Phases, in order; any failure raises and exits non-zero:
 6. the same for the full-width UpDown of ``configs/updown/updown.yml``
    (rnn_size 1000, input_encoding_size 1000, att_hid_size 512, 36 x 2048
    bottom-up features and their mean as the fc feature), whose attention
-   runs kernel B3 on every step.
+   runs kernel B3 on every step and whose beam selects through the top-k
+   kernel;
+7. the same for StackAtt at the ``opts.py`` widths (rnn_size,
+   input_encoding_size and att_hid_size 512; B3, the maxout gates three
+   times a step, the top-k in beam) and for NewFC of ``configs/fc.yml``
+   (fc 2048, widths 512; the maxout gates, the top-k in beam).
+
+Each decode mode requires the kernels its path runs: the top-k only in
+beam (the RNN plain-step route; the transformer's fused route selects in
+B2's epilogue).
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
@@ -65,6 +77,26 @@ def cuda_ms(fn, iters):
     start.record()
     for _ in range(iters):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(torch, fn, iters):
+    """Mean device time of ``fn`` with the host taken out: ``iters`` calls
+    captured in one CUDA graph, replayed between CUDA events (for kernels
+    of a few microseconds, whose launch loop the host would pace)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
@@ -341,6 +373,127 @@ def time_kernels(torch, ba, lt):
     return out
 
 
+def check_maxout(torch, ml, N, H, dtype, seed):
+    """Kernel vs twin on the same inputs; returns (max |h|, |c| error,
+    atol).  float32: atol 1e-6 (the same ops in float32; the kernel's expf
+    and tanhf against PyTorch's).  bf16: the kernel rounds where the twin
+    rounds, so the two differ only where a float32 difference flips a
+    bf16 rounding of an intermediate: 2 bf16 ulps at the largest input
+    magnitude."""
+    g = torch.Generator(device='cuda').manual_seed(seed)
+    s = torch.randn(N, 5 * H, generator=g, device='cuda').to(dtype)
+    c = torch.randn(N, H, generator=g, device='cuda').to(dtype)
+    h1, c1 = ml.maxout_lstm_gates_fused(s, c)
+    h2, c2 = ml.maxout_lstm_gates_ref(s, c)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        atol = 1e-6
+    else:
+        big = max(s.float().abs().max().item(), c.float().abs().max().item())
+        atol = 2.0 ** (torch.floor(torch.log2(torch.tensor(big))).item() - 6)
+    err = max((h1.float() - h2.float()).abs().max().item(),
+              (c1.float() - c2.float()).abs().max().item())
+    if not (err <= atol and h1.dtype == c1.dtype == dtype
+            and h1.shape == c1.shape == (N, H)):
+        raise AssertionError('maxout_lstm_gates %s N=%d H=%d: max err %g > %g'
+                             % (dtype, N, H, err, atol))
+    return err, atol
+
+
+def phase_maxout(torch, ml):
+    err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for N in (5120, 1024):
+            for H in (512, 1000):
+                e, atol = check_maxout(torch, ml, N, H, dtype, seed=N + H)
+                if dtype == torch.bfloat16 and N == 5120 and H == 512:
+                    err = e
+                log('  maxout_lstm_gates %s N=%d H=%d: ok (max err %.3g, '
+                    'atol %.3g)' % (dtype, N, H, e, atol))
+        check_maxout(torch, ml, 37, 77, dtype, seed=3)
+    log('  maxout_lstm_gates ragged N=37 H=77: ok')
+    return err
+
+
+def _topk_rows(torch, B, C, kind, seed):
+    """float32 [B, C] candidate rows: 'random'; 'ties' (integers in
+    [-3, 3], each value repeated ~C/7 times); 'lanes' (the beam's bos
+    table: 5 lanes of C/5 log-probs, lanes 1.. plus NEG = -1e30, which
+    rounds to exactly NEG: runs of thousands of ties)."""
+    g = torch.Generator(device='cuda').manual_seed(seed)
+    if kind == 'random':
+        return torch.randn(B, C, generator=g, device='cuda')
+    if kind == 'ties':
+        return torch.randint(-3, 4, (B, C), generator=g,
+                             device='cuda').float()
+    V1 = C // 5
+    lp = torch.log_softmax(torch.randn(B, V1, generator=g, device='cuda'),
+                           -1)
+    lane = torch.tensor([0.0, -1e30, -1e30, -1e30, -1e30], device='cuda')
+    x = (lp[:, None] + lane[None, :, None]).reshape(B, 5 * V1)
+    return torch.nn.functional.pad(x, (0, C - 5 * V1), value=-1e30)
+
+
+def check_topk(torch, tk, x, k, what):
+    """Kernel vs twin (the stable sort): values and indices bit-identical.
+    Returns the max |value| difference (0)."""
+    got_v, got_i = tk.topk_lastdim(x, k)
+    want_v, want_i = tk.top_k(x, k)
+    torch.cuda.synchronize()
+    if not (torch.equal(got_v, want_v) and torch.equal(got_i, want_i)):
+        bad = (got_i != want_i).any(1).nonzero()[:3, 0].tolist()
+        raise AssertionError('topk_lastdim %s k=%d: differs from the twin on '
+                             'rows %s' % (what, k, bad))
+    return (got_v - want_v).abs().max().item()
+
+
+def phase_topk(torch, tk):
+    for C in (5 * 9488, 9488):
+        for k in (5, 1):
+            for kind in ('random', 'ties', 'lanes'):
+                check_topk(torch, tk, _topk_rows(torch, 1024, C, kind,
+                                                 seed=C + k),
+                           k, '[1024, %d] %s' % (C, kind))
+            log('  topk_lastdim [1024, %d] k=%d random / tied / NEG-masked '
+                'rows: identical' % (C, k))
+    # ragged widths, k up to 16, all--inf and all-NEG rows, and rows whose
+    # start is not 16-byte aligned (a contiguous view at an odd offset)
+    g = torch.Generator(device='cuda').manual_seed(5)
+    for B, C, k in ((37, 1001, 16), (37, 1001, 7), (5, 3, 3), (3, 17, 2)):
+        flat = torch.randn(B * C + 1, generator=g, device='cuda')
+        x = flat[1:].view(B, C)
+        x[0] = float('-inf')
+        x[-1] = -1e30
+        check_topk(torch, tk, x, k, 'ragged [%d, %d]' % (B, C))
+        check_topk(torch, tk, torch.randint(-1, 2, (B, C), generator=g,
+                                            device='cuda').float(), k,
+                   'ragged tied [%d, %d]' % (B, C))
+    log('  topk_lastdim ragged widths, k up to 16, -inf / NEG rows, '
+        'unaligned rows: identical')
+    return 0.0
+
+
+def time_new_kernels(torch, ml, tk):
+    """Kernel vs twin device time at the flagship step shapes: the maxout
+    gates at the StackAtt beam-5 step (N = 5120, H = 512, bf16; CUDA-graph
+    replay, and the launch loop beside it) and the top-k over the UpDown
+    beam-5 candidate table ([1024, 5 x 9488], k 5, float32)."""
+    g = torch.Generator(device='cuda').manual_seed(7)
+    s = torch.randn(5120, 5 * 512, generator=g, device='cuda').bfloat16()
+    c = torch.randn(5120, 512, generator=g, device='cuda').bfloat16()
+    x = _topk_rows(torch, 1024, 5 * 9488, 'random', seed=7)
+    fused = lambda: ml.maxout_lstm_gates_fused(s, c)
+    plain = lambda: ml.maxout_lstm_gates_ref(s, c)
+    loop = (cuda_ms(fused, 200), cuda_ms(plain, 200))
+    log('  maxout_lstm_gates, launch loop (host-paced): kernel %.4f ms, '
+        'twin %.4f ms' % loop)
+    out = {'maxout_lstm_gates': (graph_ms(torch, fused, 100),
+                                 graph_ms(torch, plain, 100)),
+           'topk_lastdim': (cuda_ms(lambda: tk.topk_lastdim(x, 5), 50),
+                            cuda_ms(lambda: tk.top_k(x, 5), 20))}
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phases 4-5: the model through Captioner
 # ---------------------------------------------------------------------------
@@ -349,13 +502,19 @@ V = 9487
 
 
 # the flagships' widths: configs/transformer/transformer.yml and
-# configs/updown/updown.yml (the shapes bench.py measures)
+# configs/updown/updown.yml (the shapes bench.py measures); StackAtt at the
+# opts.py defaults (captioning_tpu/utils/opts.py:45-65); NewFC of
+# configs/fc.yml (MODEL_ZOO row "FC", the opts.py widths)
 MODELS = {
     'transformer': dict(input_encoding_size=512, rnn_size=2048, num_layers=6,
                         drop_prob_lm=0.1, att_hid_size=512, N_enc=6, N_dec=6,
                         d_model=512, d_ff=2048, num_att_heads=8),
     'updown': dict(input_encoding_size=1000, rnn_size=1000, num_layers=2,
                    drop_prob_lm=0.5, att_hid_size=512),
+    'stackatt': dict(input_encoding_size=512, rnn_size=512, num_layers=1,
+                     drop_prob_lm=0.5, att_hid_size=512),
+    'newfc': dict(input_encoding_size=512, rnn_size=512, num_layers=1,
+                  drop_prob_lm=0.5, att_hid_size=512),
 }
 
 
@@ -408,11 +567,12 @@ def check_output(torch, seq, stats, B, L):
         raise AssertionError('decode output: positive logprob sum')
 
 
-def phase_decode(torch, model, wrappers, batches=3):
+def phase_decode(torch, model, wrappers, required, batches=3):
     """Beam 5 and greedy at B = 1024, bf16, through ``Captioner``; each
-    mode runs with the launch counters of ``wrappers`` (name -> wrapper)
-    set to 0 just before it, and every one must have grown just after.
-    Then the f32 agreement of the kernels (CUDA) with the twins (CPU)."""
+    mode runs with the launch counters of every wrapper of ``wrappers``
+    (name -> wrapper) set to 0 just before it, and each kernel of
+    ``required[mode]`` must have grown just after.  Then the f32 agreement
+    of the kernels (CUDA) with the twins (CPU)."""
     torch.cuda.empty_cache()      # earlier phases' blocks: a clean pool
     cap = make_captioner(torch, model, 'bfloat16', 'cuda')
     B, L = 1024, 20
@@ -433,10 +593,11 @@ def phase_decode(torch, model, wrappers, batches=3):
             ms.append(1000 * (time.time() - t))
             check_output(torch, seq, stats, B, L)
         counts = {name: fn.launches for name, fn in wrappers.items()}
-        for name, n in counts.items():
-            if n <= 0:
+        for name in required[mode]:
+            if counts[name] <= 0:
                 raise AssertionError('%s was never launched on the %s %s '
                                      'path' % (name, model, mode))
+        for name, n in counts.items():
             launches[name] += n
         rates[mode] = B / (sorted(ms)[batches // 2] / 1000)
         steps = int((seq > 0).sum(1).max()) + 1
@@ -476,6 +637,8 @@ def main():
     from captioning_tpu_torch.ops import attention as aa
     from captioning_tpu_torch.ops import beam_attend as ba
     from captioning_tpu_torch.ops import logit_topk as lt
+    from captioning_tpu_torch.ops import lstm as ml
+    from captioning_tpu_torch.ops import topk as tk
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -484,7 +647,8 @@ def main():
                                         torch.cuda.get_device_name(0),
                                         torch.cuda.device_count()))
     t = time.time()
-    names = ('beam_attend', 'logit_topk', 'additive_attention')
+    names = ('beam_attend', 'logit_topk', 'additive_attention', 'maxout_lstm',
+             'topk')
     with ThreadPoolExecutor(len(names)) as pool:
         for path in pool.map(_build.build, names):
             log('phase 2: built %s' % os.path.relpath(path, HERE))
@@ -493,23 +657,41 @@ def main():
     log('phase 3: kernels against their twins')
     errs = phase_kernels(torch, ba, lt)
     errs['additive_attention'] = phase_additive_attention(torch, aa)
+    errs['maxout_lstm_gates'] = phase_maxout(torch, ml)
+    errs['topk_lastdim'] = phase_topk(torch, tk)
     times = time_kernels(torch, ba, lt)
     aa_times = time_additive_attention(torch, aa)
     times['additive_attention'] = aa_times[5]
+    times.update(time_new_kernels(torch, ml, tk))
     for name, (ms, plain) in times.items():
         log('  %s: kernel %.4f ms, twin %.4f ms' % (name, ms, plain))
     log('  additive_attention greedy (N=1024, bw=1): kernel %.4f ms, twin '
         '%.4f ms' % aa_times[1])
 
-    log('phase 4-5: full-width transformer through Captioner')
-    rates, launches, agree = phase_decode(
-        torch, 'transformer', {'attend_write_merged': ba.attend_write_merged,
-                               'logit_topk': lt.logit_topk})
-    log('phase 6: full-width UpDown through Captioner')
-    u_rates, u_launches, u_agree = phase_decode(
-        torch, 'updown',
-        {'additive_attention': aa.additive_attention_fused})
-    launches.update(u_launches)
+    # every wrapper's counter is reset before each decode mode; each mode
+    # requires the kernels its path runs
+    wrappers = {'attend_write_merged': ba.attend_write_merged,
+                'logit_topk': lt.logit_topk,
+                'additive_attention': aa.additive_attention_fused,
+                'maxout_lstm_gates': ml.maxout_lstm_gates_fused,
+                'topk_lastdim': tk.topk_lastdim}
+    paths = {
+        'transformer': ('phase 4-5', ['attend_write_merged', 'logit_topk'],
+                        []),
+        'updown': ('phase 6', ['additive_attention'], ['topk_lastdim']),
+        'stackatt': ('phase 7', ['additive_attention', 'maxout_lstm_gates'],
+                     ['topk_lastdim']),
+        'newfc': ('phase 7', ['maxout_lstm_gates'], ['topk_lastdim']),
+    }
+    launches = dict.fromkeys(wrappers, 0)
+    rates, agree = {}, {}
+    for model, (phase, both, beam_only) in paths.items():
+        log('%s: full-width %s through Captioner' % (phase, model))
+        rates[model], counts, agree[model] = phase_decode(
+            torch, model, wrappers,
+            {'beam5': both + beam_only, 'greedy': both})
+        for name, n in counts.items():
+            launches[name] += n
 
     bad = [m for m in sys.modules
            if m.split('.')[0] in ('jax', 'flax', 'optax', 'captioning_tpu')]
@@ -523,15 +705,19 @@ def main():
                                'captioning_tpu/ops/logit_topk.py:53'),
                 'additive_attention':
                 ('captioning_tpu_torch/csrc/additive_attention.cu',
-                 'captioning_tpu/ops/attention.py:56')}
+                 'captioning_tpu/ops/attention.py:56'),
+                'maxout_lstm_gates':
+                ('captioning_tpu_torch/csrc/maxout_lstm.cu',
+                 'captioning_tpu/ops/lstm.py:31'),
+                'topk_lastdim': ('captioning_tpu_torch/csrc/topk.cu',
+                                 'captioning_tpu/ops/topk.py:37')}
     kernels = [{'name': name, 'route': 'cuda', 'source': src,
                 'replaces': rep, 'launches': launches[name],
                 'max_abs_err': errs[name], 'ms': times[name][0],
                 'plain_ms': times[name][1]}
                for name, (src, rep) in replaces.items()]
-    log('cap/s: transformer %s, updown %s; f32 caption agreement: '
-        'transformer %s, updown %s' % (json.dumps(rates), json.dumps(u_rates),
-                                       json.dumps(agree), json.dumps(u_agree)))
+    log('cap/s: %s' % json.dumps(rates))
+    log('f32 caption agreement, kernels vs twins: %s' % json.dumps(agree))
     log(gpu_line())
     log(json.dumps({'kernels': kernels}))
     log(json.dumps({'ok': True, 'device': {

@@ -12,6 +12,8 @@ from captioning_tpu_torch.ops import _build
 from captioning_tpu_torch.ops.attention import additive_attention_fused
 from captioning_tpu_torch.ops.beam_attend import attend_write_merged
 from captioning_tpu_torch.ops.logit_topk import logit_topk
+from captioning_tpu_torch.ops.lstm import maxout_lstm_gates_fused
+from captioning_tpu_torch.ops.topk import topk_lastdim
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):
@@ -23,7 +25,8 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize('name', ['beam_attend', 'logit_topk',
-                                  'additive_attention'])
+                                  'additive_attention', 'maxout_lstm',
+                                  'topk'])
 def test_library_is_keyed_by_source_hash(name, tmp_path, monkeypatch):
     path = _build.library_path(name)
     assert os.path.basename(path).startswith(name + '-')
@@ -61,6 +64,22 @@ def test_non_cpu_tensors_never_take_the_attention_twin(bw, masked):
                                  torch.empty(A, **meta),
                                  torch.empty(1, **meta))
     assert additive_attention_fused.launches == 0
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_non_cpu_tensors_never_take_the_maxout_twin(dtype):
+    meta = dict(device='meta', dtype=dtype)
+    with pytest.raises(ValueError, match='CUDA'):
+        maxout_lstm_gates_fused(torch.empty(6, 40, **meta),
+                                torch.empty(6, 8, **meta))
+    assert maxout_lstm_gates_fused.launches == 0
+
+
+@pytest.mark.parametrize('k', [1, 5, 16])
+def test_non_cpu_tensors_never_take_the_topk_twin(k):
+    with pytest.raises(ValueError, match='CUDA'):
+        topk_lastdim(torch.empty(4, 5 * 37, device='meta'), k)
+    assert topk_lastdim.launches == 0
 
 
 def test_every_source_has_a_signature():

@@ -1,8 +1,9 @@
 """tools/eval_torch.py end to end on the synthetic dataset (--device cpu):
-a JAX-initialised tiny transformer or UpDown saved as model.npz + infos
-pickle, the port's CLI run on it, and its predictions compared with the
-JAX ``eval_split`` on the same checkpoint: identical captions, entropy and
-perplexity within 1e-4, the val loss within rtol 1e-5."""
+a JAX-initialised tiny transformer, UpDown, StackAtt, NewFC or AdaAttMO
+saved as model.npz + infos pickle, the port's CLI run on it, and its
+predictions compared with the JAX ``eval_split`` on the same checkpoint:
+identical captions, entropy and perplexity within 1e-4, the val loss
+within rtol 1e-5."""
 
 import json
 import os
@@ -62,6 +63,28 @@ def test_eval_cli_matches_jax_eval_split(checkpoint, beam, monkeypatch):
 def test_eval_cli_updown_matches_jax_eval_split(updown_checkpoint, beam,
                                                 monkeypatch):
     _cli_matches_jax(updown_checkpoint, beam, monkeypatch)
+
+
+@pytest.fixture(scope='module', params=['stackatt', 'newfc', 'adaattmo'])
+def zoo_checkpoint(request, tmp_path_factory):
+    kw = {}
+    if request.param != 'newfc':
+        # opts.if_use_feat loads no fc feature for these, but their fc
+        # embed reads one (in the JAX package as in the port)
+        kw['use_fc'] = True
+    if request.param == 'adaattmo':
+        # the sentinel [word embedding width] joins the regions [rnn width]
+        kw['input_encoding_size'] = 24
+    return _checkpoint(tmp_path_factory, request.param, **kw)
+
+
+@pytest.mark.parametrize('beam', [1, 3])
+def test_eval_cli_rnn_zoo_matches_jax_eval_split(zoo_checkpoint, beam,
+                                                 monkeypatch):
+    """StackAtt, NewFC and AdaAttMO: the maxout cells, their seeding and
+    per-lane feats, through the CLI; the val loss repeats the feats per
+    caption where the core reads them per row."""
+    _cli_matches_jax(zoo_checkpoint, beam, monkeypatch)
 
 
 def _cli_matches_jax(checkpoint, beam, monkeypatch):

@@ -1,17 +1,20 @@
-"""The port's RNN attention captioners (``models/harness.py``: UpDown,
-Att2in2, Att2all2) against the JAX modules on the same weights and inputs
-(float32 on the CPU, tiny widths): prepare_feature, per-step log-probs
-and logits and the h / c state over several steps, with the attention rows
-aligned to the queries and block-shared by 5 beam lanes, and eval
-forward_tf at seq_per_img 5.  With use_pallas the JAX head runs the Pallas
+"""The port's RNN captioners (``models/harness.py``: UpDown, Att2in2,
+Att2all2, StackAtt / DenseAtt, NewFC / FC / LM, AdaAtt / AdaAttMO) against
+the JAX modules on the same weights and inputs (float32 on the CPU, tiny
+widths): prepare_feature, per-step log-probs and logits and the h / c state
+over several steps, with the attention rows aligned to the queries and
+block-shared by 5 beam lanes (repeated per lane for the models that read
+them per row), and eval forward_tf at seq_per_img 5.  With use_pallas the JAX head runs the Pallas
 kernel in interpret mode on aligned rows, and the port's head its twin.
 atol 1e-5 (float32, summation order only)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from captioning_tpu_torch.models.harness import SHARED_FEATS
 from tests.torch_port_util import (RNN_MODELS, inputs, jax_and_port,
                                    tiny_rnn_opt)
 
@@ -53,8 +56,9 @@ def test_prepare_feature_matches_jax(model, use_bn):
                               ('batch_stats', 'var', 1.0),
                               ('params', 'scale', 0.3),
                               ('params', 'bias', 0.3)):
+            # (the FC family has no attention features and no BatchNorm)
             for bn in [b for b in ('att_bn_in', 'att_bn_out')
-                       if b in variables[coll]]:
+                       if b in variables.get(coll, {})]:
                 a = variables[coll][bn][name]
                 variables[coll][bn][name] = (
                     np.abs(rng.randn(*a.shape)) * f + (name == 'var')
@@ -63,6 +67,11 @@ def test_prepare_feature_matches_jax(model, use_bn):
     want, got = _prepare(jcap, pcap, variables, *inputs())
     assert set(got) == set(want)
     for key in ('fc_feats', 'att_feats', 'p_att_feats', 'att_masks'):
+        if got[key] is None:
+            # the FC family's cores read no attention features: the port
+            # carries none (the JAX tree carries the raw ones, unread)
+            assert model in ('newfc', 'fc', 'language_model')
+            continue
         _close(got[key], want[key])
 
 
@@ -75,12 +84,23 @@ def test_steps_logprobs_and_state_match_jax(model, logit_layers, use_pallas,
     """bw = 0: one attention row per query row; bw = 5: blocks of 5 query
     rows share one attention row (beam lanes), with a beam reorder inside
     the blocks between steps."""
-    jcap, variables, pcap = jax_and_port(opt=tiny_rnn_opt(
-        model, logit_layers=logit_layers, use_pallas=use_pallas))
+    _check_steps(tiny_rnn_opt(model, logit_layers=logit_layers,
+                              use_pallas=use_pallas), bw)
+
+
+def _check_steps(opt, bw):
+    model = opt.caption_model
+    jcap, variables, pcap = jax_and_port(opt=opt)
     jm, pm = jcap.module, pcap.module
     B = 3
     N = B * max(bw, 1)
     feats_j, feats_p = _prepare(jcap, pcap, variables, *inputs(B=B))
+    if bw and model not in SHARED_FEATS:
+        # these cores read one feats row per query row: the engine
+        # repeats the feats per beam lane
+        feats_j = jax.tree.map(lambda v: jnp.repeat(v, bw, 0), feats_j)
+        feats_p = {k: v if v is None else v.repeat_interleave(bw, 0)
+                   for k, v in feats_p.items()}
     st_j, st_p = jm.init_state(N), pm.init_state(N)
     assert tuple(st_p['h'].shape) == tuple(st_j['h'].shape)
     rng = np.random.RandomState(0)
@@ -111,9 +131,27 @@ def test_steps_logprobs_and_state_match_jax(model, logit_layers, use_pallas,
 @pytest.mark.parametrize('use_pallas', [0, 1])
 def test_forward_tf_matches_jax(model, logit_layers, use_pallas):
     """Teacher forcing over labels [B, seq_per_img, T] (the eval_split
-    call): 5 captions per image share the image's attention row."""
-    jcap, variables, pcap = jax_and_port(opt=tiny_rnn_opt(
-        model, logit_layers=logit_layers, use_pallas=use_pallas))
+    call): 5 captions per image share the image's attention row (or get
+    one each, for the models that read the feats per row)."""
+    _check_forward_tf(tiny_rnn_opt(model, logit_layers=logit_layers,
+                                   use_pallas=use_pallas))
+
+
+@pytest.mark.parametrize('model', ['adaatt', 'adaattmo'])
+@pytest.mark.parametrize('num_layers', [1, 3])
+def test_adaatt_depths_match_jax(model, num_layers):
+    """AdaAtt at one layer (the sentinel gate reads the word and the image:
+    r_w2h, r_v2h) and at three (r_i2h; i2h_0, i2h_1 between the layers),
+    beside the two-layer cases above: step log-probs and state, per query
+    row and per beam lane, and teacher forcing."""
+    opt = tiny_rnn_opt(model, num_layers=num_layers)
+    for bw in (0, 5):
+        _check_steps(opt, bw)
+    _check_forward_tf(opt)
+
+
+def _check_forward_tf(opt):
+    jcap, variables, pcap = jax_and_port(opt=opt)
     B, S, T = 2, 5, 6
     fc, att, am = inputs(B=B)
     rng = np.random.RandomState(2)
@@ -130,7 +168,7 @@ def test_forward_tf_matches_jax(model, logit_layers, use_pallas):
 
 def test_unported_models_raise():
     from captioning_tpu_torch.models.api import setup
-    for model in ('stackatt', 'adaatt', 'newfc', 'att2in'):
+    for model in ('show_tell', 'att2in', 'aoa'):
         with pytest.raises(NotImplementedError, match='ROADMAP'):
             setup(tiny_rnn_opt(model, vocab_size=29))
 
@@ -165,9 +203,14 @@ def test_bf16_state_stays_bf16(model, use_bn, use_pallas):
     pm = cap.module
     fc, att, am = (torch.from_numpy(a) for a in inputs(B=2))
     feats = pm.prepare_feature(fc, att, am)
-    assert feats['att_feats'].dtype == (torch.float32 if use_bn == 2
-                                        else torch.bfloat16)
+    if feats['att_feats'] is not None:
+        assert feats['att_feats'].dtype == (torch.float32 if use_bn == 2
+                                            else torch.bfloat16)
     for n in (2, 10):                # aligned rows; 5 rows per att row
+        if n > 2 and model not in SHARED_FEATS:
+            # these cores read one feats row per query row
+            feats = {k: v if v is None else v.repeat_interleave(5, 0)
+                     for k, v in feats.items()}
         st = pm.init_state(n)
         for t in range(2):
             lp, st = pm.step(torch.full((n,), t + 1), feats, st)

@@ -1,10 +1,13 @@
 """The port imports no JAX: in a fresh interpreter where importing jax,
 flax or optax fails, the port's modules import and a tiny CPU beam and
-greedy decode run, for the transformer and for UpDown."""
+greedy decode run, for the transformer and for RNN captioners of each
+family (UpDown, StackAtt, NewFC, LM, AdaAttMO)."""
 
 import os
 import subprocess
 import sys
+
+import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -19,6 +22,8 @@ for mod in ('captioning_tpu_torch.models.api',
             'captioning_tpu_torch.utils.weights',
             'captioning_tpu_torch.models.harness',
             'captioning_tpu_torch.ops.attention',
+            'captioning_tpu_torch.ops.lstm',
+            'captioning_tpu_torch.ops.topk',
             'captioning_tpu_torch.modules.losses',
             'captioning_tpu_torch.ops._build'):
     importlib.import_module(mod)
@@ -61,6 +66,13 @@ def _run(script):
     assert r.stdout.strip().endswith('OK')
 
 
-def test_rnn_port_runs_without_jax():
-    _run(SCRIPT.replace("caption_model='transformer'",
-                        "caption_model='updown'"))
+@pytest.mark.parametrize('model', ['updown', 'stackatt', 'newfc',
+                                   'language_model', 'adaattmo'])
+def test_rnn_port_runs_without_jax(model):
+    script = SCRIPT.replace("caption_model='transformer'",
+                            "caption_model=%r" % model)
+    if model == 'adaattmo':
+        # the sentinel joins the regions: word embedding width = rnn width
+        script = script.replace('input_encoding_size=16',
+                                'input_encoding_size=32')
+    _run(script)

@@ -10,7 +10,8 @@ from captioning_tpu.utils.misc import _flatten_tree
 from captioning_tpu_torch.models.config import config_from_opt
 from captioning_tpu_torch.models.harness import AttCaptioner
 from captioning_tpu_torch.models.transformer import TransformerCaptioner
-from captioning_tpu_torch.utils.weights import state_dict_from_jax
+from captioning_tpu_torch.utils.weights import (_harness_name,
+                                                 state_dict_from_jax)
 from tests.torch_port_util import (RNN_MODELS, V, jax_and_port, tiny_opt,
                                    tiny_rnn_opt)
 
@@ -84,16 +85,23 @@ def test_rnn_bridge_consumes_every_key(model, use_bn, logit_layers):
     module.load_state_dict(sd, strict=True)
     assert sum(v.size for v in flat.values()) == sum(
         v.numel() for v in sd.values())
+    # every array lands under its own name, kernels transposed into
+    # nn.Linear layout
+    for key, value in flat.items():
+        got = sd[_harness_name(key)].numpy()
+        np.testing.assert_array_equal(
+            got, value.T if key.endswith('/kernel') else value)
     p = variables['params']
-    np.testing.assert_array_equal(
-        sd['core.attention.alpha_net.weight'].numpy(),
-        p['core']['attention']['alpha_net']['kernel'].T)
     np.testing.assert_array_equal(sd['embed.embedding'].numpy(),
                                   p['embed']['embedding'])
-    if logit_layers == 2:
+    # the legacy 'fc' logit has no hidden layers, whatever logit_layers says
+    if logit_layers == 2 and model != 'fc':
         np.testing.assert_array_equal(sd['logit_hidden.0.weight'].numpy(),
                                       p['logit_hidden_0']['kernel'].T)
-    if use_bn:
+    if model in ('stackatt', 'denseatt'):
+        np.testing.assert_array_equal(sd['core.lstm1.h2h.weight'].numpy(),
+                                      p['core']['lstm1']['h2h']['kernel'].T)
+    if use_bn and model not in ('newfc', 'fc', 'language_model'):
         np.testing.assert_array_equal(
             sd['att_bn_out.var'].numpy(),
             variables['batch_stats']['att_bn_out']['var'])

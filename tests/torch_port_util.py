@@ -25,15 +25,19 @@ def tiny_opt(**kw):
     return opt
 
 
-RNN_MODELS = ('updown', 'att2in2', 'att2all2')
+RNN_MODELS = ('updown', 'att2in2', 'att2all2', 'stackatt', 'denseatt',
+              'newfc', 'fc', 'language_model', 'adaatt', 'adaattmo')
 
 
 def tiny_rnn_opt(caption_model='updown', **kw):
-    """An RNN attention captioner at tiny widths that all differ (so a
-    swapped dimension cannot pass): rnn 24, word embedding 20, attention
-    hidden 12, fc 10, att 12."""
+    """An RNN captioner at tiny widths that all differ (so a swapped
+    dimension cannot pass): rnn 24, word embedding 20, attention hidden 12,
+    fc 10, att 12.  AdaAtt joins its sentinel [word embedding width] to the
+    regions [rnn width], so there both are 24 (as
+    tests/test_reference_parity.py sizes it); its num_layers is 2."""
+    E = 24 if caption_model in ('adaatt', 'adaattmo') else 20
     return tiny_opt(**dict(dict(caption_model=caption_model, rnn_size=24,
-                                input_encoding_size=20, att_hid_size=12),
+                                input_encoding_size=E, att_hid_size=12),
                            **kw))
 
 
