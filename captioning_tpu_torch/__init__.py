@@ -7,9 +7,11 @@ a CUDA kernel written for ``sm_90a`` (``csrc/``, built at first use by
 ``ops/_build.py``).  The layout mirrors the JAX package: ``models/``,
 ``engine/``, ``ops/``, ``modules/``, ``utils/``.
 
-This package imports ``torch`` and never ``jax``.  Host-only modules of the
-JAX package that pull in no ``jax`` (opts, coco_eval, the data loader) are
-imported from there by the eval entry point rather than copied.
+This package imports ``torch`` and never ``jax``, nor anything of
+``captioning_tpu``: the host-only modules it needs from there (opts,
+config, misc, coco_eval and its scorers, the data loader) are copied into
+``utils/`` and ``data/``.  Its entry points run on the GPU unless the CPU
+is asked for.
 """
 
 __version__ = '0.1.0'

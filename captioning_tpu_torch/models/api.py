@@ -36,10 +36,16 @@ def _is_cache(name: str) -> bool:
 
 
 class Captioner:
-    """A model module + static decode metadata, on one device."""
+    """A model module + static decode metadata, on one device: the GPU
+    unless ``device='cpu'`` is asked for (the plain twins of the kernels).
+    Without a CUDA device, ``device='cuda'`` raises."""
 
     def __init__(self, cfg: ModelConfig, vocab: Optional[Dict[str, str]] = None,
-                 device='cpu'):
+                 device='cuda'):
+        if (torch.device(device).type == 'cuda'
+                and not torch.cuda.is_available()):
+            raise RuntimeError("device 'cuda': no CUDA device is available "
+                               "(pass device='cpu' to run the plain twins)")
         if cfg.caption_model == 'transformer':
             self.module_cls = TransformerCaptioner
         elif cfg.caption_model in harness.MODELS:
@@ -65,8 +71,7 @@ class Captioner:
 
     def load_params(self, npz_path: str):
         """Weights from a JAX ``model.npz`` checkpoint."""
-        from captioning_tpu.utils.misc import load_pytree
-
+        from ..utils.misc import load_pytree
         from ..utils.weights import state_dict_from_jax
         return self._install(state_dict_from_jax(load_pytree(npz_path),
                                                  self.cfg))
@@ -167,7 +172,7 @@ class Captioner:
 
 
 def setup(opt, vocab: Optional[Dict[str, str]] = None,
-          device='cpu') -> Captioner:
+          device='cuda') -> Captioner:
     """Model factory: the transformer and the RNN captioners of
     ``harness.MODELS``, for now."""
     return Captioner(config_from_opt(opt, opt.vocab_size), vocab, device)

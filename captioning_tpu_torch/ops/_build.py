@@ -36,6 +36,15 @@ SIGNATURES = {
         # att_dtype, stream
         'additive_attention': [_P] * 7 + [_I] * 7 + [_P],
     },
+    'attend': {
+        # q, k, v, anc, ctx, N, T, D, h, bw, t0, dtype, stream
+        'attend_merged': [_P] * 5 + [_I] * 7 + [_P],
+        # q, k_new, v_new, k_cache, v_cache, out, N, h, T, dk, t, dtype,
+        # stream
+        'mha_step': [_P] * 6 + [_I] * 6 + [_P],
+        # K, V, q, anc, out, N, L, h, T, dk, l, t, bw, dtype, stream
+        'anc_attend': [_P] * 5 + [_I] * 9 + [_P],
+    },
     'beam_attend': {
         # q, k_cache, v_cache, k_new, v_new, anc, ctx,
         # N, Tp, D, h, bw, t0, dtype, stream
@@ -127,3 +136,12 @@ def dtype_code(dtype) -> int:
 
 def stream_ptr(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def check_pair_aligned(what: str, *tensors) -> None:
+    """The kernels load two elements at a time: every tensor must start on
+    a two-element boundary (a view at an odd offset does not)."""
+    for x in tensors:
+        if x.data_ptr() % (2 * x.element_size()):
+            raise ValueError('%s: a tensor starts off a two-element boundary'
+                             % what)

@@ -1,5 +1,5 @@
 """Fused decode-step self-attention over merged-lane caches, with the
-step's K/V write, through a beam-ancestry table.
+step's K/V write, through a beam-ancestry table; and the attend alone.
 
 Replaces the TPU kernel ``captioning_tpu/ops/beam_attend.py:_wa_kernel``
 (wrapper ``attend_write_merged``).  Semantics: write ``k_new``/``v_new``
@@ -26,6 +26,16 @@ kernel does) and keeps the softmax and the weighted sum in float32; the
 twin rounds the scores to the compute dtype too but also rounds the
 probabilities before the PV product.  In float32 both are exact up to
 summation order.
+
+``attend_merged`` is the attend without the write (the TPU kernel
+``captioning_tpu/ops/beam_attend.py:_attend_kernel``, which only benches
+call): any T, ``anc[r, t0]`` any sibling, ``anc`` None when bw == 1.  It
+runs ``csrc/attend.cu`` (see there), the strided attend it shares with
+``ops/mha_step.py`` and ``ops/anc_attend.py``.  In bf16 it rounds each
+scaled score as above, divides by sqrt(dk) rounded to bf16 as the twin does
+(the Pallas body multiplies by the float32 1/sqrt(dk)), and keeps p in
+float32, where the Pallas body and the twin round p to bf16 before the PV
+product (``beam_attend.py:146``).
 """
 
 from __future__ import annotations
@@ -122,3 +132,51 @@ def attend_write_merged(q, k_cache, v_cache, k_new, v_new,
 
 
 attend_write_merged.launches = 0
+
+
+def attend_merged(q, k, v, anc: Optional[torch.Tensor], t0: int, *, bw: int,
+                  h: int):
+    """Decode-step self-attention over merged-lane caches through the
+    ancestry table, without a cache write.
+
+    q: [N, D]; k/v: [N, T, D], any T; anc: [N, T] int32 with values in
+    [0, bw), or None when bw == 1; t0: the uniform step, positions <= t0
+    valid.  Returns ctx [N, D].  CPU tensors take the plain twin; CUDA
+    tensors launch ``csrc/attend.cu``.
+    """
+    N, T, D = k.shape
+    if N % bw or D % h or not 0 <= t0 < T:
+        raise ValueError('attend_merged: N=%d bw=%d D=%d h=%d t0=%d T=%d'
+                         % (N, bw, D, h, t0, T))
+    if bw > 1 and (anc is None or tuple(anc.shape) != (N, T)):
+        raise ValueError('attend_merged: anc [N, T] needed for bw > 1')
+    if q.device.type == 'cpu':
+        return attend_merged_ref(q, k, v, anc, t0, bw=bw, h=h)
+    dk = D // h
+    tensors = [q, k, v]
+    if (not q.is_cuda or any(x.device != q.device for x in tensors)
+            or any(x.dtype != q.dtype for x in tensors)
+            or not all(x.is_contiguous() for x in tensors)
+            or q.shape != (N, D) or v.shape != k.shape
+            or dk % 2 or dk > 256):
+        raise ValueError('attend_merged: needs contiguous CUDA tensors of one '
+                         'dtype, q [N, D], caches [N, T, D], even head width '
+                         '<= 256')
+    if bw > 1 and (anc.dtype != torch.int32 or anc.device != q.device
+                   or not anc.is_contiguous()):
+        raise ValueError('attend_merged: anc must be contiguous int32 on the '
+                         'same device')
+    _build.check_pair_aligned('attend_merged', *tensors)
+    lib = _build.load('attend')
+    ctx = torch.empty_like(q)
+    rc = lib.attend_merged(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        anc.data_ptr() if bw > 1 else None, ctx.data_ptr(),
+        N, T, D, h, bw, int(t0), _build.dtype_code(q.dtype),
+        _build.stream_ptr(q.device))
+    _build.check(rc, 'attend_merged')
+    attend_merged.launches += 1
+    return ctx
+
+
+attend_merged.launches = 0

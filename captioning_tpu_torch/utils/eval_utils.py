@@ -4,7 +4,7 @@
 ``eval_split`` walks a split, takes the teacher-forced val loss where the
 batch has labels, decodes (beam or greedy, entropy / perplexity sums
 carried through the decode), truncates to ``num_images`` and runs
-``language_eval`` over the JAX package's host-only ``coco_eval``.  One
+``language_eval`` over the port's copy of ``coco_eval``.  One
 batch stays in flight: a batch's captions are post-processed after the
 next batch's decode has been issued.  The mesh and multi-host branches of
 the JAX loop, and the multi-sample ``eval_split_n``, are not ported.
@@ -18,10 +18,9 @@ import pickle
 import numpy as np
 import torch
 
-from captioning_tpu.utils import misc as utils
-from captioning_tpu.utils.coco_eval import AnnotationDB, evaluate_captions
-
 from ..modules import losses
+from . import misc as utils
+from .coco_eval import AnnotationDB, evaluate_captions
 
 bad_endings = ['a', 'an', 'the', 'in', 'for', 'at', 'of', 'with', 'before',
                'after', 'on', 'upon', 'near', 'to', 'is', 'are', 'am', 'the']

@@ -21,10 +21,9 @@ from typing import Dict
 import numpy as np
 import torch
 
-from captioning_tpu.utils.misc import _flatten_tree
-
 from ..models import harness
 from ..models.config import ModelConfig
+from .misc import _flatten_tree
 
 # stacked JAX prefix -> (port layer list, attribute)
 _ENC = {'enc_self_wq': 'wq', 'enc_self_wk': 'wk', 'enc_self_wv': 'wv',

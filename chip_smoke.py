@@ -6,8 +6,8 @@
 Phases, in order; any failure raises and exits non-zero:
 
 1. print the card's name and power limit (nvidia-smi);
-2. build the five CUDA kernels from ``captioning_tpu_torch/csrc`` (one
-   nvcc per source, all started together);
+2. build the six CUDA sources of ``captioning_tpu_torch/csrc`` (one nvcc
+   per source, all started together);
 3. hold each kernel against its plain PyTorch twin on the card at the main
    paths' shapes (B1: N = 5120 beam rows and N = 1024 greedy rows,
    D = 512, 8 heads, Tp in {8, 24, 32, 48}, bw in {5, 1}; B2: V1 = 9488,
@@ -33,13 +33,25 @@ Phases, in order; any failure raises and exits non-zero:
 7. the same for StackAtt at the ``opts.py`` widths (rnn_size,
    input_encoding_size and att_hid_size 512; B3, the maxout gates three
    times a step, the top-k in beam) and for NewFC of ``configs/fc.yml``
-   (fc 2048, widths 512; the maxout gates, the top-k in beam).
+   (fc 2048, widths 512; the maxout gates, the top-k in beam);
+8. the strided attend of ``csrc/attend.cu`` behind ``attend_merged``,
+   ``mha_step_fused`` and ``anc_attend``: each held against its twin at
+   the benches' shapes (N 5120, 8 heads, dk 64, T 21; the stacked cache
+   with 6 layers) and at ragged ones, in float32 and bf16, and timed
+   against its twin; then the two bench entry points
+   (``captioning_tpu_torch.tools.bench_beam_attend`` and
+   ``bench_anc_attend``) at full size, with every launch counter reset
+   just before and each kernel they run required to have grown just
+   after.
 
 Each decode mode requires the kernels its path runs: the top-k only in
 beam (the RNN plain-step route; the transformer's fused route selects in
 B2's epilogue).
 
-The last two lines are the kernels' JSON record and
+The last two lines are the kernels' JSON record (for each of the eight:
+launches on its path, max error against its twin, kernel and twin ms, the
+bound of the timed call and what sets it, and the time of a library call
+computing the same function where there is one) and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
 non-zero before printing any result.
 """
@@ -100,6 +112,72 @@ def graph_ms(torch, fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+# The least time the card could take for a kernel's work: the larger of
+# the bytes it must move (each input byte these inputs need read once, each
+# output byte written once) over 3.35 TB/s, and its operations over the
+# card's peak for their type (H100 SXM data sheet, dense).  Where the work depends on the data (the
+# ancestry gathers), the bytes are those this run's tables need.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_BF16_TENSOR = 989e12          # bf16 products on the tensor cores
+PEAK_F32 = 67e12                   # float32 outside the tensor cores
+
+
+def bound(nbytes, flops, peak):
+    """(bound ms, 'bytes' or 'operations')."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
+def distinct_entries(torch, anc, bw, upto):
+    """How many distinct (slot, time) cache entries an ancestry gather over
+    the times j < ``upto`` reads: row r reads slot (r // bw) * bw +
+    anc[r, j]."""
+    if upto <= 0:
+        return 0
+    N, dev = anc.shape[0], anc.device
+    slot = (torch.arange(N, device=dev) // bw * bw)[:, None] + anc[:, :upto]
+    keys = slot.long() * upto + torch.arange(upto, device=dev)
+    return torch.unique(keys).numel()
+
+
+def sdpa_ancestry(torch, q, k, v, anc, t0, bw, h):
+    """The ancestry attend as one call of the library's attention, for its
+    time beside the kernels (the port never calls it): q [N, D] viewed
+    [nb, h, bw, dk]; the caches [N, T, D] viewed [nb, h, bw * T, dk], no
+    copy, since slot and time are adjacent dims; a boolean mask, built
+    here and so not timed, that lets query i of block b see key (s, j)
+    where s == anc[b * bw + i, j] and j <= t0.  Returns the call and a
+    function that lays its output out as ctx [N, D]."""
+    N, T, D = k.shape
+    nb, dk = N // bw, D // h
+    q4 = q.view(nb, bw, h, dk).transpose(1, 2)
+    k4 = k.view(nb, bw * T, h, dk).transpose(1, 2)
+    v4 = v.view(nb, bw * T, h, dk).transpose(1, 2)
+    sel = torch.nn.functional.one_hot(anc.long(), bw).bool()   # [N, T, s]
+    sel &= (torch.arange(T, device=k.device) <= t0)[:, None]
+    mask = sel.view(nb, bw, T, bw).permute(0, 1, 3, 2).reshape(
+        nb, 1, bw, bw * T)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def call():
+        return sdpa(q4, k4, v4, attn_mask=mask)
+    return call, lambda o: o.transpose(1, 2).reshape(N, D)
+
+
+def library_ancestry(torch, q, k, v, anc, t0, bw, h, ctx, what):
+    """Time ``sdpa_ancestry`` and hold its output against the kernel's
+    ``ctx`` on the same caches: within ``bench_beam_attend.mha_tolerance``
+    (bf16 0.1: the library's bf16 rounding is its own)."""
+    from captioning_tpu_torch.tools.bench_beam_attend import mha_tolerance
+    call, layout = sdpa_ancestry(torch, q, k, v, anc, t0, bw, h)
+    err = (layout(call()).float() - ctx.float()).abs().max().item()
+    if not err <= mha_tolerance(q.dtype):
+        raise AssertionError('%s: the library attention differs from the '
+                             'kernel by %g' % (what, err))
+    return cuda_ms(call, 50)
 
 
 # ---------------------------------------------------------------------------
@@ -336,16 +414,23 @@ def time_additive_attention(torch, aa):
     """Kernel vs twin device time at the UpDown step shapes, bf16, for
     beam 5 (bw = 5) and greedy (bw = 1) at B = 1024."""
     out = {}
+    nb, M, H, A = 1024, 36, 1000, 512
     for bw in (5, 1):
-        args = _aa_inputs(torch, 1024, bw, 36, 1000, 512, torch.bfloat16,
+        args = _aa_inputs(torch, nb, bw, M, H, A, torch.bfloat16,
                           seed=7, ragged=False)
+        # att_h, att, p_att, w, b and the output in bf16; the float32 mask
+        nbytes = (2 * (nb * bw * A + nb * M * H + nb * M * A + A + 1
+                       + nb * bw * H) + 4 * nb * M)
         out[bw] = (cuda_ms(lambda: aa.additive_attention_fused(*args), 50),
-                   cuda_ms(lambda: aa.additive_attention_ref(*args), 20))
+                   cuda_ms(lambda: aa.additive_attention_ref(*args), 20),
+                   bound(nbytes, nb * bw * M * (3 * A + 2 * H), PEAK_F32))
     return out
 
 
 def time_kernels(torch, ba, lt):
-    """Kernel vs twin device time at the beam-5 B=1024 step shapes, bf16."""
+    """Kernel vs twin device time at the beam-5 B=1024 step shapes, bf16;
+    and, for attend_write_merged, the library's attention over the cache
+    it wrote (attend only)."""
     g = torch.Generator(device='cuda').manual_seed(7)
     N, D, h, bw, Tp, t0 = 5120, 512, 8, 5, 24, 10
     bf = torch.bfloat16
@@ -358,19 +443,30 @@ def time_kernels(torch, ba, lt):
                         dtype=torch.int32)
     anc[:, t0] = torch.arange(N, device='cuda', dtype=torch.int32) % bw
     out = {}
+    # the cache rows j < t0 it gathers, q / k_new / v_new, ctx and the
+    # written entry, anc[:, :t0]
+    nbytes = (2 * (3 * N * D + 2 * distinct_entries(torch, anc, bw, t0) * D
+                   + 3 * N * D) + 4 * N * t0)
     out['attend_write_merged'] = (
         cuda_ms(lambda: ba.attend_write_merged(q, k, v, kn, vn, anc, t0,
                                                bw=bw, h=h), 50),
         cuda_ms(lambda: ba.attend_write_merged_ref(q, k, v, kn, vn, anc, t0,
-                                                   bw=bw, h=h), 50))
+                                                   bw=bw, h=h), 50),
+        bound(nbytes, 4 * N * D * (t0 + 1), PEAK_F32))
+    ctx = ba.attend_write_merged(q, k, v, kn, vn, anc, t0, bw=bw, h=h)
+    library = {'attend_write_merged': library_ancestry(
+        torch, q, k, v, anc, t0, bw, h, ctx, 'attend_write_merged')}
     V1 = 9488
     x, w, b = rnd(N, D), rnd(V1, D) * 0.1, rnd(V1) * 0.1
     out['logit_topk'] = (
         cuda_ms(lambda: lt.logit_topk(x, w, b, 0.8, -1000.0, k=5,
                                       unk_idx=V1 - 1), 10),
         cuda_ms(lambda: lt.logit_topk_ref(x, w, b, 0.8, -1000.0, k=5,
-                                          unk_idx=V1 - 1), 10))
-    return out
+                                          unk_idx=V1 - 1), 10),
+        # x, W, b in bf16; top-5 values and int32 indices, row_sum, ent
+        bound(2 * (N * D + V1 * D + V1) + N * 5 * 8 + N * 8,
+              2 * N * D * V1, PEAK_BF16_TENSOR))
+    return out, library
 
 
 def check_maxout(torch, ml, N, H, dtype, seed):
@@ -487,11 +583,236 @@ def time_new_kernels(torch, ml, tk):
     loop = (cuda_ms(fused, 200), cuda_ms(plain, 200))
     log('  maxout_lstm_gates, launch loop (host-paced): kernel %.4f ms, '
         'twin %.4f ms' % loop)
+    N, H = c.shape
+    B, C = x.shape
     out = {'maxout_lstm_gates': (graph_ms(torch, fused, 100),
-                                 graph_ms(torch, plain, 100)),
+                                 graph_ms(torch, plain, 100),
+                                 # s, c_prev in; h, c out; ~10 ops a unit
+                                 bound(2 * (5 * N * H + 3 * N * H),
+                                       10 * N * H, PEAK_F32)),
            'topk_lastdim': (cuda_ms(lambda: tk.topk_lastdim(x, 5), 50),
-                            cuda_ms(lambda: tk.top_k(x, 5), 20))}
-    return out
+                            cuda_ms(lambda: tk.top_k(x, 5), 20),
+                            # float32 rows; values and int64 indices out
+                            bound(4 * B * C + 12 * B * 5, B * C, PEAK_F32))}
+    # the library call computing the same function, timed, never used
+    library = {'topk_lastdim': cuda_ms(lambda: torch.topk(x, 5), 50)}
+    return out, library
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the strided attend of csrc/attend.cu behind attend_merged,
+# mha_step_fused and anc_attend, and the bench entry points that run them
+# ---------------------------------------------------------------------------
+
+def _rnd(torch, g, dtype):
+    return lambda *shape: torch.randn(*shape, generator=g,
+                                      device='cuda').to(dtype)
+
+
+def ulp_tol(torch, out):
+    """One bf16 ulp at the largest |out|: a bf16 result rounded once from a
+    float32 value lies within half of it."""
+    return 2.0 ** (torch.floor(torch.log2(out.float().abs().max())).item()
+                   - 7)
+
+
+def check_attend_merged(torch, ba, N, T, D, h, bw, t0, dtype, seed):
+    """Kernel vs twin; the caches must come back untouched.  Tolerance:
+    ``bench_beam_attend.tolerance`` (float32 1e-5, bf16 0.05)."""
+    from captioning_tpu_torch.tools.bench_beam_attend import tolerance
+    g = torch.Generator(device='cuda').manual_seed(seed)
+    rnd = _rnd(torch, g, dtype)
+    q, k, v = rnd(N, D), rnd(N, T, D), rnd(N, T, D)
+    anc = (torch.randint(0, bw, (N, T), generator=g, device='cuda',
+                         dtype=torch.int32) if bw > 1 else None)
+    k0, v0 = k.clone(), v.clone()
+    got = ba.attend_merged(q, k, v, anc, t0, bw=bw, h=h)
+    want = ba.attend_merged_ref(q, k, v, anc, t0, bw=bw, h=h)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    if not (err <= tolerance(dtype) and torch.equal(k, k0)
+            and torch.equal(v, v0) and got.dtype == dtype):
+        raise AssertionError('attend_merged %s N=%d T=%d D=%d bw=%d t0=%d: '
+                             'max err %g > %g or a cache changed'
+                             % (dtype, N, T, D, bw, t0, err,
+                                tolerance(dtype)))
+    return err
+
+
+def check_mha_step(torch, ms, N, h, T, dk, t, dtype, seed):
+    """Kernel vs twin; the caches written in place, bit-identical to the
+    twin's and returned as the same tensors.  float32 atol 1e-5.  bf16:
+    ``bench_beam_attend.mha_tolerance`` (0.1) against the bf16 twin, and one
+    bf16 ulp of max |out| against the float32 twin of the same values (the
+    kernel computes in float32 as the Pallas body does and rounds only its
+    output)."""
+    from captioning_tpu_torch.tools.bench_beam_attend import mha_tolerance
+    g = torch.Generator(device='cuda').manual_seed(seed)
+    rnd = _rnd(torch, g, dtype)
+    q, kn, vn = rnd(N, h, dk), rnd(N, h, dk), rnd(N, h, dk)
+    kc, vc = rnd(N, h, T, dk), rnd(N, h, T, dk)
+    k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+    got, ko, vo = ms.mha_step_fused(q, kn, vn, k1, v1, t)
+    want = ms.mha_step_ref(q, kn, vn, k2, v2, t)[0]
+    torch.cuda.synchronize()
+    what = 'mha_step_fused %s N=%d h=%d T=%d dk=%d t=%d' % (dtype, N, h, T,
+                                                          dk, t)
+    if not (ko is k1 and vo is v1 and torch.equal(k1, k2)
+            and torch.equal(v1, v2)):
+        raise AssertionError('%s: the written caches differ' % what)
+    err = (got.float() - want.float()).abs().max().item()
+    if not err <= mha_tolerance(dtype):
+        raise AssertionError('%s: max err %g > %g'
+                             % (what, err, mha_tolerance(dtype)))
+    if dtype == torch.bfloat16:
+        f32 = ms.mha_step_ref(q.float(), kn.float(), vn.float(), kc.float(),
+                              vc.float(), t)[0]
+        e32 = (got.float() - f32).abs().max().item()
+        if not e32 <= ulp_tol(torch, f32):
+            raise AssertionError('%s: max err %g vs the float32 twin > %g'
+                                 % (what, e32, ulp_tol(torch, f32)))
+    return err
+
+
+def check_anc_attend(torch, an, N, L, h, T, dk, bw, l, t, dtype, seed):
+    """Kernel vs twin (slice, then attend).  float32 atol 1e-5.  bf16: 0.1
+    against the bf16 twin (``bench_anc_attend.ATOL``), and one bf16 ulp of
+    max |out| against the float32 twin of the same values."""
+    from captioning_tpu_torch.tools.bench_anc_attend import ATOL
+    g = torch.Generator(device='cuda').manual_seed(seed)
+    rnd = _rnd(torch, g, dtype)
+    K, V, q = rnd(N, L, h, T, dk), rnd(N, L, h, T, dk), rnd(N, h * dk)
+    anc = torch.randint(0, bw, (N, T), generator=g, device='cuda',
+                        dtype=torch.int32)
+    got = an.anc_attend(K, V, q, anc, l, t, bw)
+    want = an.anc_attend_ref(K, V, q, anc, l, t, bw)
+    torch.cuda.synchronize()
+    atol = 1e-5 if dtype == torch.float32 else ATOL
+    err = (got.float() - want.float()).abs().max().item()
+    what = 'anc_attend %s N=%d L=%d T=%d dk=%d bw=%d l=%d t=%d' % (
+        dtype, N, L, T, dk, bw, l, t)
+    if not (err <= atol and got.dtype == dtype):
+        raise AssertionError('%s: max err %g > %g' % (what, err, atol))
+    if dtype == torch.bfloat16:
+        f32 = an.anc_attend_ref(K[:, l:l + 1].float(), V[:, l:l + 1].float(),
+                                q.float(), anc, 0, t, bw)
+        e32 = (got.float() - f32).abs().max().item()
+        if not e32 <= ulp_tol(torch, f32):
+            raise AssertionError('%s: max err %g vs the float32 twin > %g'
+                                 % (what, e32, ulp_tol(torch, f32)))
+    return err
+
+
+def phase_attend(torch, ba, ms, an):
+    """The three entry points at the benches' shapes (N 5120 = 1024 images
+    x beam 5, 8 heads, dk 64, T 21) in float32 and bf16, and at ragged ones:
+    odd N, T 13 and 21, dk 32 and 96, bw 1 / 2 / 5, t first / mid / last,
+    l first / last.  Returns the bf16 errors at the benches' shapes."""
+    errs = {}
+    f32, bf16 = torch.float32, torch.bfloat16
+    for dtype in (f32, bf16):
+        for bw in (5, 1):
+            for t0 in (0, 12, 20):
+                e = check_attend_merged(torch, ba, 5120, 21, 512, 8, bw, t0,
+                                        dtype, seed=bw * 100 + t0)
+                if dtype == bf16 and bw == 5 and t0 == 12:
+                    errs['attend_merged'] = e
+        for t in (0, 12, 20):
+            e = check_mha_step(torch, ms, 5120, 8, 21, 64, t, dtype, seed=t)
+            if dtype == bf16 and t == 12:
+                errs['mha_step_fused'] = e
+        for l, t in ((0, 19), (3, 19), (5, 19), (5, 0), (0, 20)):
+            e = check_anc_attend(torch, an, 5120, 6, 8, 21, 64, 5, l, t,
+                                 dtype, seed=l * 100 + t)
+            if dtype == bf16 and (l, t) == (3, 19):
+                errs['anc_attend'] = e
+        log('  attend_merged / mha_step_fused / anc_attend %s at the bench '
+            'shapes: ok' % dtype)
+        for T in (13, 21):
+            for dk in (32, 96):
+                for t in (0, T // 2, T - 1):
+                    for bw, N in ((1, 37), (2, 38), (5, 35)):
+                        check_attend_merged(torch, ba, N, T, 3 * dk, 3, bw,
+                                            t, dtype, seed=T + dk + t + bw)
+                        for l in (0, 2):
+                            check_anc_attend(torch, an, N, 3, 3, T, dk, bw,
+                                             l, t, dtype, seed=T + dk + l)
+                    check_mha_step(torch, ms, 37, 3, T, dk, t, dtype,
+                                   seed=T + dk + t)
+        log('  attend_merged / mha_step_fused / anc_attend %s ragged (odd N, '
+            'T 13 / 21, dk 32 / 96, bw 1 / 2 / 5, t first / mid / last, l '
+            'first / last): ok' % dtype)
+    return errs
+
+
+def time_attend(torch, ba, ms, an):
+    """Kernel vs twin device time at the benches' shapes, bf16, with the
+    bound of each call's inputs; and the library's attention: for
+    attend_merged over its caches, for mha_step_fused over the cache it
+    wrote (attend only)."""
+    g = torch.Generator(device='cuda').manual_seed(7)
+    rnd = _rnd(torch, g, torch.bfloat16)
+    N, h, dk, T, bw = 5120, 8, 64, 21, 5
+    D = h * dk
+    out = {}
+    t0 = 12
+    q, k, v = rnd(N, D), rnd(N, T, D), rnd(N, T, D)
+    anc = torch.randint(0, bw, (N, T), generator=g, device='cuda',
+                        dtype=torch.int32)
+    # q and ctx, anc[:, :t0 + 1], the ancestors' entries j <= t0
+    nbytes = (2 * (2 * N * D + 2 * distinct_entries(torch, anc, bw, t0 + 1)
+                   * D) + 4 * N * (t0 + 1))
+    out['attend_merged'] = (
+        cuda_ms(lambda: ba.attend_merged(q, k, v, anc, t0, bw=bw, h=h), 50),
+        cuda_ms(lambda: ba.attend_merged_ref(q, k, v, anc, t0, bw=bw, h=h),
+                20),
+        bound(nbytes, 4 * N * D * (t0 + 1), PEAK_F32))
+    library = {'attend_merged': library_ancestry(
+        torch, q, k, v, anc, t0, bw, h,
+        ba.attend_merged(q, k, v, anc, t0, bw=bw, h=h), 'attend_merged')}
+    t = 12
+    qh, kn, vn = rnd(N, h, dk), rnd(N, h, dk), rnd(N, h, dk)
+    kc, vc = rnd(N, h, T, dk), rnd(N, h, T, dk)
+    # q, k_new, v_new; the entries j < t; out and the written entries
+    nbytes = 2 * (3 * N * D + 2 * N * h * t * dk + 3 * N * D)
+    out['mha_step_fused'] = (
+        cuda_ms(lambda: ms.mha_step_fused(qh, kn, vn, kc, vc, t), 50),
+        cuda_ms(lambda: ms.mha_step_ref(qh, kn, vn, kc, vc, t), 20),
+        bound(nbytes, 4 * N * D * (t + 1), PEAK_F32))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q4 = qh[:, :, None]
+    library['mha_step_fused'] = cuda_ms(
+        lambda: sdpa(q4, kc[:, :, :t + 1], vc[:, :, :t + 1]), 50)
+    del k, v, kc, vc
+    L, l, t = 6, 3, 19
+    K, V = rnd(N, L, h, T, dk), rnd(N, L, h, T, dk)
+    nbytes = (2 * (2 * N * D + 2 * distinct_entries(torch, anc, bw, t + 1)
+                   * D) + 4 * N * (t + 1))
+    out['anc_attend'] = (
+        cuda_ms(lambda: an.anc_attend(K, V, q, anc, l, t, bw), 50),
+        cuda_ms(lambda: an.anc_attend_ref(K, V, q, anc, l, t, bw), 20),
+        bound(nbytes, 4 * N * D * (t + 1), PEAK_F32))
+    return out, library
+
+
+def phase_benches(torch, wrappers):
+    """Both bench entry points at full size, with every wrapper's launch
+    counter set to 0 just before and each kernel they run required to have
+    grown just after; returns the counts."""
+    from captioning_tpu_torch.tools import bench_anc_attend, bench_beam_attend
+    for fn in wrappers.values():
+        fn.launches = 0
+    bench_beam_attend.main(['--iters', '5'])
+    bench_anc_attend.main(['5120', '21', '5'])
+    torch.cuda.synchronize()
+    counts = {name: fn.launches for name, fn in wrappers.items()}
+    for name in ('attend_merged', 'mha_step_fused', 'anc_attend',
+                 'attend_write_merged'):
+        if counts[name] <= 0:
+            raise AssertionError('%s was never launched by the benches'
+                                 % name)
+    log('  bench launches: %s' % counts)
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -634,10 +955,12 @@ def main():
         return 2
     sys.path.insert(0, HERE)
     from captioning_tpu_torch.ops import _build
+    from captioning_tpu_torch.ops import anc_attend as an
     from captioning_tpu_torch.ops import attention as aa
     from captioning_tpu_torch.ops import beam_attend as ba
     from captioning_tpu_torch.ops import logit_topk as lt
     from captioning_tpu_torch.ops import lstm as ml
+    from captioning_tpu_torch.ops import mha_step as ms
     from captioning_tpu_torch.ops import topk as tk
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -648,7 +971,7 @@ def main():
                                         torch.cuda.device_count()))
     t = time.time()
     names = ('beam_attend', 'logit_topk', 'additive_attention', 'maxout_lstm',
-             'topk')
+             'topk', 'attend')
     with ThreadPoolExecutor(len(names)) as pool:
         for path in pool.map(_build.build, names):
             log('phase 2: built %s' % os.path.relpath(path, HERE))
@@ -659,14 +982,16 @@ def main():
     errs['additive_attention'] = phase_additive_attention(torch, aa)
     errs['maxout_lstm_gates'] = phase_maxout(torch, ml)
     errs['topk_lastdim'] = phase_topk(torch, tk)
-    times = time_kernels(torch, ba, lt)
+    times, library = time_kernels(torch, ba, lt)
     aa_times = time_additive_attention(torch, aa)
     times['additive_attention'] = aa_times[5]
-    times.update(time_new_kernels(torch, ml, tk))
-    for name, (ms, plain) in times.items():
-        log('  %s: kernel %.4f ms, twin %.4f ms' % (name, ms, plain))
+    new_times, new_library = time_new_kernels(torch, ml, tk)
+    times.update(new_times)
+    library.update(new_library)
+    for name, (t_ms, plain, _) in times.items():
+        log('  %s: kernel %.4f ms, twin %.4f ms' % (name, t_ms, plain))
     log('  additive_attention greedy (N=1024, bw=1): kernel %.4f ms, twin '
-        '%.4f ms' % aa_times[1])
+        '%.4f ms' % aa_times[1][:2])
 
     # every wrapper's counter is reset before each decode mode; each mode
     # requires the kernels its path runs
@@ -674,7 +999,10 @@ def main():
                 'logit_topk': lt.logit_topk,
                 'additive_attention': aa.additive_attention_fused,
                 'maxout_lstm_gates': ml.maxout_lstm_gates_fused,
-                'topk_lastdim': tk.topk_lastdim}
+                'topk_lastdim': tk.topk_lastdim,
+                'attend_merged': ba.attend_merged,
+                'mha_step_fused': ms.mha_step_fused,
+                'anc_attend': an.anc_attend}
     paths = {
         'transformer': ('phase 4-5', ['attend_write_merged', 'logit_topk'],
                         []),
@@ -693,6 +1021,22 @@ def main():
         for name, n in counts.items():
             launches[name] += n
 
+    log('phase 8: the strided attend kernel against its twins, and the '
+        'attend benches')
+    torch.cuda.empty_cache()
+    errs.update(phase_attend(torch, ba, ms, an))
+    attend_times, attend_library = time_attend(torch, ba, ms, an)
+    times.update(attend_times)
+    library.update(attend_library)
+    for name, (t_ms, plain, _) in attend_times.items():
+        log('  %s: kernel %.4f ms, twin %.4f ms' % (name, t_ms, plain))
+    log('  the library attention (attend only): attend_write_merged %.4f '
+        'ms, attend_merged %.4f ms, mha_step_fused %.4f ms'
+        % tuple(library[n] for n in ('attend_write_merged', 'attend_merged',
+                                     'mha_step_fused')))
+    for name, n in phase_benches(torch, wrappers).items():
+        launches[name] += n
+
     bad = [m for m in sys.modules
            if m.split('.')[0] in ('jax', 'flax', 'optax', 'captioning_tpu')]
     if bad:
@@ -710,11 +1054,19 @@ def main():
                 ('captioning_tpu_torch/csrc/maxout_lstm.cu',
                  'captioning_tpu/ops/lstm.py:31'),
                 'topk_lastdim': ('captioning_tpu_torch/csrc/topk.cu',
-                                 'captioning_tpu/ops/topk.py:37')}
+                                 'captioning_tpu/ops/topk.py:37'),
+                'attend_merged': ('captioning_tpu_torch/csrc/attend.cu',
+                                  'captioning_tpu/ops/beam_attend.py:98'),
+                'mha_step_fused': ('captioning_tpu_torch/csrc/attend.cu',
+                                   'captioning_tpu/ops/mha_step.py:64'),
+                'anc_attend': ('captioning_tpu_torch/csrc/attend.cu',
+                               'captioning_tpu/ops/anc_attend.py:93')}
     kernels = [{'name': name, 'route': 'cuda', 'source': src,
                 'replaces': rep, 'launches': launches[name],
                 'max_abs_err': errs[name], 'ms': times[name][0],
-                'plain_ms': times[name][1]}
+                'plain_ms': times[name][1], 'bound_ms': times[name][2][0],
+                'bound_by': times[name][2][1],
+                'library_ms': library.get(name)}
                for name, (src, rep) in replaces.items()]
     log('cap/s: %s' % json.dumps(rates))
     log('f32 caption agreement, kernels vs twins: %s' % json.dumps(agree))

@@ -1,7 +1,8 @@
-"""The port's attend + cache write (ops/beam_attend.py) against the JAX
-``attend_merged_ref`` on the same numpy inputs, float32 on the CPU, where
-the wrapper runs its plain twin.  atol 1e-5: both sides are the same
-float32 math up to summation order."""
+"""The port's attend + cache write and its attend alone
+(ops/beam_attend.py) against the JAX ``attend_merged_ref`` on the same
+numpy inputs, float32 on the CPU, where the wrappers run their plain
+twins.  atol 1e-5: both sides are the same float32 math up to summation
+order."""
 
 import numpy as np
 import pytest
@@ -9,7 +10,8 @@ import torch
 import jax.numpy as jnp
 
 from captioning_tpu.ops.beam_attend import attend_merged_ref as jax_ref
-from captioning_tpu_torch.ops.beam_attend import attend_write_merged
+from captioning_tpu_torch.ops.beam_attend import (attend_merged,
+                                                 attend_write_merged)
 
 H = 4
 D = 32
@@ -67,3 +69,77 @@ def test_attend_write_rejects_bad_shapes():
     with pytest.raises(ValueError):
         attend_write_merged(t(q), t(k), t(v), t(kn), t(vn), t(anc), 8, bw=2,
                             h=H)
+
+
+# ---------------------------------------------------------------------------
+# attend_merged: the attend without the write, any T.  The JAX
+# ``attend_merged`` itself cannot run on the CPU: it has no interpret switch
+# and its BlockSpecs name TPU memory spaces, so the port is held against its
+# jnp ``attend_merged_ref`` and against ``_attend_beam`` of the JAX
+# transformer on the same values in the head-major layout.
+# ---------------------------------------------------------------------------
+
+def _attend_case(T, bw, seed):
+    rng = np.random.RandomState(seed)
+    N = 3 * bw
+    q = rng.randn(N, D).astype('float32')
+    k = rng.randn(N, T, D).astype('float32')
+    v = rng.randn(N, T, D).astype('float32')
+    anc = rng.randint(0, bw, (N, T)).astype('int32')  # any sibling at t0
+    return q, k, v, anc
+
+
+@pytest.mark.parametrize('T', [8, 13, 21, 48])
+@pytest.mark.parametrize('bw', [1, 2, 5])
+@pytest.mark.parametrize('where', ['first', 'mid', 'last'])
+def test_attend_merged_matches_jax(T, bw, where):
+    from captioning_tpu.models.transformer import _attend_beam
+    t0 = {'first': 0, 'mid': T // 2, 'last': T - 1}[where]
+    q, k, v, anc = _attend_case(T, bw, seed=T * 11 + bw)
+    t = torch.from_numpy
+    kc, vc = t(k.copy()), t(v.copy())
+    got = attend_merged(t(q), kc, vc, t(anc) if bw > 1 else None, t0, bw=bw,
+                        h=H)
+    want = jax_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                   jnp.asarray(anc), t0, bw=bw, h=H)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=0)
+    # the same values in the head-major [N, h, T, dk] layout
+    N, dk = q.shape[0], D // H
+    k_o = k.reshape(N, T, H, dk).transpose(0, 2, 1, 3)
+    v_o = v.reshape(N, T, H, dk).transpose(0, 2, 1, 3)
+    a = anc if bw > 1 else np.zeros_like(anc)
+    tmask = np.broadcast_to(np.arange(T) <= t0, (N, T))
+    old = _attend_beam(jnp.asarray(q.reshape(N, H, 1, dk)), jnp.asarray(k_o),
+                       jnp.asarray(v_o), jnp.asarray(a), jnp.asarray(tmask),
+                       bw, lambda x: x)
+    np.testing.assert_allclose(got.numpy(), np.asarray(old).reshape(N, D),
+                               atol=1e-5, rtol=0)
+    # the attend writes nothing
+    np.testing.assert_array_equal(kc.numpy(), k)
+    np.testing.assert_array_equal(vc.numpy(), v)
+
+
+def test_attend_merged_rejects_bad_shapes():
+    q, k, v, anc = (torch.from_numpy(x) for x in _attend_case(13, 2, 0))
+    for kw in (dict(anc=None, t0=3, bw=2),        # no ancestry at bw 2
+               dict(anc=anc, t0=13, bw=2),        # t0 past the cache
+               dict(anc=anc, t0=-1, bw=2),
+               dict(anc=anc[:, :8], t0=3, bw=2),  # anc of another T
+               dict(anc=None, t0=3, bw=4)):       # N % bw
+        with pytest.raises(ValueError):
+            attend_merged(q, k, v, kw['anc'], kw['t0'], bw=kw['bw'], h=H)
+    with pytest.raises(ValueError):
+        attend_merged(q, k, v, anc, 3, bw=2, h=5)  # D % h
+
+
+def test_bench_beam_attend_runs_on_cpu(capsys):
+    """The bench entry point end to end at a tiny size with --device cpu
+    (where every wrapper is its twin): all four parts run and check."""
+    from captioning_tpu_torch.tools import bench_beam_attend
+    out = bench_beam_attend.main(['--device', 'cpu', '--batch', '2', '--dk',
+                                  '8', '--iters', '1', '--dtype', 'float32'])
+    assert set(out) == {'attend_merged', 'mha_step_fused'}
+    assert all(r['max_err'] == 0 and r['ms'] > 0 for r in out.values())
+    text = capsys.readouterr().out
+    assert 'in-loop carry' in text and text.count('caches identical') == 9

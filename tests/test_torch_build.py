@@ -3,14 +3,17 @@ GPU: a missing compiler raises (there is no fallback), libraries are keyed
 by the source's hash, and a tensor that is not on the CPU never reaches a
 plain twin (the ``meta`` device stands in for a CUDA one here)."""
 
+import ctypes
 import os
+import re
 
 import pytest
 import torch
 
 from captioning_tpu_torch.ops import _build
 from captioning_tpu_torch.ops.attention import additive_attention_fused
-from captioning_tpu_torch.ops.beam_attend import attend_write_merged
+from captioning_tpu_torch.ops.beam_attend import (attend_merged,
+                                                 attend_write_merged)
 from captioning_tpu_torch.ops.logit_topk import logit_topk
 from captioning_tpu_torch.ops.lstm import maxout_lstm_gates_fused
 from captioning_tpu_torch.ops.topk import topk_lastdim
@@ -26,7 +29,7 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize('name', ['beam_attend', 'logit_topk',
                                   'additive_attention', 'maxout_lstm',
-                                  'topk'])
+                                  'topk', 'attend'])
 def test_library_is_keyed_by_source_hash(name, tmp_path, monkeypatch):
     path = _build.library_path(name)
     assert os.path.basename(path).startswith(name + '-')
@@ -45,10 +48,15 @@ def test_non_cpu_tensors_never_take_the_twins():
     anc = torch.zeros(N, T, dtype=torch.int32, **meta)
     with pytest.raises(ValueError, match='CUDA'):
         attend_write_merged(q, k, v, q, q, anc, 3, bw=5, h=4)
+    with pytest.raises(ValueError, match='CUDA'):
+        attend_merged(q, k, v, anc, 3, bw=5, h=4)
+    with pytest.raises(ValueError, match='CUDA'):
+        attend_merged(q, k, v, None, 7, bw=1, h=4)
     w, b = torch.empty(50, D, **meta), torch.empty(50, **meta)
     with pytest.raises(ValueError, match='CUDA'):
         logit_topk(q, w, b, k=5)
     assert attend_write_merged.launches == 0 and logit_topk.launches == 0
+    assert attend_merged.launches == 0
 
 
 @pytest.mark.parametrize('bw', [1, 5])
@@ -88,3 +96,24 @@ def test_every_source_has_a_signature():
     sources = sorted(f[:-3] for f in os.listdir(_build.CSRC)
                      if f.endswith('.cu'))
     assert sources == sorted(_build.SIGNATURES)
+
+
+_CTYPES = {'void*': ctypes.c_void_p, 'int': ctypes.c_int,
+           'float': ctypes.c_float}
+
+
+@pytest.mark.parametrize('name', sorted(_build.SIGNATURES))
+def test_signatures_match_the_sources(name):
+    """Each ``extern "C"`` entry point of ``csrc/<name>.cu`` has the
+    argtypes that SIGNATURES binds, in order (a mismatch would pass
+    pointers as ints or shift the arguments, and no compiler here sees
+    it)."""
+    with open(os.path.join(_build.CSRC, name + '.cu')) as f:
+        src = f.read()
+    found = {}
+    for fn, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src):
+        found[fn] = [_CTYPES[re.sub(r'\s+', '', ' '.join(p.split()[:-1]))]
+                     for p in params.split(',')]
+    assert found == _build.SIGNATURES[name]
+    if name == 'attend':
+        assert sorted(found) == ['anc_attend', 'attend_merged', 'mha_step']

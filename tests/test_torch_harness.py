@@ -170,7 +170,7 @@ def test_unported_models_raise():
     from captioning_tpu_torch.models.api import setup
     for model in ('show_tell', 'att2in', 'aoa'):
         with pytest.raises(NotImplementedError, match='ROADMAP'):
-            setup(tiny_rnn_opt(model, vocab_size=29))
+            setup(tiny_rnn_opt(model, vocab_size=29), device='cpu')
 
 
 def test_init_weights_follow_jax_init():
@@ -178,7 +178,7 @@ def test_init_weights_follow_jax_init():
     N(0, 1), the LSTM cells U(+-1/sqrt(rnn_size))."""
     from captioning_tpu_torch.models.api import setup
     cap = setup(tiny_rnn_opt('updown', rnn_size=64, input_encoding_size=48,
-                             vocab_size=400)).init_params(
+                             vocab_size=400), device='cpu').init_params(
         torch.Generator().manual_seed(0))
     sd = cap.module.state_dict()
     bound = lambda name: sd[name].abs().max().item()
@@ -198,7 +198,7 @@ def test_bf16_state_stays_bf16(model, use_bn, use_pallas):
     features, as in the JAX model."""
     from captioning_tpu_torch.models.api import setup
     cap = setup(tiny_rnn_opt(model, compute_dtype='bfloat16', use_bn=use_bn,
-                             use_pallas=use_pallas)).init_params(
+                             use_pallas=use_pallas), device='cpu').init_params(
         torch.Generator().manual_seed(0))
     pm = cap.module
     fc, att, am = (torch.from_numpy(a) for a in inputs(B=2))

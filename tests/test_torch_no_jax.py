@@ -1,32 +1,39 @@
-"""The port imports no JAX: in a fresh interpreter where importing jax,
-flax or optax fails, the port's modules import and a tiny CPU beam and
-greedy decode run, for the transformer and for RNN captioners of each
-family (UpDown, StackAtt, NewFC, LM, AdaAttMO)."""
+"""The port imports no JAX and nothing of the JAX package: in a fresh
+interpreter where importing jax, flax, optax or ``captioning_tpu`` fails,
+every module of the port and ``tools/eval_torch.py`` import, and a tiny
+CPU beam and greedy decode run, for the transformer and for RNN captioners
+of each family (UpDown, StackAtt, NewFC, LM, AdaAttMO).  An AST scan of
+the port's sources, ``chip_smoke.py`` and ``tools/eval_torch.py`` finds no
+such import either, lazy ones included.  The entry points default to the
+GPU."""
 
+import ast
 import os
 import subprocess
 import sys
+from types import SimpleNamespace
 
 import pytest
+import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, 'captioning_tpu_torch')
+BLOCKED = ('jax', 'jaxlib', 'flax', 'optax', 'captioning_tpu')
 
 SCRIPT = r'''
 import sys
-for name in ('jax', 'jaxlib', 'flax', 'optax'):
+for name in ('jax', 'jaxlib', 'flax', 'optax', 'captioning_tpu'):
     sys.modules[name] = None          # any import of them now fails
-import importlib
-for mod in ('captioning_tpu_torch.models.api',
-            'captioning_tpu_torch.engine.decoding',
-            'captioning_tpu_torch.utils.eval_utils',
-            'captioning_tpu_torch.utils.weights',
-            'captioning_tpu_torch.models.harness',
-            'captioning_tpu_torch.ops.attention',
-            'captioning_tpu_torch.ops.lstm',
-            'captioning_tpu_torch.ops.topk',
-            'captioning_tpu_torch.modules.losses',
-            'captioning_tpu_torch.ops._build'):
+import importlib, importlib.util, os, pkgutil
+import captioning_tpu_torch
+mods = [m.name for m in pkgutil.walk_packages(
+    captioning_tpu_torch.__path__, 'captioning_tpu_torch.')]
+assert len(mods) > 30, mods
+for mod in mods:
     importlib.import_module(mod)
+spec = importlib.util.spec_from_file_location(
+    'eval_torch', os.path.join('tools', 'eval_torch.py'))
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
 import torch
 from types import SimpleNamespace
 from captioning_tpu_torch.models.api import setup
@@ -36,7 +43,7 @@ opt = SimpleNamespace(caption_model='transformer', vocab_size=20,
                       drop_prob_lm=0.0, fc_feat_size=6, att_feat_size=8,
                       att_hid_size=8, max_length=5, N_enc=1, N_dec=2,
                       d_model=16, d_ff=24, num_att_heads=2)
-cap = setup(opt).init_params(torch.Generator().manual_seed(0))
+cap = setup(opt, device='cpu').init_params(torch.Generator().manual_seed(0))
 g = torch.Generator().manual_seed(1)
 fc = torch.randn(3, 6, generator=g)
 att = torch.randn(3, 4, 8, generator=g)
@@ -46,10 +53,10 @@ assert seq.shape == (3, 5) and done['seq'].shape == (3, 1, 3, 5)
 assert torch.isfinite(stats['ent_sum']).all()
 seq, stats = cap.sample_stats(fc, att, am, None, {'beam_size': 1})
 assert seq.shape == (3, 5) and torch.isfinite(stats['lp_sum']).all()
-bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax')
+bad = [m for m in sys.modules
+       if m.split('.')[0] in ('jax', 'flax', 'optax', 'captioning_tpu')
        and sys.modules[m] is not None]
 assert not bad, bad
-assert 'captioning_tpu.models' not in sys.modules
 print('OK')
 '''
 
@@ -76,3 +83,51 @@ def test_rnn_port_runs_without_jax(model):
         script = script.replace('input_encoding_size=16',
                                 'input_encoding_size=32')
     _run(script)
+
+
+def _sources():
+    out = [os.path.join(REPO, 'chip_smoke.py'),
+           os.path.join(REPO, 'tools', 'eval_torch.py')]
+    for root, _, files in os.walk(PKG):
+        out += [os.path.join(root, f) for f in files if f.endswith('.py')]
+    return sorted(out)
+
+
+def _imports(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_no_source_imports_jax_or_the_jax_package():
+    sources = _sources()
+    assert len(sources) > 30
+    bad = ['%s: %s' % (os.path.relpath(p, REPO), name)
+           for p in sources for name in _imports(p)
+           if name.split('.')[0] in BLOCKED]
+    assert not bad, bad
+
+
+def test_entry_points_default_to_the_gpu(monkeypatch):
+    """``setup`` and ``Captioner`` ask for CUDA unless told otherwise, and
+    raise without a CUDA device rather than carry on on the CPU."""
+    from captioning_tpu_torch.models.api import Captioner, setup
+    from captioning_tpu_torch.models.config import config_from_opt
+    opt = SimpleNamespace(caption_model='transformer', vocab_size=20,
+                          input_encoding_size=16, rnn_size=32, num_layers=2,
+                          drop_prob_lm=0.0, fc_feat_size=6, att_feat_size=8,
+                          att_hid_size=8, max_length=5, N_enc=1, N_dec=2,
+                          d_model=16, d_ff=24, num_att_heads=2)
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='CUDA'):
+        setup(opt)
+    with pytest.raises(RuntimeError, match='CUDA'):
+        Captioner(config_from_opt(opt, opt.vocab_size))
+    assert setup(opt, device='cpu').device.type == 'cpu'
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: True)
+    assert setup(opt).device.type == 'cuda'

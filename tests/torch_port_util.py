@@ -69,7 +69,8 @@ def jax_and_port(seed=0, eos_boost=0.0, opt=None, **kw):
             'generator' if 'generator' in variables['params'] else 'logit']
         out['bias'] = out['bias'].copy()
         out['bias'][0] += eos_boost
-    pcap = port_setup(opt, tiny_vocab()).load_jax_variables(variables)
+    pcap = port_setup(opt, tiny_vocab(), device='cpu').load_jax_variables(
+        variables)
     torch.manual_seed(0)
     return jcap, variables, pcap
 

@@ -3,11 +3,14 @@
 Reads a JAX-trained checkpoint (``model.npz`` + the infos pickle), overlays
 the eval options on the training opts exactly as tools/eval.py does, and
 evaluates with ``captioning_tpu_torch.utils.eval_utils.eval_split`` on
-``--device`` (cuda by default; the CUDA kernels build at first use).
-With ``--device cuda`` and no GPU it raises: it never carries on on the
-CPU.  The ported models are the transformer and the RNN attention
-captioners updown / topdown, att2in2 and att2all2; the others raise
-``NotImplementedError``.
+``--device`` (cuda by default; the CUDA kernels build at first use;
+``--device cpu`` runs the kernels' plain twins).  With ``--device cuda``
+and no GPU it raises: it never carries on on the CPU.  The ported models
+are the transformer, updown / topdown, att2in2, att2all2, stackatt,
+denseatt, adaatt, adaattmo, newfc, fc and language_model; the others
+raise ``NotImplementedError``.  The options, the data loader and the
+metrics are the port's own copies of the JAX package's host-only modules
+(``captioning_tpu_torch/utils``, ``captioning_tpu_torch/data``).
 
     python tools/eval_torch.py --model log/model-best.npz \\
         --infos_path log/infos_<id>-best.pkl --beam_size 5 --split test
@@ -25,8 +28,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), '..'))
 
 import torch  # noqa: E402
 
-import captioning_tpu.utils.misc as utils  # noqa: E402
-import captioning_tpu.utils.opts as opts  # noqa: E402
+import captioning_tpu_torch.utils.misc as utils  # noqa: E402
+import captioning_tpu_torch.utils.opts as opts  # noqa: E402
 from captioning_tpu_torch.models.api import setup  # noqa: E402
 from captioning_tpu_torch.utils import eval_utils  # noqa: E402
 
@@ -94,7 +97,7 @@ def main(argv=None):
     opt.vocab_size = len(vocab)
     captioner = setup(opt, vocab, device=opt.device).load_params(opt.model)
 
-    from captioning_tpu.data.dataset import DataLoader
+    from captioning_tpu_torch.data.dataset import DataLoader
     loader = DataLoader(opt)
     loader.dataset.ix_to_word = infos['vocab']
 
