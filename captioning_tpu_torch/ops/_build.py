@@ -27,6 +27,9 @@ CSRC = os.path.join(_PKG, 'csrc')
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), 'build', 'kernels')
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC']
+# after the source, so the linker keeps them: libcuda encodes the TMA
+# descriptors (cuTensorMapEncodeTiled)
+NVCC_LIBS = ['-lcuda']
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # entry point -> argtypes (each returns cudaError_t as int)
@@ -80,7 +83,8 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> str:
     with open(os.path.join(CSRC, name + '.cu'), 'rb') as f:
-        digest = hashlib.sha256(f.read() + ' '.join(NVCC_FLAGS).encode())
+        digest = hashlib.sha256(
+            f.read() + ' '.join(NVCC_FLAGS + NVCC_LIBS).encode())
     return os.path.join(BUILD_DIR, '%s-%s.so' % (name,
                                                  digest.hexdigest()[:16]))
 
@@ -93,8 +97,8 @@ def build(name: str) -> str:
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc()] + NVCC_FLAGS + ['-o', tmp,
-                                    os.path.join(CSRC, name + '.cu')]
+    cmd = ([_nvcc()] + NVCC_FLAGS
+           + ['-o', tmp, os.path.join(CSRC, name + '.cu')] + NVCC_LIBS)
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
@@ -138,10 +142,10 @@ def stream_ptr(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def check_pair_aligned(what: str, *tensors) -> None:
-    """The kernels load two elements at a time: every tensor must start on
-    a two-element boundary (a view at an odd offset does not)."""
+def check_aligned(what: str, nbytes: int, *tensors) -> None:
+    """The kernel loads ``nbytes`` at a time: every tensor must start on an
+    ``nbytes`` boundary (a view at an odd offset may not)."""
     for x in tensors:
-        if x.data_ptr() % (2 * x.element_size()):
-            raise ValueError('%s: a tensor starts off a two-element boundary'
-                             % what)
+        if x.data_ptr() % nbytes:
+            raise ValueError('%s: a tensor starts off a %d-byte boundary'
+                             % (what, nbytes))

@@ -84,7 +84,7 @@ def anc_attend(K, V, q, anc, l: int, t: int, bw: int):
             or dk % 2 or dk > 256):
         raise ValueError('anc_attend: needs contiguous CUDA tensors of one '
                          'dtype, anc int32, even head width <= 256')
-    _build.check_pair_aligned('anc_attend', *tensors)
+    _build.check_aligned('anc_attend', 2 * q.element_size(), *tensors)
     lib = _build.load('attend')
     out = torch.empty_like(q)
     rc = lib.anc_attend(K.data_ptr(), V.data_ptr(), q.data_ptr(),

@@ -14,12 +14,15 @@ per row — far below the card's 295 FLOP/byte ridge.  The TPU kernel scored
 all ``bw`` siblings and masked the others, reading bw * (t0 + 1) rows,
 because it had no row gather.  ``csrc/beam_attend.cu`` gathers: one warp
 per (row, head) reads only the ancestor's entry ``k[blk*bw + anc[r,j], j]``
-per time step (T rows per lane, not bw * T), with an online softmax in
-float32 so nothing but the context is written.  At j == t0 the new entry
-comes from ``k_new``/``v_new`` (as ``_wa_kernel`` patches its slab) and is
-stored at ``[r, t0]``; ``anc[r, t0]`` is the row's own slot, so no other row
-reads that entry in the same launch.  Any Tp works (the TPU kernel's
-semaphore array broke above Tp = 24).
+per time step (T rows per lane, not bw * T).  It loads the row's ancestry
+once per 32 steps, one 4-byte load a lane, hands the indices out by
+shuffle, and issues every K and V load of a 16-step chunk (16-byte
+vectors, 8 lanes to a 64-wide bf16 head entry) before it consumes any,
+with a softmax in float32 so nothing but the context is written.  At
+j == t0 the new entry comes from ``k_new``/``v_new`` (as ``_wa_kernel``
+patches its slab) and is stored at ``[r, t0]``; ``anc[r, t0]`` is the
+row's own slot, so no other row reads that entry in the same launch.
+Any Tp works (the TPU kernel's semaphore array broke above Tp = 24).
 
 Rounding: in bf16 the kernel rounds each scaled score to bf16 (as the TPU
 kernel does) and keeps the softmax and the weighted sum in float32; the
@@ -83,6 +86,12 @@ def attend_write_merged_ref(q, k_cache, v_cache, k_new, v_new, anc, t0: int,
     return attend_merged_ref(q, k_cache, v_cache, anc, t0, bw=bw, h=h)
 
 
+def vector_bytes(head_bytes: int) -> int:
+    """The width of ``attend_write_merged``'s loads: the widest of 16, 8
+    and 4 bytes that divides a head's bytes."""
+    return next(vb for vb in (16, 8, 4) if head_bytes % vb == 0)
+
+
 def attend_write_merged(q, k_cache, v_cache, k_new, v_new,
                         anc: Optional[torch.Tensor], t0: int, *, bw: int,
                         h: int):
@@ -118,6 +127,8 @@ def attend_write_merged(q, k_cache, v_cache, k_new, v_new,
                    or not anc.is_contiguous()):
         raise ValueError('attend_write_merged: anc must be contiguous int32 '
                          'on the same device')
+    _build.check_aligned('attend_write_merged',
+                         vector_bytes(dk * q.element_size()), *tensors)
     lib = _build.load('beam_attend')
     ctx = torch.empty_like(q)
     rc = lib.attend_write_merged(
@@ -166,7 +177,7 @@ def attend_merged(q, k, v, anc: Optional[torch.Tensor], t0: int, *, bw: int,
                    or not anc.is_contiguous()):
         raise ValueError('attend_merged: anc must be contiguous int32 on the '
                          'same device')
-    _build.check_pair_aligned('attend_merged', *tensors)
+    _build.check_aligned('attend_merged', 2 * q.element_size(), *tensors)
     lib = _build.load('attend')
     ctx = torch.empty_like(q)
     rc = lib.attend_merged(

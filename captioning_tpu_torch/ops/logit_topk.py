@@ -11,17 +11,18 @@ The [N, V1] table is never stored.
 What bounds it on the H100: at the beam-5 B = 1024 step (N = 5120,
 D = 512, V1 = 9488) the product is 50 GFLOP against ~10 MB of weights and
 5 MB of activations — far above the 295 FLOP/byte ridge, so compute.
-``csrc/logit_topk.cu`` computes the product in the kernel body — bf16
-tensor-core fragments (``nvcuda::wmma``) with float32 accumulation for
-bf16, float32 FMA for float32 (``wgmma``/TMA are later work) — and keeps
-the rest off device memory: a block owns 64 rows and one contiguous range
-of 128-column vocab tiles, folding each tile into flash-style running
-stats (max, sum exp over the raw logits, sum exp and sum exp*(t - m) over
-the adjusted ones, sum of the adjusted ones) and into a running top-k held
-in shared memory.  Blocks cannot carry state to one another, so the vocab
-splits (chosen to give about two blocks per SM: the greedy batch has 5x
-fewer rows than the beam one) write their partials to a small workspace
-and a second kernel merges them per row.
+``csrc/logit_topk.cu`` computes the product in the kernel body and keeps
+the rest off device memory.  bf16: a block keeps its 128 rows of x in
+shared memory (TMA, once), streams W through a ring of TMA loads, runs
+the product on ``wgmma`` with two consumer warpgroups taking the 64-wide
+vocab tiles in turn, and folds each tile from registers into per-thread
+running stats (max, sum exp, sum exp*(t - m), sum t) and, behind a
+K-th-best threshold, into each thread's own top-K list in registers.
+float32 keeps a CUDA-core FMA product (``wgmma`` in float32 would be
+TF32) staged in shared memory.
+Blocks cannot carry state to one another, so the vocab splits
+(``plan_splits``) write their partials to a small workspace and a second
+kernel merges them per row.
 
 Rounding mirrors the TPU kernel and the twin: the product is accumulated
 in float32, rounded to the weight dtype, the bias (in the weight dtype) is
@@ -30,6 +31,8 @@ added with one more rounding, then everything is float32.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -37,17 +40,56 @@ from . import _build
 from .topk import top_k
 
 MAX_K = 16
-_ROWS, _TV = 64, 128          # the kernel's row block and vocab tile
+BF16_TILE, F32_TILE = 64, 128  # the kernels' vocab tiles
+F32_ROWS = 64                  # the float32 kernel's row block
+BF16_MAX_D = 1024              # x's block rows fit 128 KB of shared memory
 
 
-def _splits(N: int, V1: int, device) -> int:
-    """Vocab splits per row block: enough blocks for about two per SM,
-    no split without a tile."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    tiles = -(-V1 // _TV)
-    want = max(1, min(tiles, -(-2 * sms // -(-N // _ROWS))))
-    per = -(-tiles // want)
-    return -(-tiles // per)
+def bf16_rows(D: int) -> int:
+    """The bf16 kernel's row block: 128 rows (two wgmma halves) up to
+    D 512, 64 up to D 1024."""
+    return 128 if D <= 512 else 64
+
+
+@functools.lru_cache(maxsize=None)
+def plan_splits(N: int, V1: int, rows: int, tile: int, sms: int,
+                blocks_per_sm: int = 1):
+    """(splits, tiles per split) for a grid of ceil(N / rows) row blocks
+    over ceil(V1 / tile) vocab tiles.
+
+    The split count minimises the kernel's span counted in tile times:
+    ceil(blocks / (sms * blocks_per_sm)) waves of (tiles per split + 1),
+    the 1 for the block's load of its rows of x; the fewest splits win a
+    tie.  Then as many splits as that width needs, so none is empty and
+    split s covers tiles [s * per, min((s + 1) * per, tiles))."""
+    tiles = -(-V1 // tile)
+    row_blocks = -(-N // rows)
+    slots = sms * blocks_per_sm
+    best = min(range(1, tiles + 1),
+               key=lambda s: (-(-row_blocks * s // slots)
+                              * (-(-tiles // s) + 1), s))
+    splits = -(-tiles // -(-tiles // best))
+    return splits, -(-tiles // splits)   # the kernel's own tiles per split
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def bf16_refusal(D: int, x_ptr: int, w_ptr: int, b_ptr: int):
+    """Why the bf16 kernel cannot take these operands, or None: TMA wants
+    16-byte row strides and 16-byte aligned x and w, x's block rows must
+    fit in shared memory, and the bias is read in aligned pairs."""
+    if D % 8:
+        return 'D %% 8 == 0 (D=%d)' % D
+    if D > BF16_MAX_D:
+        return 'D <= %d (D=%d)' % (BF16_MAX_D, D)
+    if x_ptr % 16 or w_ptr % 16:
+        return '16-byte aligned x and w'
+    if b_ptr % 4:
+        return '4-byte aligned b'
+    return None
 
 
 def logit_topk_ref(x, w, b, temp=1.0, unk_bias=0.0, *, k: int,
@@ -70,7 +112,8 @@ def logit_topk(x, w, b, temp=1.0, unk_bias=0.0, *, k: int,
 
     x: [N, D] (cast to w.dtype); w: [V1, D]; b: [V1].  Returns (top_lsm
     [N, k] f32, top_ix [N, k] int64, row_sum [N] f32, ent [N] f32).
-    CPU tensors take the plain twin; CUDA tensors launch the kernel.
+    CPU tensors take the plain twin; CUDA tensors launch the kernel, and
+    operands it refuses raise.
     """
     V1, D = w.shape
     if not 1 <= k <= min(MAX_K, V1):
@@ -82,20 +125,28 @@ def logit_topk(x, w, b, temp=1.0, unk_bias=0.0, *, k: int,
     x = x.to(w.dtype).contiguous()
     b = b.to(w.dtype).contiguous()
     N = x.shape[0]
+    bf16 = w.dtype == torch.bfloat16
+    if bf16:
+        why = bf16_refusal(D, x.data_ptr(), w.data_ptr(), b.data_ptr())
+        if why:
+            raise ValueError('logit_topk: the bf16 kernel needs ' + why)
     if (not x.is_cuda or w.device != x.device or b.device != x.device
             or not w.is_contiguous() or x.shape != (N, D)
             or b.shape != (V1,)):
         raise ValueError('logit_topk: needs CUDA x [N, D], contiguous w '
                          '[V1, D] and b [V1] on one device')
-    if w.dtype == torch.bfloat16 and (D % 8 or x.data_ptr() % 16
-                                      or w.data_ptr() % 16):
-        raise ValueError('logit_topk: bf16 needs D % 8 == 0 and 16-byte '
-                         'aligned x and w')
     lib = _build.load('logit_topk')
-    splits = _splits(N, V1, x.device)
+    sms = _sm_count(x.device.index)
+    if bf16:
+        splits, _ = plan_splits(N, V1, bf16_rows(D), BF16_TILE, sms)
+        parts = 2 * splits          # one per consumer warpgroup
+    else:
+        splits, _ = plan_splits(N, V1, F32_ROWS, F32_TILE, sms,
+                                blocks_per_sm=2)
+        parts = splits
     f32 = dict(dtype=torch.float32, device=x.device)
-    ws_f = torch.empty(splits, N, 5 + k, **f32)
-    ws_i = torch.empty(splits, N, k, dtype=torch.int32, device=x.device)
+    ws_f = torch.empty(parts, N, 5 + k, **f32)
+    ws_i = torch.empty(parts, N, k, dtype=torch.int32, device=x.device)
     vals = torch.empty(N, k, **f32)
     idx = torch.empty(N, k, dtype=torch.int32, device=x.device)
     row_sum = torch.empty(N, **f32)

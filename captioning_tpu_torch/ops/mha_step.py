@@ -73,7 +73,7 @@ def mha_step_fused(q, k_new, v_new, k_cache, v_cache, t: int):
             or dk % 2 or dk > 256):
         raise ValueError('mha_step_fused: needs contiguous CUDA tensors of '
                          'one dtype, even head width <= 256')
-    _build.check_pair_aligned('mha_step_fused', *tensors)
+    _build.check_aligned('mha_step_fused', 2 * q.element_size(), *tensors)
     lib = _build.load('attend')
     out = torch.empty_like(q)
     rc = lib.mha_step(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),

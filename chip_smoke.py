@@ -16,7 +16,15 @@ Phases, in order; any failure raises and exits non-zero:
    H in {512, 1000}; the top-k: [1024, 5 x 9488] and [1024, 9488], k in
    {5, 1}, on random, integer-tied and NEG-masked rows), in float32 with
    tight tolerances and in bf16 with stated ones, plus ragged small shapes
-   (the top-k bit-identical everywhere); and time each against its twin;
+   (the top-k bit-identical everywhere), plus shapes that stress the
+   redesigns of B1 and B2 (B1: t0 past the 32-step ancestry window of Tp
+   48, t0 = 0, head widths that take 8- and 4-byte vectors or two vectors
+   a lane; B2: N 1000 and 37 against its 128-row block, k 16, V1 ragged
+   against its 64-wide tile, D 1024 on its 64-row block); and time each
+   against its twin; time B2 (k 1 / 5 / 16, and the greedy shape) and B1
+   (t0 0 / 10 / 16 / 20) by CUDA-graph replay too; and print the cuBLAS
+   time of B2's product alone (``x @ w.T``, bf16) on a line of its own: a
+   floor for the GEMM part, not the same function;
 4. build the full-width transformer (6 + 6 layers, d_model 512, d_ff 2048,
    8 heads, vocab 9487 + 1, 36 x 2048 features, max length 20) from the
    port's own init with a seeded generator;
@@ -305,6 +313,21 @@ def phase_kernels(torch, ba, lt):
     check_beam_attend(torch, ba, 36, 96, 3, 4, 13, 7, torch.float32, 1e-5,
                       seed=2)
     log('  attend_write_merged ragged shapes: ok')
+    # the redesign's edges: t0 past the ancestry's 32-step window, t0 = 0,
+    # and head widths whose bytes take 8- or 4-byte vectors (dk 10, dk 254)
+    # or two 16-byte vectors a lane (dk 256 in float32)
+    for dtype, atol in ((torch.float32, 1e-5), (torch.bfloat16, 0.05)):
+        for N, Dh, hh, bw, Tp, t0 in ((5120, 512, 8, 5, 48, 32),
+                                      (5120, 512, 8, 5, 48, 47),
+                                      (1024, 512, 8, 1, 48, 40),
+                                      (5120, 512, 8, 5, 24, 0),
+                                      (35, 30, 3, 5, 70, 69),
+                                      (40, 512, 2, 5, 40, 39),
+                                      (36, 508, 2, 4, 9, 8)):
+            check_beam_attend(torch, ba, N, Dh, hh, bw, Tp, t0, dtype, atol,
+                              seed=Tp + t0 + bw)
+    log('  attend_write_merged stress shapes (Tp 48 with t0 32 / 40 / 47, '
+        't0 0, dk 10 / 254 / 256, Tp 70): ok')
     V1 = 9488
     for dtype in (torch.float32, torch.bfloat16):
         for k, N in ((5, 5120), (1, 5120), (1, 1024)):
@@ -320,6 +343,17 @@ def phase_kernels(torch, ba, lt):
                      unk_idx=5)
     check_logit_topk(torch, lt, 37, 96, 1001, 5, torch.bfloat16, seed=5)
     log('  logit_topk ragged shapes: ok')
+    # the redesign's edges: N off the bf16 kernel's 128-row block, k 16
+    # (the longest per-thread list), V1 ragged against its 64-wide tile,
+    # D 1024 on its 64-row block, temperature 1 without the UNK bias
+    for dtype in (torch.float32, torch.bfloat16):
+        check_logit_topk(torch, lt, 1000, D, V1, 16, dtype, seed=6)
+        check_logit_topk(torch, lt, 37, D, 1001, 16, dtype, seed=7)
+    check_logit_topk(torch, lt, 300, 1024, 3001, 5, torch.bfloat16, seed=8)
+    check_logit_topk(torch, lt, 1000, D, V1, 5, torch.bfloat16, seed=9,
+                     temp=1.0, unk_bias=0.0, unk_idx=-1)
+    log('  logit_topk stress shapes (N 1000 / 37, k 16, V1 1001, D 1024, '
+        'temp 1): ok')
     return errs
 
 
@@ -460,13 +494,32 @@ def time_kernels(torch, ba, lt):
     x, w, b = rnd(N, D), rnd(V1, D) * 0.1, rnd(V1) * 0.1
     out['logit_topk'] = (
         cuda_ms(lambda: lt.logit_topk(x, w, b, 0.8, -1000.0, k=5,
-                                      unk_idx=V1 - 1), 10),
+                                      unk_idx=V1 - 1), 50),
         cuda_ms(lambda: lt.logit_topk_ref(x, w, b, 0.8, -1000.0, k=5,
                                           unk_idx=V1 - 1), 10),
         # x, W, b in bf16; top-5 values and int32 indices, row_sum, ent
         bound(2 * (N * D + V1 * D + V1) + N * 5 * 8 + N * 8,
               2 * N * D * V1, PEAK_BF16_TENSOR))
-    return out, library
+    # by graph replay (the host taken out): B2 at k 1 / 5 / 16 and at the
+    # greedy step (N 1024, k 1, its bound beside it); B1 from t0 0 to 20
+    replay = {}
+    for n, kk in ((N, 1), (N, 5), (N, 16), (1024, 1)):
+        xs = x[:n]
+        replay['logit_topk N %d k %d' % (n, kk)] = graph_ms(
+            torch, lambda: lt.logit_topk(xs, w, b, 0.8, -1000.0, k=kk,
+                                         unk_idx=V1 - 1), 20)
+    greedy_bound = bound(2 * (1024 * D + V1 * D + V1) + 1024 * 16,
+                         2 * 1024 * D * V1, PEAK_BF16_TENSOR)[0]
+    for t in (0, 10, 16, 20):
+        anc_t = anc.clone()
+        anc_t[:, t] = torch.arange(N, device='cuda', dtype=torch.int32) % bw
+        replay['attend_write_merged t0 %d' % t] = graph_ms(
+            torch, lambda: ba.attend_write_merged(q, k, v, kn, vn, anc_t, t,
+                                                  bw=bw, h=h), 20)
+    # the product alone through cuBLAS, a floor for B2's GEMM part (not the
+    # same function: no library_ms)
+    product = cuda_ms(lambda: x @ w.t(), 50)
+    return out, library, (replay, greedy_bound), product
 
 
 def check_maxout(torch, ml, N, H, dtype, seed):
@@ -819,63 +872,7 @@ def phase_benches(torch, wrappers):
 # phases 4-5: the model through Captioner
 # ---------------------------------------------------------------------------
 
-V = 9487
-
-
-# the flagships' widths: configs/transformer/transformer.yml and
-# configs/updown/updown.yml (the shapes bench.py measures); StackAtt at the
-# opts.py defaults (captioning_tpu/utils/opts.py:45-65); NewFC of
-# configs/fc.yml (MODEL_ZOO row "FC", the opts.py widths)
-MODELS = {
-    'transformer': dict(input_encoding_size=512, rnn_size=2048, num_layers=6,
-                        drop_prob_lm=0.1, att_hid_size=512, N_enc=6, N_dec=6,
-                        d_model=512, d_ff=2048, num_att_heads=8),
-    'updown': dict(input_encoding_size=1000, rnn_size=1000, num_layers=2,
-                   drop_prob_lm=0.5, att_hid_size=512),
-    'stackatt': dict(input_encoding_size=512, rnn_size=512, num_layers=1,
-                     drop_prob_lm=0.5, att_hid_size=512),
-    'newfc': dict(input_encoding_size=512, rnn_size=512, num_layers=1,
-                  drop_prob_lm=0.5, att_hid_size=512),
-}
-
-
-def make_captioner(torch, model, dtype_name, device):
-    from types import SimpleNamespace
-
-    from captioning_tpu_torch.models.api import setup
-    opt = SimpleNamespace(caption_model=model, vocab_size=V,
-                          fc_feat_size=2048, att_feat_size=2048,
-                          max_length=20, compute_dtype=dtype_name,
-                          **MODELS[model])
-    vocab = {str(i): 'w%d' % i for i in range(1, V + 1)}
-    vocab[str(V)] = 'UNK'          # the COCO vocab's last entry
-    return setup(opt, vocab, device).init_params(
-        torch.Generator().manual_seed(0))
-
-
-def features(torch, B, device, seed):
-    """36 x 2048 region features and their mean as the fc feature, as the
-    bottom-up features give them."""
-    g = torch.Generator().manual_seed(seed)
-    att = torch.randn(B, 36, 2048, generator=g).to(device)
-    fc = att.mean(1)
-    am = torch.ones(B, 36, device=device)
-    return fc, att, am
-
-
-BEAM = {'beam_size': 5, 'sample_n': 1, 'group_size': 1, 'suppress_UNK': 1}
-GREEDY = {'sample_method': 'greedy', 'beam_size': 1, 'sample_n': 1}
-
-
-def decode(cap, mode, fc, att, am):
-    if mode == 'beam5':
-        seq, stats, _ = cap.sample_beam(fc, att, am, None, BEAM)
-    else:
-        seq, stats = cap.sample_stats(fc, att, am, None, GREEDY)
-    return seq, stats
-
-
-def check_output(torch, seq, stats, B, L):
+def check_output(torch, seq, stats, B, L, V):
     if tuple(seq.shape) != (B, L) or int(seq.min()) < 0 or int(
             seq.max()) > V:
         raise AssertionError('decode output: shape %s range [%d, %d]'
@@ -894,25 +891,28 @@ def phase_decode(torch, model, wrappers, required, batches=3):
     (name -> wrapper) set to 0 just before it, and each kernel of
     ``required[mode]`` must have grown just after.  Then the f32 agreement
     of the kernels (CUDA) with the twins (CPU)."""
+    # the model helpers shared with the profiler: the flagships' widths,
+    # make_captioner, features, decode
+    from captioning_tpu_torch.tools import profile_decode as pd
     torch.cuda.empty_cache()      # earlier phases' blocks: a clean pool
-    cap = make_captioner(torch, model, 'bfloat16', 'cuda')
+    cap = pd.make_captioner(model, 'bfloat16', 'cuda')
     B, L = 1024, 20
-    fc, att, am = features(torch, B, 'cuda', seed=1)
+    fc, att, am = pd.features(B, 'cuda', seed=1)
     rates = {}
     launches = dict.fromkeys(wrappers, 0)
     for mode in ('beam5', 'greedy'):
         for fn in wrappers.values():
             fn.launches = 0
-        seq, stats = decode(cap, mode, fc, att, am)     # warm-up
+        seq, stats = pd.decode(cap, mode, fc, att, am)  # warm-up
         torch.cuda.synchronize()
-        check_output(torch, seq, stats, B, L)
+        check_output(torch, seq, stats, B, L, pd.V)
         ms = []
         for _ in range(batches):
             t = time.time()
-            seq, stats = decode(cap, mode, fc, att, am)
+            seq, stats = pd.decode(cap, mode, fc, att, am)
             torch.cuda.synchronize()
             ms.append(1000 * (time.time() - t))
-            check_output(torch, seq, stats, B, L)
+            check_output(torch, seq, stats, B, L, pd.V)
         counts = {name: fn.launches for name, fn in wrappers.items()}
         for name in required[mode]:
             if counts[name] <= 0:
@@ -923,20 +923,22 @@ def phase_decode(torch, model, wrappers, required, batches=3):
         rates[mode] = B / (sorted(ms)[batches // 2] / 1000)
         steps = int((seq > 0).sum(1).max()) + 1
         log('  %s %s B=%d: %.1f cap/s at the median batch (ms per batch: '
-            '%s; longest caption %d steps), mean ent_sum %.3f, launches %s'
+            '%s; longest caption %d steps), mean ent_sum %.3f, launches %s '
+            '(a batch: %s)'
             % (model, mode, B, rates[mode], ', '.join('%.1f' % v for v in ms),
-               steps, float(stats['ent_sum'].mean()), counts))
+               steps, float(stats['ent_sum'].mean()), counts,
+               {n: c // (batches + 1) for n, c in counts.items() if c}))
     del cap
 
     # f32: kernels (CUDA) against twins (CPU) on one small batch
     torch.set_num_threads(min(8, os.cpu_count() or 1))
     agree = {}
-    capg = make_captioner(torch, model, 'float32', 'cuda')
-    capc = make_captioner(torch, model, 'float32', 'cpu')
-    fc, att, am = features(torch, 8, 'cpu', seed=2)
+    capg = pd.make_captioner(model, 'float32', 'cuda')
+    capc = pd.make_captioner(model, 'float32', 'cpu')
+    fc, att, am = pd.features(8, 'cpu', seed=2)
     for mode in ('beam5', 'greedy'):
-        sg, stg = decode(capg, mode, fc.cuda(), att.cuda(), am.cuda())
-        sc, stc = decode(capc, mode, fc, att, am)
+        sg, stg = pd.decode(capg, mode, fc.cuda(), att.cuda(), am.cuda())
+        sc, stc = pd.decode(capc, mode, fc, att, am)
         same = (sg.cpu() == sc).all(1).float().mean().item()
         err = (stg['ent_sum'].cpu() - stc['ent_sum']).abs().max().item()
         agree[mode] = same
@@ -982,7 +984,8 @@ def main():
     errs['additive_attention'] = phase_additive_attention(torch, aa)
     errs['maxout_lstm_gates'] = phase_maxout(torch, ml)
     errs['topk_lastdim'] = phase_topk(torch, tk)
-    times, library = time_kernels(torch, ba, lt)
+    times, library, (replay, b2_greedy_bound), b2_product = time_kernels(
+        torch, ba, lt)
     aa_times = time_additive_attention(torch, aa)
     times['additive_attention'] = aa_times[5]
     new_times, new_library = time_new_kernels(torch, ml, tk)
@@ -992,6 +995,10 @@ def main():
         log('  %s: kernel %.4f ms, twin %.4f ms' % (name, t_ms, plain))
     log('  additive_attention greedy (N=1024, bw=1): kernel %.4f ms, twin '
         '%.4f ms' % aa_times[1][:2])
+    log('  by graph replay, ms: %s; logit_topk greedy (N 1024, k 1) bound '
+        '%.4f ms' % (json.dumps(replay), b2_greedy_bound))
+    log('  yardstick, not the same function: cuBLAS x @ w.T alone (bf16, '
+        '[5120, 512] x [512, 9488]) %.4f ms' % b2_product)
 
     # every wrapper's counter is reset before each decode mode; each mode
     # requires the kernels its path runs

@@ -143,3 +143,21 @@ def test_bench_beam_attend_runs_on_cpu(capsys):
     assert all(r['max_err'] == 0 and r['ms'] > 0 for r in out.values())
     text = capsys.readouterr().out
     assert 'in-loop carry' in text and text.count('caches identical') == 9
+
+
+@pytest.mark.parametrize('dk,size,want', [
+    (64, 2, 16), (64, 4, 16), (32, 2, 16), (10, 4, 8), (254, 2, 4),
+    (254, 4, 8), (6, 2, 4), (2, 4, 8)])
+def test_vector_width_of_the_attend_write_kernel(dk, size, want):
+    from captioning_tpu_torch.ops.beam_attend import vector_bytes
+    assert vector_bytes(dk * size) == want
+
+
+def test_a_tensor_off_the_vector_width_is_refused():
+    from captioning_tpu_torch.ops import _build
+    flat = torch.empty(4 * 64 + 8, device='meta', dtype=torch.bfloat16)
+    ok, off = flat[:4 * 64].view(4, 64), flat[4:4 + 4 * 64].view(4, 64)
+    _build.check_aligned('attend_write_merged', 16, ok, ok)
+    with pytest.raises(ValueError, match='16-byte boundary'):
+        _build.check_aligned('attend_write_merged', 16, ok, off)
+    _build.check_aligned('attend_write_merged', 4, off)

@@ -117,3 +117,32 @@ def test_signatures_match_the_sources(name):
     assert found == _build.SIGNATURES[name]
     if name == 'attend':
         assert sorted(found) == ['anc_attend', 'attend_merged', 'mha_step']
+
+
+def test_libraries_link_after_the_source(tmp_path, monkeypatch):
+    """libcuda (the TMA descriptors' encoder) is named after the
+    source, so a linker that drops unneeded libraries keeps it; the
+    build raises when nvcc fails."""
+    monkeypatch.setattr(_build, 'BUILD_DIR', str(tmp_path / 'kernels'))
+    monkeypatch.setattr(_build, '_nvcc', lambda: 'nvcc')
+    seen = []
+
+    class Failed:
+        returncode, stdout, stderr = 1, '', 'no'
+
+    def run(cmd, **kw):
+        seen.append(cmd)
+        return Failed()
+    monkeypatch.setattr(_build.subprocess, 'run', run)
+    with pytest.raises(RuntimeError, match='nvcc failed for logit_topk.cu'):
+        _build.build('logit_topk')
+    cmd = seen[0]
+    src = cmd.index(os.path.join(_build.CSRC, 'logit_topk.cu'))
+    assert '-lcuda' in cmd and cmd.index('-lcuda') > src
+    assert cmd[1:1 + len(_build.NVCC_FLAGS)] == _build.NVCC_FLAGS
+
+
+def test_library_is_keyed_by_the_link_libraries(monkeypatch):
+    path = _build.library_path('logit_topk')
+    monkeypatch.setattr(_build, 'NVCC_LIBS', [])
+    assert _build.library_path('logit_topk') != path

@@ -85,3 +85,83 @@ def test_top_k_ties_match_lax_top_k(seed):
         jv, ji = jax.lax.top_k(jnp.asarray(x), k)
         np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
         np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+
+
+# ---------------------------------------------------------------------------
+# The CUDA wrapper's launch plan and refusals, on the CPU: the plan is plain
+# Python, and a non-CPU tensor (the ``meta`` device stands in for a CUDA
+# one) is refused before it could reach the kernel, never handed to the
+# twin.
+# ---------------------------------------------------------------------------
+
+from captioning_tpu_torch.ops import logit_topk as lt_mod  # noqa: E402
+
+H100_SMS = 132
+
+
+def _plan_cases():
+    for N in (5120, 1024, 1000, 37):
+        yield N, lt_mod.bf16_rows(512), lt_mod.BF16_TILE, 1
+        yield N, lt_mod.F32_ROWS, lt_mod.F32_TILE, 2
+    yield 300, lt_mod.bf16_rows(1024), lt_mod.BF16_TILE, 1
+
+
+@pytest.mark.parametrize('N,rows,tile,per_sm', list(_plan_cases()))
+def test_plan_splits_cover_every_tile_once(N, rows, tile, per_sm):
+    V1 = 9488
+    splits, per = lt_mod.plan_splits(N, V1, rows, tile, H100_SMS, per_sm)
+    tiles = -(-V1 // tile)
+    assert per == -(-tiles // splits)          # the kernel's own formula
+    seen = [t for s in range(splits)
+            for t in range(s * per, min((s + 1) * per, tiles))]
+    assert sorted(seen) == list(range(tiles))  # every tile, once
+    assert all(s * per < tiles for s in range(splits))   # none empty
+
+
+@pytest.mark.parametrize('N', [5120, 1024, 37])
+def test_plan_splits_fill_the_grid(N):
+    """The bf16 plan's span, in tile times (waves x (tiles a split + the x
+    load)), is within 15% of the least any split count could give: the
+    tiles of all row blocks spread evenly over the SMs.  At the beam and
+    greedy steps the grid fills the card; at N 37 (one row block, 149
+    tiles) 75 blocks of 2 tiles already give the least span."""
+    V1, rows, tile = 9488, lt_mod.bf16_rows(512), lt_mod.BF16_TILE
+    splits, per = lt_mod.plan_splits(N, V1, rows, tile, H100_SMS)
+    row_blocks, tiles = -(-N // rows), -(-V1 // tile)
+    blocks = row_blocks * splits
+    span = -(-blocks // H100_SMS) * (per + 1)
+    least = -(-row_blocks * tiles // H100_SMS) + 1
+    assert span <= 1.15 * least
+    if N >= 1024:
+        assert 0.9 * H100_SMS <= blocks <= H100_SMS   # one full wave
+
+
+@pytest.mark.parametrize('D,ptrs,why', [
+    (20, (0, 0, 0), 'D % 8'), (1032, (0, 0, 0), 'D <= 1024'),
+    (512, (8, 0, 0), '16-byte'), (512, (0, 16 + 2, 0), '16-byte'),
+    (512, (0, 0, 2), '4-byte'), (512, (256, 512, 4), None),
+    (1024, (0, 0, 0), None)])
+def test_bf16_refusal(D, ptrs, why):
+    got = lt_mod.bf16_refusal(D, *ptrs)
+    assert (got is None) if why is None else (why in got)
+
+
+def _meta_case(D=64, V1=300, x_offset=0):
+    meta = dict(device='meta', dtype=torch.bfloat16)
+    flat = torch.empty(9 * D + x_offset, **meta)
+    x = flat[x_offset:].view(9, D)
+    return x, torch.empty(V1, D, **meta), torch.empty(V1, **meta)
+
+
+@pytest.mark.parametrize('case,match', [
+    (dict(D=20), 'D % 8'), (dict(D=1040), 'D <= 1024'),
+    (dict(x_offset=1), '16-byte aligned'), (dict(), 'CUDA')])
+def test_wrapper_refuses_before_any_launch(case, match, monkeypatch):
+    def twin(*a, **k):
+        raise AssertionError('a non-CPU tensor reached the twin')
+    monkeypatch.setattr(lt_mod, 'logit_topk_ref', twin)
+    x, w, b = _meta_case(**case)
+    before = lt_mod.logit_topk.launches
+    with pytest.raises(ValueError, match=match):
+        lt_mod.logit_topk(x, w, b, k=5)
+    assert lt_mod.logit_topk.launches == before
