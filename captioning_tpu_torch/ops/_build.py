@@ -38,6 +38,8 @@ SIGNATURES = {
         # att_h, att, p_att, mask, w, b, out, nb, bw, M, H, A, dtype,
         # att_dtype, stream
         'additive_attention': [_P] * 7 + [_I] * 7 + [_P],
+        # x, y, n, stream: the kernel's bf16 tanh rule, for its check
+        'additive_attention_tanh': [_P, _P, _I, _P],
     },
     'attend': {
         # q, k, v, anc, ctx, N, T, D, h, bw, t0, dtype, stream

@@ -9,17 +9,23 @@ block b = r // bw (bw = N // nb query rows share one attention row)::
     weight  = softmax_m(e[r]) * mask[b];  weight /= max(sum(weight), 1e-9)
     out[r]  = sum_m weight[m] * att_feats[b, m, :]
 
-What bounds it on the H100: bytes.  At the UpDown beam-5 step (nb = 1024
-images, bw = 5, M = 36, H = 1000, A = 512, bf16) the inputs are 111 MB of
-att + p_att; the arithmetic is bw * M * A = 92 k tanh per image.  The TPU
-kernel needed lane-replicated rows (bw = 1), so block-shared beam rows took
-the jnp path, and it tiled 8 batch rows per grid step because Mosaic could
-not lower the contractions.  ``csrc/additive_attention.cu`` gives one block
-to each attention row and its bw queries: p_att[b] and att[b] are read
-once per image, not once per beam lane, and the [bw, M] scores and weights
-stay in shared memory.  M up to ``MAX_M``, bw up to ``MAX_BW`` and any H
-and A work (the flagship's H = 1000 is no multiple of 32), as long as the
-block's shared memory, (bw*A + A + bw*M) floats, stays within 48 KiB.
+What bounds it on the H100: bytes, and at bw 5 the tanh about as much.  At
+the UpDown beam-5 step (nb = 1024 images, bw = 5, M = 36, H = 1000,
+A = 512, bf16) the inputs are 111 MB of att + p_att; the arithmetic is
+bw * M * A = 92 k tanh per image.  The TPU kernel needed lane-replicated
+rows (bw = 1), so block-shared beam rows took the jnp path, and it tiled 8
+batch rows per grid step because Mosaic could not lower the contractions.
+``csrc/additive_attention.cu`` reads p_att[b] and att[b] once per image,
+not once per beam lane, and keeps the [bw, M] scores and weights in shared
+memory.  A persistent grid walks the images; where rows are whole
+16-byte multiples a producer warp streams queries, p_att and att into a
+shared-memory ring by bulk async copies, under the score work, and other
+shapes take a direct kernel with vector or element loads; the bf16 tanh
+is a shared-memory table (the source's header says more).
+``launch_plan`` mirrors how it cuts the work.  M up to ``MAX_M``,
+bw up to ``MAX_BW`` and any H and A work (the flagship's H = 1000 is no
+multiple of 32), as long as the block's shared memory stays within the
+card's 227 KB.
 
 Element types: att_h, p_att_feats, w_alpha and b_alpha share one (float32
 or bf16); att_feats and the output have that type too, or float32 with
@@ -42,7 +48,63 @@ from . import _build
 
 MAX_BW = 8
 MAX_M = 1024
-_SMEM = 48 * 1024
+_SMEM = 232448                  # the most shared memory a block may take
+_VEC = 8                        # elements a lane loads at a time
+_SLICE_GROUPS = 32              # 8-element groups of A in a phase-1 unit
+# the ring kernel: stages of 8 KB, as many as two blocks an SM leave room
+# for (2 to 24), 4 columns a consumer thread
+_STAGE = 8192
+_RING_ROOM = 233472 // 2 - 1024
+_RING_BARS = 512
+_RING_MAX_H = 1024
+# the bf16 tanh table covers the bits of |x| in [0x3D00, 0x4080): [2^-5, 4),
+# 8 copies
+TANH_TABLE = (0x3D00, 0x4080)
+_TAB_BYTES = 2 * (TANH_TABLE[1] - TANH_TABLE[0]) * 8
+
+
+def _size(dtype):
+    return 2 if dtype == torch.bfloat16 else 4
+
+
+def smem_bytes(bw, M, A, dtype):
+    """The direct kernel's shared memory for queries of ``dtype`` (the
+    kernel every shape can take): the queries and w padded to 8 elements,
+    the [bw, M] scores, the bf16 tanh table."""
+    size = _size(dtype)
+    return (size * (bw + 1) * -(-A // _VEC) * _VEC + 4 * bw * M
+            + (_TAB_BYTES if size == 2 else 0))
+
+
+def launch_plan(bw, M, H, A, dtype, att_dtype):
+    """How ``csrc/additive_attention.cu`` cuts one image's work, mirrored
+    for the tests, for 16-byte-aligned tensors: the kernel ('ring' where
+    the rows are whole 16-byte multiples that fit a stage, A is a multiple
+    of 8, H at most 1024 and its shared memory fits, else 'direct'), its
+    shared memory, the phase-1 units (region m, A elements [a0, a1)) and,
+    for the ring, its stages and the regions [m0, m1) of each p_att and att
+    stage."""
+    slice_len = _SLICE_GROUPS * _VEC
+    units = [(m, a0, min(A, a0 + slice_len))
+             for m in range(M) for a0 in range(0, A, slice_len)]
+    prow, arow = _size(dtype) * A, _size(att_dtype) * H
+    slices = -(-A // slice_len)
+    rest = (_RING_BARS + _size(dtype) * (2 * bw + 1) * A
+            + 4 * bw * M * (1 + slices)
+            + (_TAB_BYTES if _size(dtype) == 2 else 0))
+    stages = min(24, max(2, (_RING_ROOM - rest) // _STAGE))
+    ring_smem = rest + stages * _STAGE
+    if (A % _VEC == 0 and A > 0 and arow % 16 == 0 and 0 < H <= _RING_MAX_H
+            and prow <= _STAGE and arow <= _STAGE and ring_smem <= _SMEM):
+        rows_p, rows_a = _STAGE // prow, _STAGE // arow
+        return {'kernel': 'ring', 'smem': ring_smem, 'stages': stages,
+                'units': units,
+                'p_stages': [(m, min(M, m + rows_p))
+                             for m in range(0, M, rows_p)],
+                'att_stages': [(m, min(M, m + rows_a))
+                               for m in range(0, M, rows_a)]}
+    return {'kernel': 'direct', 'smem': smem_bytes(bw, M, A, dtype),
+            'units': units}
 
 
 def additive_attention_ref(att_h, att_feats, p_att_feats, att_masks,
@@ -80,7 +142,7 @@ def _check(att_h, att_feats, p_att_feats, mask, w_alpha, b_alpha):
                              att_h, att_feats, p_att_feats, mask, w_alpha,
                              b_alpha)))
     bw = N // nb
-    smem = 4 * (bw * A + A + bw * M)
+    smem = smem_bytes(bw, M, A, att_h.dtype)
     if bw > MAX_BW or M > MAX_M or smem > _SMEM:
         raise ValueError('additive_attention_fused: bw=%d (max %d), M=%d '
                          '(max %d), shared memory %d B (max %d)'
@@ -128,3 +190,22 @@ def additive_attention_fused(att_h, att_feats, p_att_feats, att_masks,
 
 
 additive_attention_fused.launches = 0
+
+
+def tanh_table_rule(x):
+    """The kernel's bf16 tanh (its table and bounds) on a bf16 tensor, for
+    the check that it is ``round_bf16(tanhf(x))`` bit for bit: a CUDA
+    tensor goes through the kernel's own rule, a CPU tensor through
+    ``torch.tanh``."""
+    if x.dtype != torch.bfloat16:
+        raise TypeError('tanh_table_rule: bf16 only, got %s' % x.dtype)
+    if x.device.type == 'cpu':
+        return torch.tanh(x)
+    if not x.is_cuda or not x.is_contiguous() or x.numel() == 0:
+        raise ValueError('tanh_table_rule: needs a contiguous, non-empty '
+                         'CUDA tensor')
+    y = torch.empty_like(x)
+    rc = _build.load('additive_attention').additive_attention_tanh(
+        x.data_ptr(), y.data_ptr(), x.numel(), _build.stream_ptr(x.device))
+    _build.check(rc, 'tanh_table_rule')
+    return y

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import os
 import pickle
+import shutil
 
 import numpy as np
 import torch
@@ -167,6 +168,15 @@ def eval_split(captioner, loader, eval_kwargs=None):
             if eval_kwargs.get('dump_path', 0) == 1:
                 entry['file_name'] = data['infos'][k]['file_path']
             predictions.append(entry)
+            if eval_kwargs.get('dump_images', 0) == 1:
+                # copy the source image for the vis/index.html viewer
+                src = os.path.join(eval_kwargs.get('image_root', ''),
+                                   data['infos'][k].get('file_path', ''))
+                if os.path.isfile(src):
+                    os.makedirs('vis/imgs', exist_ok=True)
+                    dst = 'vis/imgs/img%d.jpg' % len(predictions)
+                    print('cp "%s" %s' % (src, dst))
+                    shutil.copyfile(src, dst)
             if verbose:
                 print('image %s: %s' % (entry['image_id'], entry['caption']))
         for _ in range(rec['n'] - rec['ix1']):

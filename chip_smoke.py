@@ -17,12 +17,16 @@ Phases, in order; any failure raises and exits non-zero:
    {5, 1}, on random, integer-tied and NEG-masked rows), in float32 with
    tight tolerances and in bf16 with stated ones, plus ragged small shapes
    (the top-k bit-identical everywhere), plus shapes that stress the
-   redesigns of B1 and B2 (B1: t0 past the 32-step ancestry window of Tp
-   48, t0 = 0, head widths that take 8- and 4-byte vectors or two vectors
-   a lane; B2: N 1000 and 37 against its 128-row block, k 16, V1 ragged
-   against its 64-wide tile, D 1024 on its 64-row block); and time each
-   against its twin; time B2 (k 1 / 5 / 16, and the greedy shape) and B1
-   (t0 0 / 10 / 16 / 20) by CUDA-graph replay too; and print the cuBLAS
+   redesigns of B1, B2 and B3 (B1: t0 past the 32-step ancestry window of
+   Tp 48, t0 = 0, head widths that take 8- and 4-byte vectors or two
+   vectors a lane; B2: N 1000 and 37 against its 128-row block, k 16, V1
+   ragged against its 64-wide tile, D 1024 on its 64-row block; B3: M 37
+   and 100 against its ring's stages, rows of no whole 16 bytes, bw 2 / 3
+   / 8, float32 features at full width, M = MAX_M, and its bf16 tanh table
+   over all 65,536 inputs); and time each against its twin; time B2 (k 1
+   / 5 / 16, and the greedy shape), B1 (t0 0 / 10 / 16 / 20) and B3 (beam
+   and greedy, the greedy bound beside it) by CUDA-graph replay too; and
+   print the cuBLAS
    time of B2's product alone (``x @ w.T``, bf16) on a line of its own: a
    floor for the GEMM part, not the same function;
 4. build the full-width transformer (6 + 6 layers, d_model 512, d_ff 2048,
@@ -441,13 +445,66 @@ def phase_additive_attention(torch, aa):
                                  att_dtype=torch.float32)
     log('  additive_attention ragged shapes and masks, float32 features '
         'with bf16 queries: ok')
+    # the redesign's edges: M off the ring's 8-region p stages and 4-region
+    # att stages (37, 100) at full width; rows that are no 16-byte multiple
+    # (H 13 or A 13 in bf16: the direct kernel, element loads); bw 2, 3, 8;
+    # bf16 queries with float32 features at full width; M = MAX_M; H past
+    # the ring's 1024 columns (the direct kernel, 16-byte loads)
+    f32, bf16 = torch.float32, torch.bfloat16
+    for nb, bw, M, H, A, dtype, att_dtype in (
+            (1024, 5, 37, 1000, 512, bf16, None),
+            (1024, 5, 37, 1000, 512, f32, None),
+            (256, 5, 100, 1000, 512, bf16, None),
+            (256, 1, 100, 1000, 512, f32, None),
+            (37, 5, 13, 13, 24, bf16, None),
+            (37, 3, 13, 24, 13, bf16, None),
+            (37, 8, 37, 13, 13, f32, None),
+            (1024, 2, 36, 1000, 512, bf16, None),
+            (1024, 3, 36, 1000, 512, bf16, None),
+            (1024, 8, 36, 1000, 512, bf16, None),
+            (1024, 5, 36, 1000, 512, bf16, f32),
+            (16, 8, aa.MAX_M, 64, 64, bf16, None),
+            (16, 8, aa.MAX_M, 40, 24, f32, None),
+            (16, 1, aa.MAX_M, 13, 24, bf16, f32),
+            (64, 5, 36, 2048, 512, bf16, None),
+            (16, 3, 20, 4096, 64, f32, None)):
+        check_additive_attention(torch, aa, nb, bw, M, H, A, dtype,
+                                 seed=M + H + bw, ragged=True,
+                                 att_dtype=att_dtype)
+    log('  additive_attention stress shapes (M 37 / 100 at full width, H or '
+        'A 13, bw 2 / 3 / 8, float32 features at full width, M %d, H 2048 / '
+        '4096): ok' % aa.MAX_M)
+    check_tanh_rule(torch, aa)
     return err
+
+
+def check_tanh_rule(torch, aa):
+    """The kernel's bf16 tanh (its shared-memory table and the bounds
+    around it) against round_bf16(tanhf(x)) on the card, bit for bit, over
+    all 65,536 bf16 inputs (NaN must stay NaN)."""
+    x = (torch.arange(65536, dtype=torch.int32, device='cuda')
+         .to(torch.int16).view(torch.bfloat16))
+    got = aa.tanh_table_rule(x)
+    want = torch.tanh(x)
+    torch.cuda.synchronize()
+    nan = torch.isnan(want)
+    bad = ((got.view(torch.int16) != want.view(torch.int16))
+           & ~(nan & torch.isnan(got)))
+    if bool(bad.any()):
+        raise AssertionError('additive_attention bf16 tanh: %d of 65536 '
+                             'inputs differ from tanhf, first %s'
+                             % (int(bad.sum()), [hex(int(v) & 0xFFFF) for v in
+                                                 x[bad][:5].view(torch.int16)
+                                                 .tolist()]))
+    log('  additive_attention bf16 tanh table: all 65536 inputs '
+        'bit-identical to round_bf16(tanhf(x))')
 
 
 def time_additive_attention(torch, aa):
     """Kernel vs twin device time at the UpDown step shapes, bf16, for
-    beam 5 (bw = 5) and greedy (bw = 1) at B = 1024."""
-    out = {}
+    beam 5 (bw = 5) and greedy (bw = 1) at B = 1024; and the kernel's
+    time by CUDA-graph replay beside each."""
+    out, replay = {}, {}
     nb, M, H, A = 1024, 36, 1000, 512
     for bw in (5, 1):
         args = _aa_inputs(torch, nb, bw, M, H, A, torch.bfloat16,
@@ -458,7 +515,9 @@ def time_additive_attention(torch, aa):
         out[bw] = (cuda_ms(lambda: aa.additive_attention_fused(*args), 50),
                    cuda_ms(lambda: aa.additive_attention_ref(*args), 20),
                    bound(nbytes, nb * bw * M * (3 * A + 2 * H), PEAK_F32))
-    return out
+        replay[bw] = graph_ms(
+            torch, lambda: aa.additive_attention_fused(*args), 20)
+    return out, replay
 
 
 def time_kernels(torch, ba, lt):
@@ -986,7 +1045,7 @@ def main():
     errs['topk_lastdim'] = phase_topk(torch, tk)
     times, library, (replay, b2_greedy_bound), b2_product = time_kernels(
         torch, ba, lt)
-    aa_times = time_additive_attention(torch, aa)
+    aa_times, aa_replay = time_additive_attention(torch, aa)
     times['additive_attention'] = aa_times[5]
     new_times, new_library = time_new_kernels(torch, ml, tk)
     times.update(new_times)
@@ -994,7 +1053,9 @@ def main():
     for name, (t_ms, plain, _) in times.items():
         log('  %s: kernel %.4f ms, twin %.4f ms' % (name, t_ms, plain))
     log('  additive_attention greedy (N=1024, bw=1): kernel %.4f ms, twin '
-        '%.4f ms' % aa_times[1][:2])
+        '%.4f ms, bound %.4f ms (%s)' % (aa_times[1][:2] + aa_times[1][2]))
+    log('  additive_attention by graph replay: beam (bw 5) %.4f ms, greedy '
+        '(bw 1) %.4f ms' % (aa_replay[5], aa_replay[1]))
     log('  by graph replay, ms: %s; logit_topk greedy (N 1024, k 1) bound '
         '%.4f ms' % (json.dumps(replay), b2_greedy_bound))
     log('  yardstick, not the same function: cuBLAS x @ w.T alone (bf16, '

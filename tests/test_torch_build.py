@@ -146,3 +146,11 @@ def test_library_is_keyed_by_the_link_libraries(monkeypatch):
     path = _build.library_path('logit_topk')
     monkeypatch.setattr(_build, 'NVCC_LIBS', [])
     assert _build.library_path('logit_topk') != path
+
+
+def test_non_cpu_tensors_never_take_the_tanh_twin():
+    from captioning_tpu_torch.ops.attention import tanh_table_rule
+    with pytest.raises(ValueError, match='CUDA'):
+        tanh_table_rule(torch.empty(8, dtype=torch.bfloat16, device='meta'))
+    with pytest.raises(TypeError, match='bf16'):
+        tanh_table_rule(torch.empty(8))

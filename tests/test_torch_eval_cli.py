@@ -141,6 +141,49 @@ def test_eval_cli_cuda_without_gpu_raises(checkpoint):
     assert 'no CUDA device' in r.stderr
 
 
+def test_dump_images_copies_to_vis(checkpoint, tmp_path, monkeypatch):
+    """--dump_images copies each source image to vis/imgs/img<n>.jpg, as
+    the JAX ``eval_split`` does (the whole last batch, before the trailing
+    predictions are dropped); a missing source is skipped silently."""
+    from captioning_tpu.data.dataset import DataLoader
+    from captioning_tpu.utils import eval_utils
+
+    ds, _, ckpt, cap, variables, opt = checkpoint
+    img_root = tmp_path / 'raw_imgs'
+    img_root.mkdir()
+    with open(ds.input_json) as f:
+        images = json.load(f)['images']
+    missing = [img for img in images if img['split'] == 'val'][-1]
+    for img in images:
+        if img is not missing:
+            (img_root / img['file_path']).write_bytes(b'\xff\xd8fakejpg')
+
+    (tmp_path / 'jax').mkdir()
+    monkeypatch.chdir(tmp_path / 'jax')
+    kw = {'split': 'val', 'num_images': 2, 'language_eval': 0,
+          'verbose': False, 'id': 'dmp_jax', 'max_length': 6,
+          'beam_size': 1, 'dump_images': 1, 'image_root': str(img_root)}
+    eval_utils.eval_split(cap, variables, DataLoader(opt), kw)
+    want = sorted(os.listdir('vis/imgs'))
+    assert {'img1.jpg', 'img2.jpg'} <= set(want)
+
+    monkeypatch.chdir(tmp_path)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS='1')
+    r = subprocess.run(
+        [sys.executable, os.path.join(REPO, 'tools', 'eval_torch.py'),
+         '--device', 'cpu', '--model', str(ckpt / 'model.npz'),
+         '--infos_path', str(ckpt / 'infos_tcli.pkl'), '--split', 'val',
+         '--num_images', '2', '--language_eval', '0', '--force', '1',
+         '--dump_images', '1', '--image_root', str(img_root),
+         '--max_length', '6', '--beam_size', '1', '--id', 'dmp'],
+        capture_output=True, text=True, env=env, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert sorted(os.listdir('vis/imgs')) == want
+    assert (tmp_path / 'vis' / 'imgs' / 'img1.jpg').read_bytes() == \
+        b'\xff\xd8fakejpg'
+    assert 'cp "%s' % img_root in r.stdout
+
+
 def test_language_eval_matches_jax(checkpoint, tmp_path, monkeypatch):
     from captioning_tpu.utils import eval_utils as jax_eval
     from captioning_tpu_torch.utils import eval_utils as port_eval
