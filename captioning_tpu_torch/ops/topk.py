@@ -9,8 +9,9 @@ step's survivors with it from the ``[B, bdash * V1]`` candidate table.
 
 What bounds it on the H100: bytes (the table, 194 MB at B = 1024, bdash 5,
 V1 = 9488).  ``csrc/topk.cu`` reads it once, one block per row, each thread
-keeping a register top-k of its strided slice, and merges the threads'
-lists in k block-wide rounds.
+keeping a register top-k of its strided slice behind a block-shared
+threshold (the k-th best of the row's first 4096 elements), and merges the
+threads' lists in k block-wide rounds.
 
 The twin ``top_k`` is a stable descending sort, which keeps equal values in
 index order; the kernel's results are bit-identical to it.

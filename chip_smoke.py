@@ -14,19 +14,21 @@ Phases, in order; any failure raises and exits non-zero:
    k in {5, 1}, temperature 0.8, UNK bias on; B3: 1024 images, bw in
    {1, 5}, M = 36, H = 1000, A = 512; the maxout gates: N in {5120, 1024},
    H in {512, 1000}; the top-k: [1024, 5 x 9488] and [1024, 9488], k in
-   {5, 1}, on random, integer-tied and NEG-masked rows), in float32 with
-   tight tolerances and in bf16 with stated ones, plus ragged small shapes
-   (the top-k bit-identical everywhere), plus shapes that stress the
-   redesigns of B1, B2 and B3 (B1: t0 past the 32-step ancestry window of
+   {1, 2, 3, 5, 8, 16}, on random, integer-tied, NEG-masked, ascending,
+   descending and plateau rows), in float32 with tight tolerances and in
+   bf16 with stated ones, plus ragged small shapes (the top-k
+   bit-identical everywhere), plus shapes that stress the redesigns of
+   B1, B2 and B3 (B1: t0 past the 32-step ancestry window of
    Tp 48, t0 = 0, head widths that take 8- and 4-byte vectors or two
    vectors a lane; B2: N 1000 and 37 against its 128-row block, k 16, V1
    ragged against its 64-wide tile, D 1024 on its 64-row block; B3: M 37
    and 100 against its ring's stages, rows of no whole 16 bytes, bw 2 / 3
    / 8, float32 features at full width, M = MAX_M, and its bf16 tanh table
    over all 65,536 inputs); and time each against its twin; time B2 (k 1
-   / 5 / 16, and the greedy shape), B1 (t0 0 / 10 / 16 / 20) and B3 (beam
-   and greedy, the greedy bound beside it) by CUDA-graph replay too; and
-   print the cuBLAS
+   / 5 / 16, and the greedy shape), B1 (t0 0 / 10 / 16 / 20), B3 (beam
+   and greedy, the greedy bound beside it) and the top-k (k 1 / 5 / 16,
+   and ascending, descending, plateau and NEG-masked rows) by CUDA-graph
+   replay too; and print the cuBLAS
    time of B2's product alone (``x @ w.T``, bf16) on a line of its own: a
    floor for the GEMM part, not the same function;
 4. build the full-width transformer (6 + 6 layers, d_model 512, d_ff 2048,
@@ -41,7 +43,8 @@ Phases, in order; any failure raises and exits non-zero:
    (rnn_size 1000, input_encoding_size 1000, att_hid_size 512, 36 x 2048
    bottom-up features and their mean as the fc feature), whose attention
    runs kernel B3 on every step and whose beam selects through the top-k
-   kernel;
+   kernel; one more beam batch captures the candidate table of its middle
+   step, on which the top-k is checked and timed by graph replay;
 7. the same for StackAtt at the ``opts.py`` widths (rnn_size,
    input_encoding_size and att_hid_size 512; B3, the maxout gates three
    times a step, the top-k in beam) and for NewFC of ``configs/fc.yml``
@@ -623,47 +626,18 @@ def phase_maxout(torch, ml):
     return err
 
 
-def _topk_rows(torch, B, C, kind, seed):
-    """float32 [B, C] candidate rows: 'random'; 'ties' (integers in
-    [-3, 3], each value repeated ~C/7 times); 'lanes' (the beam's bos
-    table: 5 lanes of C/5 log-probs, lanes 1.. plus NEG = -1e30, which
-    rounds to exactly NEG: runs of thousands of ties)."""
-    g = torch.Generator(device='cuda').manual_seed(seed)
-    if kind == 'random':
-        return torch.randn(B, C, generator=g, device='cuda')
-    if kind == 'ties':
-        return torch.randint(-3, 4, (B, C), generator=g,
-                             device='cuda').float()
-    V1 = C // 5
-    lp = torch.log_softmax(torch.randn(B, V1, generator=g, device='cuda'),
-                           -1)
-    lane = torch.tensor([0.0, -1e30, -1e30, -1e30, -1e30], device='cuda')
-    x = (lp[:, None] + lane[None, :, None]).reshape(B, 5 * V1)
-    return torch.nn.functional.pad(x, (0, C - 5 * V1), value=-1e30)
-
-
-def check_topk(torch, tk, x, k, what):
-    """Kernel vs twin (the stable sort): values and indices bit-identical.
-    Returns the max |value| difference (0)."""
-    got_v, got_i = tk.topk_lastdim(x, k)
-    want_v, want_i = tk.top_k(x, k)
-    torch.cuda.synchronize()
-    if not (torch.equal(got_v, want_v) and torch.equal(got_i, want_i)):
-        bad = (got_i != want_i).any(1).nonzero()[:3, 0].tolist()
-        raise AssertionError('topk_lastdim %s k=%d: differs from the twin on '
-                             'rows %s' % (what, k, bad))
-    return (got_v - want_v).abs().max().item()
-
-
-def phase_topk(torch, tk):
-    for C in (5 * 9488, 9488):
-        for k in (5, 1):
-            for kind in ('random', 'ties', 'lanes'):
-                check_topk(torch, tk, _topk_rows(torch, 1024, C, kind,
-                                                 seed=C + k),
-                           k, '[1024, %d] %s' % (C, kind))
-            log('  topk_lastdim [1024, %d] k=%d random / tied / NEG-masked '
-                'rows: identical' % (C, k))
+def phase_topk(torch, tk, bt):
+    """The top-k kernel against its twin (the stable sort), values and
+    indices bit-identical, on every row kind of ``bench_topk.rows`` at the
+    beam and greedy widths, k 1 / 2 / 3 / 5 / 8 / 16, then on ragged and
+    unaligned rows."""
+    for C in bt.WIDTHS:
+        for k in (1, 2, 3, 5, 8, 16):
+            for kind in bt.KINDS:
+                bt.check(tk, bt.rows(1024, C, kind, k, seed=C + k), k,
+                         '[1024, %d] %s' % (C, kind))
+        log('  topk_lastdim [1024, %d] k 1 / 2 / 3 / 5 / 8 / 16, rows %s: '
+            'identical' % (C, ' / '.join(bt.KINDS)))
     # ragged widths, k up to 16, all--inf and all-NEG rows, and rows whose
     # start is not 16-byte aligned (a contiguous view at an odd offset)
     g = torch.Generator(device='cuda').manual_seed(5)
@@ -672,16 +646,33 @@ def phase_topk(torch, tk):
         x = flat[1:].view(B, C)
         x[0] = float('-inf')
         x[-1] = -1e30
-        check_topk(torch, tk, x, k, 'ragged [%d, %d]' % (B, C))
-        check_topk(torch, tk, torch.randint(-1, 2, (B, C), generator=g,
-                                            device='cuda').float(), k,
-                   'ragged tied [%d, %d]' % (B, C))
+        bt.check(tk, x, k, 'ragged [%d, %d]' % (B, C))
+        bt.check(tk, torch.randint(-1, 2, (B, C), generator=g,
+                                   device='cuda').float(), k,
+                 'ragged tied [%d, %d]' % (B, C))
+    torch.cuda.synchronize()
     log('  topk_lastdim ragged widths, k up to 16, -inf / NEG rows, '
         'unaligned rows: identical')
     return 0.0
 
 
-def time_new_kernels(torch, ml, tk):
+def replay_topk(torch, tk, bt):
+    """B6 by CUDA-graph replay at the UpDown beam-5 table's shape
+    ([1024, 5 x 9488]): random rows at k 1 / 5 / 16, and the other row
+    kinds at k 5 (ascending rows are the threshold's worst case)."""
+    C = bt.WIDTHS[0]
+    out = {}
+    for kind, ks in (('random', (1, 5, 16)), ('ascending', (5,)),
+                     ('descending', (5,)), ('plateau', (5,)),
+                     ('lanes', (5,))):
+        for k in ks:
+            x = bt.rows(1024, C, kind, k, seed=11)
+            out['%s k %d' % (kind, k)] = graph_ms(
+                torch, lambda: tk.topk_lastdim(x, k), 20)
+    return out
+
+
+def time_new_kernels(torch, ml, tk, bt):
     """Kernel vs twin device time at the flagship step shapes: the maxout
     gates at the StackAtt beam-5 step (N = 5120, H = 512, bf16; CUDA-graph
     replay, and the launch loop beside it) and the top-k over the UpDown
@@ -689,7 +680,7 @@ def time_new_kernels(torch, ml, tk):
     g = torch.Generator(device='cuda').manual_seed(7)
     s = torch.randn(5120, 5 * 512, generator=g, device='cuda').bfloat16()
     c = torch.randn(5120, 512, generator=g, device='cuda').bfloat16()
-    x = _topk_rows(torch, 1024, 5 * 9488, 'random', seed=7)
+    x = bt.rows(1024, 5 * 9488, 'random', 5, seed=7)
     fused = lambda: ml.maxout_lstm_gates_fused(s, c)
     plain = lambda: ml.maxout_lstm_gates_ref(s, c)
     loop = (cuda_ms(fused, 200), cuda_ms(plain, 200))
@@ -944,12 +935,14 @@ def check_output(torch, seq, stats, B, L, V):
         raise AssertionError('decode output: positive logprob sum')
 
 
-def phase_decode(torch, model, wrappers, required, batches=3):
+def phase_decode(torch, model, wrappers, required, batches=3, tables=None):
     """Beam 5 and greedy at B = 1024, bf16, through ``Captioner``; each
     mode runs with the launch counters of every wrapper of ``wrappers``
     (name -> wrapper) set to 0 just before it, and each kernel of
-    ``required[mode]`` must have grown just after.  Then the f32 agreement
-    of the kernels (CUDA) with the twins (CPU)."""
+    ``required[mode]`` must have grown just after.  With ``tables`` (a
+    list), one more beam batch after the counts are read appends the
+    candidate table of its middle step.  Then the f32 agreement of the
+    kernels (CUDA) with the twins (CPU)."""
     # the model helpers shared with the profiler: the flagships' widths,
     # make_captioner, features, decode
     from captioning_tpu_torch.tools import profile_decode as pd
@@ -987,6 +980,9 @@ def phase_decode(torch, model, wrappers, required, batches=3):
             % (model, mode, B, rates[mode], ', '.join('%.1f' % v for v in ms),
                steps, float(stats['ent_sum'].mean()), counts,
                {n: c // (batches + 1) for n, c in counts.items() if c}))
+        if mode == 'beam5' and tables is not None:
+            from captioning_tpu_torch.tools import bench_topk as bt
+            tables.append(bt.capture_table(cap, fc, att, am))
     del cap
 
     # f32: kernels (CUDA) against twins (CPU) on one small batch
@@ -1023,6 +1019,7 @@ def main():
     from captioning_tpu_torch.ops import lstm as ml
     from captioning_tpu_torch.ops import mha_step as ms
     from captioning_tpu_torch.ops import topk as tk
+    from captioning_tpu_torch.tools import bench_topk as bt
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1042,12 +1039,12 @@ def main():
     errs = phase_kernels(torch, ba, lt)
     errs['additive_attention'] = phase_additive_attention(torch, aa)
     errs['maxout_lstm_gates'] = phase_maxout(torch, ml)
-    errs['topk_lastdim'] = phase_topk(torch, tk)
+    errs['topk_lastdim'] = phase_topk(torch, tk, bt)
     times, library, (replay, b2_greedy_bound), b2_product = time_kernels(
         torch, ba, lt)
     aa_times, aa_replay = time_additive_attention(torch, aa)
     times['additive_attention'] = aa_times[5]
-    new_times, new_library = time_new_kernels(torch, ml, tk)
+    new_times, new_library = time_new_kernels(torch, ml, tk, bt)
     times.update(new_times)
     library.update(new_library)
     for name, (t_ms, plain, _) in times.items():
@@ -1060,6 +1057,8 @@ def main():
         '%.4f ms' % (json.dumps(replay), b2_greedy_bound))
     log('  yardstick, not the same function: cuBLAS x @ w.T alone (bf16, '
         '[5120, 512] x [512, 9488]) %.4f ms' % b2_product)
+    log('  topk_lastdim [1024, %d] by graph replay, ms: %s'
+        % (bt.WIDTHS[0], json.dumps(replay_topk(torch, tk, bt))))
 
     # every wrapper's counter is reset before each decode mode; each mode
     # requires the kernels its path runs
@@ -1080,14 +1079,23 @@ def main():
         'newfc': ('phase 7', ['maxout_lstm_gates'], ['topk_lastdim']),
     }
     launches = dict.fromkeys(wrappers, 0)
-    rates, agree = {}, {}
+    rates, agree, tables = {}, {}, []
     for model, (phase, both, beam_only) in paths.items():
         log('%s: full-width %s through Captioner' % (phase, model))
         rates[model], counts, agree[model] = phase_decode(
             torch, model, wrappers,
-            {'beam5': both + beam_only, 'greedy': both})
+            {'beam5': both + beam_only, 'greedy': both},
+            tables=tables if model == 'updown' else None)
         for name, n in counts.items():
             launches[name] += n
+        if tables:
+            x = tables.pop()
+            bt.check(tk, x, 5, 'UpDown beam table')
+            log('  topk_lastdim on the UpDown beam-5 table of step %d %s, '
+                'k 5: identical to the twin, %.4f ms by graph replay'
+                % (bt.CAPTURE_STEP, list(x.shape),
+                   graph_ms(torch, lambda: tk.topk_lastdim(x, 5), 20)))
+            del x
 
     log('phase 8: the strided attend kernel against its twins, and the '
         'attend benches')

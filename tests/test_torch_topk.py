@@ -1,9 +1,10 @@
 """The port's exact top-k (``ops/topk.py``) against the JAX package, float32
 on the CPU, where the wrapper runs its twin (a stable descending sort):
 against ``topk_lastdim`` in interpret mode and against ``lax.top_k``, on
-rows full of exact ties, all--inf and all-NEG rows, NEG-masked beam lanes
-and row widths no multiple of the Pallas block.  Values and indices must
-be identical.  The plain beam route selects through it."""
+rows full of exact ties, all--inf and all-NEG rows, NEG-masked beam lanes,
+ascending and descending rows, plateaus whose k-th entry is a tie, and row
+widths no multiple of the Pallas block (the row kinds the kernel is
+checked on on the card).  Values and indices must be identical.  The plain beam route selects through it."""
 
 import dataclasses
 
@@ -29,7 +30,7 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
-def _rows(kind, B, C, seed):
+def _rows(kind, B, C, seed, k=1):
     rng = np.random.RandomState(seed)
     if kind == 'random':
         x = rng.randn(B, C).astype('float32')
@@ -44,6 +45,16 @@ def _rows(kind, B, C, seed):
         x = np.concatenate([lp] + [lp + np.float32(NEG)] * 4, 1)
         x = np.pad(x, ((0, 0), (0, C - x.shape[1])),
                    constant_values=np.float32(NEG))
+    elif kind in ('ascending', 'descending'):
+        x = np.sort(rng.randn(B, C), 1)
+        if kind == 'descending':
+            x = x[:, ::-1]
+    elif kind == 'plateau':
+        # all equal but k - 1 larger values: the k-th entry is a tie that
+        # resolves to the lowest index
+        x = np.full((B, C), 0.5)
+        for r in range(B):
+            x[r, rng.choice(C, k - 1, replace=False)] = 2.0
     else:
         x = rng.randn(B, C).astype('float32')
         x[0] = -np.inf
@@ -53,11 +64,12 @@ def _rows(kind, B, C, seed):
     return x.astype('float32')
 
 
-@pytest.mark.parametrize('kind', ['random', 'ties', 'lanes', 'special'])
+@pytest.mark.parametrize('kind', ['random', 'ties', 'lanes', 'special',
+                                  'ascending', 'descending', 'plateau'])
 @pytest.mark.parametrize('C', [300, 1037])
-@pytest.mark.parametrize('k', [1, 5, 16])
+@pytest.mark.parametrize('k', [1, 2, 3, 5, 8, 16])
 def test_twin_matches_pallas_interpret_and_lax_top_k(kind, C, k):
-    x = _rows(kind, 6, C, seed=C + k)
+    x = _rows(kind, 6, C, seed=C + k, k=k)
     want_v, want_i = jax.lax.top_k(jnp.asarray(x), k)
     pl_v, pl_i = jax_topk(jnp.asarray(x), k, 256, 256, True)
     launches = ptopk.topk_lastdim.launches
@@ -120,3 +132,31 @@ def test_plain_beam_route_selects_through_topk_lastdim(model, monkeypatch):
     # beam step
     assert len(calls) == len(steps)
     assert set(calls) == {(3, 5 * 30)}
+
+
+def test_bench_rows_and_captured_table():
+    """``tools/bench_topk.py``, which feeds the kernel's checks on the card:
+    its row kinds have the stated shape and order, and the table it
+    captures is the one the plain beam route selects from, with the route's
+    own ``topk_lastdim`` put back afterwards."""
+    from captioning_tpu_torch.tools import bench_topk as bt
+    for kind in bt.KINDS:
+        x = bt.rows(3, 40, kind, 5, seed=1, device='cpu')
+        assert x.shape == (3, 40) and x.dtype == torch.float32
+        assert x.is_contiguous()
+    asc = bt.rows(3, 40, 'ascending', 5, seed=1, device='cpu')
+    assert bool((asc.diff(dim=1) >= 0).all())
+    plateau = bt.rows(3, 40, 'plateau', 5, seed=1, device='cpu')
+    v, i = ptopk.top_k(plateau, 5)
+    assert bool((v[:, :4] == 2.0).all()) and bool((v[:, 4] == 0.5).all())
+    first_low = (plateau == 0.5).int().argmax(1)     # lowest plateau column
+    np.testing.assert_array_equal(i[:, 4].numpy(), first_low.numpy())
+
+    _, _, pcap = jax_and_port(seed=3, opt=tiny_rnn_opt('updown'))
+    fc, att, am = (torch.from_numpy(a) for a in inputs(B=3, seed=5))
+    real = decoding.topk_lastdim
+    with torch.inference_mode():
+        table = bt.capture_table(pcap, fc, att, am, step=2)
+    assert decoding.topk_lastdim is real
+    assert table.shape == (3, 5 * 30) and table.dtype == torch.float32
+    bt.check(ptopk, table, 5, 'captured')
