@@ -144,6 +144,14 @@ def stream_ptr(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def count_launch(fn) -> None:
+    """Add one to ``fn.launches`` for a launch of its kernel.  A call that
+    a CUDA graph captures is not counted: it records the launch, and the
+    graph's replays run the kernel without the wrapper."""
+    if not torch.cuda.is_current_stream_capturing():
+        fn.launches += 1
+
+
 def check_aligned(what: str, nbytes: int, *tensors) -> None:
     """The kernel loads ``nbytes`` at a time: every tensor must start on an
     ``nbytes`` boundary (a view at an odd offset may not)."""

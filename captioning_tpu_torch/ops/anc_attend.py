@@ -6,11 +6,12 @@ Replaces the TPU kernel ``captioning_tpu/ops/anc_attend.py:_kernel``
 ``[N, L, h, T, dk]``; the step attends over layer ``l``.  Taking
 ``K[:, l]`` first would copy the layer's whole cache (the copy the JAX
 kernel exists to avoid, ``anc_attend.py:15-26``), so the kernel indexes
-the layer by its stride: the strided attend of ``csrc/attend.cu``, one
-warp per (row, head), which for each time ``j <= t`` gathers the ancestor
-slot ``blk*bw + anc[r, j]`` of the row's block of ``bw`` rows and folds
-it into an online float32 softmax (see there).  It reads only allowed
-entries, so it has nothing to mask.  q and the output are merged
+the layer by its stride: the strided attend of ``csrc/attend.cu``, a warp
+per row serving its heads, which for each time ``j <= t`` gathers the
+ancestor slot ``blk*bw + anc[r, j]`` of the row's block of ``bw`` rows
+(the ancestry loaded once per 32 steps, every load of a chunk in flight)
+and folds it into an online float32 softmax (see there).  It reads only
+allowed entries, so it has nothing to mask.  q and the output are merged
 ``[N, h * dk]``.
 
 What bounds it on the H100: bytes (the distinct ancestor entries of the
@@ -29,6 +30,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .beam_attend import vector_bytes
 
 _NEG_INF = -1e9
 
@@ -84,7 +86,9 @@ def anc_attend(K, V, q, anc, l: int, t: int, bw: int):
             or dk % 2 or dk > 256):
         raise ValueError('anc_attend: needs contiguous CUDA tensors of one '
                          'dtype, anc int32, even head width <= 256')
-    _build.check_aligned('anc_attend', 2 * q.element_size(), *tensors)
+    # the layer's offset l * h * T * dk elements keeps K's alignment
+    _build.check_aligned('anc_attend', vector_bytes(dk * q.element_size()),
+                         *tensors)
     lib = _build.load('attend')
     out = torch.empty_like(q)
     rc = lib.anc_attend(K.data_ptr(), V.data_ptr(), q.data_ptr(),
@@ -92,7 +96,7 @@ def anc_attend(K, V, q, anc, l: int, t: int, bw: int):
                         int(l), int(t), bw, _build.dtype_code(q.dtype),
                         _build.stream_ptr(q.device))
     _build.check(rc, 'anc_attend')
-    anc_attend.launches += 1
+    _build.count_launch(anc_attend)
     return out
 
 

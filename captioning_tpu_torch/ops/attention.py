@@ -185,7 +185,7 @@ def additive_attention_fused(att_h, att_feats, p_att_feats, att_masks,
         out.data_ptr(), nb, bw, M, H, A, _build.dtype_code(att_h.dtype),
         _build.dtype_code(att_feats.dtype), _build.stream_ptr(att_h.device))
     _build.check(rc, 'additive_attention_fused')
-    additive_attention_fused.launches += 1
+    _build.count_launch(additive_attention_fused)
     return out
 
 

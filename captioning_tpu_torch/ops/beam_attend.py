@@ -138,7 +138,7 @@ def attend_write_merged(q, k_cache, v_cache, k_new, v_new,
         N, T, D, h, bw, int(t0), _build.dtype_code(q.dtype),
         _build.stream_ptr(q.device))
     _build.check(rc, 'attend_write_merged')
-    attend_write_merged.launches += 1
+    _build.count_launch(attend_write_merged)
     return ctx
 
 
@@ -177,7 +177,8 @@ def attend_merged(q, k, v, anc: Optional[torch.Tensor], t0: int, *, bw: int,
                    or not anc.is_contiguous()):
         raise ValueError('attend_merged: anc must be contiguous int32 on the '
                          'same device')
-    _build.check_aligned('attend_merged', 2 * q.element_size(), *tensors)
+    _build.check_aligned('attend_merged',
+                         vector_bytes(dk * q.element_size()), *tensors)
     lib = _build.load('attend')
     ctx = torch.empty_like(q)
     rc = lib.attend_merged(
@@ -186,7 +187,7 @@ def attend_merged(q, k, v, anc: Optional[torch.Tensor], t0: int, *, bw: int,
         N, T, D, h, bw, int(t0), _build.dtype_code(q.dtype),
         _build.stream_ptr(q.device))
     _build.check(rc, 'attend_merged')
-    attend_merged.launches += 1
+    _build.count_launch(attend_merged)
     return ctx
 
 

@@ -158,7 +158,7 @@ def logit_topk(x, w, b, temp=1.0, unk_bias=0.0, *, k: int,
         float(unk_bias), _build.dtype_code(w.dtype),
         _build.stream_ptr(x.device))
     _build.check(rc, 'logit_topk')
-    logit_topk.launches += 1
+    _build.count_launch(logit_topk)
     return vals, idx.long(), row_sum, ent
 
 

@@ -76,7 +76,7 @@ def maxout_lstm_gates_fused(s, c_prev):
                                c.data_ptr(), N, H, _build.dtype_code(s.dtype),
                                _build.stream_ptr(s.device))
     _build.check(rc, 'maxout_lstm_gates_fused')
-    maxout_lstm_gates_fused.launches += 1
+    _build.count_launch(maxout_lstm_gates_fused)
     return h, c
 
 

@@ -11,8 +11,9 @@ signature.
 
 What bounds it on the H100: bytes (t + 1 entries of K and V per row and
 head, ~4 operations a byte).  The kernel is the strided attend of
-``csrc/attend.cu`` (one warp per (row, head), online float32 softmax; see
-there): the caches' [N, h, T, dk] layout is only its strides.
+``csrc/attend.cu`` (a warp per row serving its heads, every load of a
+chunk in flight, online float32 softmax; see there): the caches'
+[N, h, T, dk] layout is only its strides.
 
 Rounding: the kernel keeps the scores and the probabilities in float32, as
 the Pallas body does (``_mha_kernel``); the twin, like the JAX
@@ -26,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .beam_attend import vector_bytes
 
 _NEG_INF = -1e9
 
@@ -73,7 +75,8 @@ def mha_step_fused(q, k_new, v_new, k_cache, v_cache, t: int):
             or dk % 2 or dk > 256):
         raise ValueError('mha_step_fused: needs contiguous CUDA tensors of '
                          'one dtype, even head width <= 256')
-    _build.check_aligned('mha_step_fused', 2 * q.element_size(), *tensors)
+    _build.check_aligned('mha_step_fused',
+                         vector_bytes(dk * q.element_size()), *tensors)
     lib = _build.load('attend')
     out = torch.empty_like(q)
     rc = lib.mha_step(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
@@ -81,7 +84,7 @@ def mha_step_fused(q, k_new, v_new, k_cache, v_cache, t: int):
                       N, h, T, dk, int(t), _build.dtype_code(q.dtype),
                       _build.stream_ptr(q.device))
     _build.check(rc, 'mha_step_fused')
-    mha_step_fused.launches += 1
+    _build.count_launch(mha_step_fused)
     return out, k_cache, v_cache
 
 

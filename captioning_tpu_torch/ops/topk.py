@@ -56,7 +56,7 @@ def topk_lastdim(x, k: int):
     rc = lib.topk_lastdim(x.data_ptr(), vals.data_ptr(), idx.data_ptr(), B,
                           C, k, _build.stream_ptr(x.device))
     _build.check(rc, 'topk_lastdim')
-    topk_lastdim.launches += 1
+    _build.count_launch(topk_lastdim)
     return vals, idx
 
 

@@ -14,7 +14,10 @@ layer's slice first.  It checks one layer (l = 3) against the twin and
 raises ``AssertionError`` beyond bf16 0.1 (the kernel keeps the scores in
 float32 where the twin rounds them to bf16), then times the 6-layer step
 both ways: CUDA events on the GPU (the default), the host clock with
-``--device cpu``, where both time the twin.
+``--device cpu``, where both time the twin.  Last, the t sweep: the
+kernel's time on layer 3 at t 0 / 12 / 20 of T 21 and at t 47 of T 48
+(``bench_beam_attend.SWEEP_T``), by CUDA-graph replay on the GPU (the host
+clock on the CPU), which gives its fixed cost and per-step slope.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import argparse
 import torch
 
 from ..ops.anc_attend import anc_attend, anc_attend_ref
-from .bench_beam_attend import timer
+from .bench_beam_attend import SWEEP_T, sweep_timer, timer
 
 L, H, DK, BW = 6, 8, 64, 5
 ATOL = 0.1
@@ -75,8 +78,22 @@ def main(argv=None):
     for name, ms in times.items():
         print('%-6s: %8.3f ms / 6-layer step (%7.1f us/layer)'
               % (name, ms, ms * 1000 / L))
-    return {'max_err': err, 'ms': times['kernel'] / L,
-            'plain_ms': times['twin'] / L}
+    out = {'max_err': err, 'ms': times['kernel'] / L,
+           'plain_ms': times['twin'] / L}
+    del K, V
+    run = sweep_timer(device, a.iters)
+    out['sweep'] = {}
+    for T_s, t_s in SWEEP_T:
+        K, V = rnd(N, L, H, T_s, DK), rnd(N, L, H, T_s, DK)
+        anc = torch.randint(0, BW, (N, T_s), generator=g, device=device,
+                            dtype=torch.int32)
+        out['sweep']['T %d t %d' % (T_s, t_s)] = run(
+            lambda: anc_attend(K, V, q, anc, 3, t_s, BW))
+        del K, V
+    print('t sweep, kernel ms a layer (%s): %s'
+          % ('CUDA-graph replay' if device.type == 'cuda'
+             else 'host clock, CPU: the twin', out['sweep']))
+    return out
 
 
 if __name__ == '__main__':

@@ -24,7 +24,10 @@ e.g. ``--batch 4 --dk 8`` as a quick check).  Four parts, each raising
    twin.
 
 Then it prints the kernels' and the twins' times: CUDA events on the GPU,
-the host clock on the CPU, where both columns time the twin.
+the host clock on the CPU, where both columns time the twin; and the t
+sweep: each attend's time at t 0 / 12 / 20 of T 21 and at t 47 of T 48
+(``SWEEP_T``), by CUDA-graph replay on the GPU (the host clock on the
+CPU), which gives its fixed cost and per-step slope.
 """
 
 from __future__ import annotations
@@ -37,12 +40,15 @@ import torch
 from ..ops import beam_attend as ba
 from ..ops import mha_step as ms
 from ..ops.anc_attend import anc_attend_ref
+from .bench_topk import replay_ms
 
 H, T, T0, BW = 8, 21, 12, 5
 # the JAX bench's sweep (bw, n_img, t0)
 SWEEP = ((8, 2, 0), (8, 2, 3), (8, 8, 3), (5, 8, 3), (5, 64, 0), (5, 64, 12),
          (1, 64, 3), (8, 64, 3))
 STEPS = 6
+# the t sweep: (T, t)
+SWEEP_T = ((21, 0), (21, 12), (21, 20), (48, 47))
 
 
 def tolerance(dtype) -> float:
@@ -88,6 +94,13 @@ def timer(device, iters):
             fn()
         return (time.perf_counter() - t) * 1000 / iters
     return run
+
+
+def sweep_timer(device, iters):
+    """``timer``, but by CUDA-graph replay on the GPU."""
+    if device.type == 'cuda':
+        return lambda fn: replay_ms(fn, iters)
+    return timer(device, iters)
 
 
 def main(argv=None):
@@ -214,7 +227,30 @@ def main(argv=None):
     for name, r in out.items():
         print('%s: kernel %.4f ms, twin %.4f ms (%s, %s)'
               % (name, r['ms'], r['plain_ms'], a.dtype, clock))
+    out['sweep'] = sweep(rnd, ancestry, N, D, dk, sweep_timer(device, a.iters))
+    print('t sweep, kernel ms (%s, %s): %s'
+          % (a.dtype, 'CUDA-graph replay' if device.type == 'cuda' else clock,
+             out['sweep']))
     return out
+
+
+def sweep(rnd, ancestry, N, D, dk, run):
+    """Each attend at the (T, t) of ``SWEEP_T``, bw 5: {name: {'T %d t %d':
+    ms}}."""
+    times = {'attend_merged': {}, 'mha_step_fused': {}}
+    for T_s, t in SWEEP_T:
+        key = 'T %d t %d' % (T_s, t)
+        q, k, v, anc = rnd(N, D), rnd(N, T_s, D), rnd(N, T_s, D), ancestry(
+            N, T_s, BW)
+        times['attend_merged'][key] = run(
+            lambda: ba.attend_merged(q, k, v, anc, t, bw=BW, h=H))
+        del k, v
+        qh, kn, vn = rnd(N, H, dk), rnd(N, H, dk), rnd(N, H, dk)
+        kc, vc = rnd(N, H, T_s, dk), rnd(N, H, T_s, dk)
+        times['mha_step_fused'][key] = run(
+            lambda: ms.mha_step_fused(qh, kn, vn, kc, vc, t))
+        del kc, vc
+    return times
 
 
 if __name__ == '__main__':

@@ -52,19 +52,25 @@ Phases, in order; any failure raises and exits non-zero:
 8. the strided attend of ``csrc/attend.cu`` behind ``attend_merged``,
    ``mha_step_fused`` and ``anc_attend``: each held against its twin at
    the benches' shapes (N 5120, 8 heads, dk 64, T 21; the stacked cache
-   with 6 layers) and at ragged ones, in float32 and bf16, and timed
-   against its twin; then the two bench entry points
-   (``captioning_tpu_torch.tools.bench_beam_attend`` and
-   ``bench_anc_attend``) at full size, with every launch counter reset
-   just before and each kernel they run required to have grown just
-   after.
+   with 6 layers) and at ragged ones, in float32 and bf16, and at shapes
+   that stress its redesign (t on both sides of the 32-step ancestry
+   window at T 48, T 70; dk 8 / 10 / 254 / 256 on 16-, 8- and 4-byte
+   vectors, several a lane, several warps a row; bw 8; odd N), and timed
+   against its twin, by its launch loop and by CUDA-graph replay; then the
+   two bench entry points (``captioning_tpu_torch.tools.bench_beam_attend``
+   and ``bench_anc_attend``) at full size with their t sweeps (graph
+   replay at t 0 / 12 / 20 of T 21 and t 47 of T 48), with every launch
+   counter reset just before and each kernel they run required to have
+   grown just after.
 
 Each decode mode requires the kernels its path runs: the top-k only in
 beam (the RNN plain-step route; the transformer's fused route selects in
 B2's epilogue).
 
 The last two lines are the kernels' JSON record (for each of the eight:
-launches on its path, max error against its twin, kernel and twin ms, the
+launches on its path, counted by its wrapper, where a call that a CUDA
+graph captures counts nothing and the graph's replays never pass the
+wrapper; max error against its twin, kernel and twin ms, the
 bound of the timed call and what sets it, and the time of a library call
 computing the same function where there is one) and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
@@ -810,7 +816,8 @@ def phase_attend(torch, ba, ms, an):
     """The three entry points at the benches' shapes (N 5120 = 1024 images
     x beam 5, 8 heads, dk 64, T 21) in float32 and bf16, and at ragged ones:
     odd N, T 13 and 21, dk 32 and 96, bw 1 / 2 / 5, t first / mid / last,
-    l first / last.  Returns the bf16 errors at the benches' shapes."""
+    l first / last; and at the redesign's edges (see the loop).  Returns the
+    bf16 errors at the benches' shapes."""
     errs = {}
     f32, bf16 = torch.float32, torch.bfloat16
     for dtype in (f32, bf16):
@@ -845,6 +852,26 @@ def phase_attend(torch, ba, ms, an):
         log('  attend_merged / mha_step_fused / anc_attend %s ragged (odd N, '
             'T 13 / 21, dk 32 / 96, bw 1 / 2 / 5, t first / mid / last, l '
             'first / last): ok' % dtype)
+        # the redesign's edges: t on both sides of the 32-step ancestry
+        # window, T 70; head widths on 16-, 8- and 4-byte vectors, one lane
+        # a head (dk 8 in bf16), several vectors a lane and several warps a
+        # row (dk 254 / 256); bw 8, odd N
+        for T, t in ((48, 31), (48, 32), (48, 47), (70, 40), (70, 69)):
+            for dk in (8, 10, 64, 254, 256):
+                for bw, N in ((1, 37), (5, 35), (8, 40)):
+                    check_attend_merged(torch, ba, N, T, 3 * dk, 3, bw, t,
+                                        dtype, seed=T + dk + t + bw)
+                    check_anc_attend(torch, an, N, 3, 3, T, dk, bw, 2, t,
+                                     dtype, seed=T + dk + t + bw)
+                check_mha_step(torch, ms, 37, 3, T, dk, t, dtype,
+                               seed=T + dk + t)
+        check_attend_merged(torch, ba, 5120, 48, 512, 8, 5, 47, dtype, seed=1)
+        check_mha_step(torch, ms, 5120, 8, 48, 64, 47, dtype, seed=1)
+        check_anc_attend(torch, an, 5120, 2, 8, 48, 64, 5, 1, 47, dtype,
+                         seed=1)
+        log('  attend_merged / mha_step_fused / anc_attend %s stress (T 48 '
+            't 31 / 32 / 47, T 70 t 40 / 69, dk 8 / 10 / 64 / 254 / 256, bw '
+            '1 / 5 / 8, odd N; N 5120 at T 48 t 47): ok' % dtype)
     return errs
 
 
@@ -886,7 +913,6 @@ def time_attend(torch, ba, ms, an):
     q4 = qh[:, :, None]
     library['mha_step_fused'] = cuda_ms(
         lambda: sdpa(q4, kc[:, :, :t + 1], vc[:, :, :t + 1]), 50)
-    del k, v, kc, vc
     L, l, t = 6, 3, 19
     K, V = rnd(N, L, h, T, dk), rnd(N, L, h, T, dk)
     nbytes = (2 * (2 * N * D + 2 * distinct_entries(torch, anc, bw, t + 1)
@@ -895,7 +921,16 @@ def time_attend(torch, ba, ms, an):
         cuda_ms(lambda: an.anc_attend(K, V, q, anc, l, t, bw), 50),
         cuda_ms(lambda: an.anc_attend_ref(K, V, q, anc, l, t, bw), 20),
         bound(nbytes, 4 * N * D * (t + 1), PEAK_F32))
-    return out, library
+    # the same three calls by graph replay (the host taken out)
+    replay = {
+        'attend_merged t0 12': graph_ms(
+            torch, lambda: ba.attend_merged(q, k, v, anc, t0, bw=bw, h=h),
+            20),
+        'mha_step_fused t 12': graph_ms(
+            torch, lambda: ms.mha_step_fused(qh, kn, vn, kc, vc, 12), 20),
+        'anc_attend l 3 t 19': graph_ms(
+            torch, lambda: an.anc_attend(K, V, q, anc, l, t, bw), 20)}
+    return out, library, replay
 
 
 def phase_benches(torch, wrappers):
@@ -1101,11 +1136,13 @@ def main():
         'attend benches')
     torch.cuda.empty_cache()
     errs.update(phase_attend(torch, ba, ms, an))
-    attend_times, attend_library = time_attend(torch, ba, ms, an)
+    attend_times, attend_library, attend_replay = time_attend(torch, ba, ms,
+                                                              an)
     times.update(attend_times)
     library.update(attend_library)
     for name, (t_ms, plain, _) in attend_times.items():
         log('  %s: kernel %.4f ms, twin %.4f ms' % (name, t_ms, plain))
+    log('  attend kernels by graph replay, ms: %s' % json.dumps(attend_replay))
     log('  the library attention (attend only): attend_write_merged %.4f '
         'ms, attend_merged %.4f ms, mha_step_fused %.4f ms'
         % tuple(library[n] for n in ('attend_write_merged', 'attend_merged',

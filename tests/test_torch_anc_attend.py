@@ -51,6 +51,26 @@ def test_anc_attend_matches_jax(l, t):
     np.testing.assert_array_equal(got.numpy(), sliced.numpy())
 
 
+@pytest.mark.parametrize('t', [31, 32, 47])
+def test_anc_attend_matches_jax_across_the_ancestry_window(t):
+    """T 48: steps on both sides of the 32-step window at which the CUDA
+    kernel reloads a row's ancestry."""
+    rng = np.random.RandomState(t)
+    T48 = 48
+    K = rng.randn(N, 2, H, T48, DK).astype('float32')
+    V = rng.randn(N, 2, H, T48, DK).astype('float32')
+    q = rng.randn(N, H * DK).astype('float32')
+    anc = rng.randint(0, BW, (N, T48)).astype('int32')
+    got = anc_attend(*(torch.from_numpy(x) for x in (K, V, q, anc)), 1, t,
+                     BW)
+    j = [jnp.asarray(x) for x in (K, V, q, anc)]
+    want_ref = jax_ref(*j, jnp.int32(1), jnp.int32(t), BW)
+    want_pl = jax_fused(*j, jnp.int32(1), jnp.int32(t), BW, interpret=True)
+    for want in (want_ref, want_pl):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                                   rtol=0)
+
+
 def test_anc_attend_rejects_bad_shapes():
     K, V, q, anc = (torch.from_numpy(x) for x in _case())
     for l, t, bw in ((L, 3, BW), (-1, 3, BW), (0, T, BW), (0, -1, BW),
@@ -72,8 +92,13 @@ def test_anc_attend_rejects_bad_shapes():
 
 def test_bench_anc_attend_runs_on_cpu(capsys):
     """The bench entry point end to end at a tiny size with --device cpu
-    (where the wrapper is its twin)."""
+    (where the wrapper is its twin), with the t sweep at each (T, t) of
+    ``SWEEP_T``."""
     from captioning_tpu_torch.tools import bench_anc_attend
+    from captioning_tpu_torch.tools.bench_beam_attend import SWEEP_T
     out = bench_anc_attend.main(['20', '9', '1', '--device', 'cpu'])
     assert out['max_err'] == 0 and out['ms'] > 0 and out['plain_ms'] > 0
-    assert '6-layer step' in capsys.readouterr().out
+    assert list(out['sweep']) == ['T %d t %d' % x for x in SWEEP_T]
+    assert all(ms > 0 for ms in out['sweep'].values())
+    text = capsys.readouterr().out
+    assert '6-layer step' in text and 't sweep' in text

@@ -135,14 +135,21 @@ def test_attend_merged_rejects_bad_shapes():
 
 def test_bench_beam_attend_runs_on_cpu(capsys):
     """The bench entry point end to end at a tiny size with --device cpu
-    (where every wrapper is its twin): all four parts run and check."""
+    (where every wrapper is its twin): all four parts run and check, and
+    the t sweep times both attends at each (T, t) of ``SWEEP_T``."""
     from captioning_tpu_torch.tools import bench_beam_attend
     out = bench_beam_attend.main(['--device', 'cpu', '--batch', '2', '--dk',
                                   '8', '--iters', '1', '--dtype', 'float32'])
+    sweep = out.pop('sweep')
     assert set(out) == {'attend_merged', 'mha_step_fused'}
     assert all(r['max_err'] == 0 and r['ms'] > 0 for r in out.values())
+    assert sorted(sweep) == ['attend_merged', 'mha_step_fused']
+    keys = ['T %d t %d' % x for x in bench_beam_attend.SWEEP_T]
+    for times in sweep.values():
+        assert list(times) == keys and all(ms > 0 for ms in times.values())
     text = capsys.readouterr().out
     assert 'in-loop carry' in text and text.count('caches identical') == 9
+    assert 't sweep' in text
 
 
 @pytest.mark.parametrize('dk,size,want', [

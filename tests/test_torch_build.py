@@ -154,3 +154,122 @@ def test_non_cpu_tensors_never_take_the_tanh_twin():
         tanh_table_rule(torch.empty(8, dtype=torch.bfloat16, device='meta'))
     with pytest.raises(TypeError, match='bf16'):
         tanh_table_rule(torch.empty(8))
+
+
+# ---------------------------------------------------------------------------
+# The strided attend's vector width: each wrapper of csrc/attend.cu refuses a
+# tensor off the width its kernel loads at (vector_bytes of the head's
+# bytes) and passes an aligned one on.  ``meta`` tensors stand in for CUDA
+# ones, with ``is_cuda`` faked on the Tensor class and a library that
+# records its calls in place of the built one.
+# ---------------------------------------------------------------------------
+
+class _Recorder:
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, fn):
+        return lambda *args: self.calls.append((fn, args)) or 0
+
+
+@pytest.fixture
+def fake_attend(monkeypatch):
+    from captioning_tpu_torch.ops import anc_attend, beam_attend, mha_step
+    lib = _Recorder()
+    monkeypatch.setattr(torch.Tensor, 'is_cuda', property(lambda x: True))
+    monkeypatch.setattr(_build, 'load', lambda name: lib)
+    monkeypatch.setattr(_build, 'stream_ptr', lambda device: 0)
+    monkeypatch.setattr(torch.cuda, 'is_current_stream_capturing',
+                        lambda: False)
+    for fn in (beam_attend.attend_merged, mha_step.mha_step_fused,
+               anc_attend.anc_attend):
+        monkeypatch.setattr(fn, 'launches', 0)
+    return lib
+
+
+def _meta(shape, dtype, offset_bytes=0):
+    """A ``meta`` tensor starting ``offset_bytes`` past an aligned base."""
+    n, es = 1, torch.empty(0, dtype=dtype).element_size()
+    for s in shape:
+        n *= s
+    flat = torch.empty(n + 64, device='meta', dtype=dtype)
+    return flat[offset_bytes // es:offset_bytes // es + n].view(shape)
+
+
+def _attend_call(name, dk, dtype, shift):
+    """Call wrapper ``name`` at head width ``dk``, its first tensor starting
+    ``shift`` bytes off an aligned base; returns the expected ints the
+    kernel gets."""
+    from captioning_tpu_torch.ops.anc_attend import anc_attend
+    from captioning_tpu_torch.ops.beam_attend import attend_merged
+    from captioning_tpu_torch.ops.mha_step import mha_step_fused
+    N, h, T, bw = 10, 2, 9, 5
+    code = _build.dtype_code(dtype)
+    anc = torch.zeros(N, T, dtype=torch.int32, device='meta')
+    if name == 'attend_merged':
+        D = h * dk
+        attend_merged(_meta((N, D), dtype, shift), _meta((N, T, D), dtype),
+                      _meta((N, T, D), dtype), anc, 4, bw=bw, h=h)
+        return [N, T, D, h, bw, 4, code]
+    if name == 'mha_step':
+        mha_step_fused(_meta((N, h, dk), dtype, shift),
+                       *(_meta((N, h, dk), dtype) for _ in range(2)),
+                       *(_meta((N, h, T, dk), dtype) for _ in range(2)), 4)
+        return [N, h, T, dk, 4, code]
+    L = 3
+    anc_attend(_meta((N, L, h, T, dk), dtype, shift),
+               _meta((N, L, h, T, dk), dtype), _meta((N, h * dk), dtype),
+               anc, 2, 4, bw)
+    return [N, L, h, T, dk, 2, 4, bw, code]
+
+
+@pytest.mark.parametrize('name', ['attend_merged', 'mha_step', 'anc_attend'])
+@pytest.mark.parametrize('dk', [64, 10, 254])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_attend_wrappers_check_the_kernel_vector_width(fake_attend, name, dk,
+                                                       dtype):
+    from captioning_tpu_torch.ops.beam_attend import vector_bytes
+    vb = vector_bytes(dk * torch.empty(0, dtype=dtype).element_size())
+    assert vb == {(64, torch.float32): 16, (64, torch.bfloat16): 16,
+                  (10, torch.float32): 8, (10, torch.bfloat16): 4,
+                  (254, torch.float32): 8, (254, torch.bfloat16): 4}[
+                      (dk, dtype)]
+    # half a vector off: refused before the library is reached
+    with pytest.raises(ValueError, match='%d-byte boundary' % vb):
+        _attend_call(name, dk, dtype, vb // 2)
+    assert fake_attend.calls == []
+    # a whole vector off is aligned: the kernel gets the call
+    want = _attend_call(name, dk, dtype, vb)
+    (fn, args), = fake_attend.calls
+    ints = [a for a, ty in zip(args, _build.SIGNATURES['attend'][fn])
+            if ty is ctypes.c_int]
+    assert fn == name and ints == want
+
+
+@pytest.mark.parametrize('name', ['attend_merged', 'mha_step', 'anc_attend'])
+@pytest.mark.parametrize('capturing', [False, True])
+def test_attend_wrappers_count_launches_not_captures(fake_attend, monkeypatch,
+                                                     name, capturing):
+    """Each launch adds one to the wrapper's counter; a call that a CUDA
+    graph captures reaches the kernel's entry point but adds nothing."""
+    from captioning_tpu_torch.ops import anc_attend, beam_attend, mha_step
+    fn = {'attend_merged': beam_attend.attend_merged,
+          'mha_step': mha_step.mha_step_fused,
+          'anc_attend': anc_attend.anc_attend}[name]
+    monkeypatch.setattr(torch.cuda, 'is_current_stream_capturing',
+                        lambda: capturing)
+    _attend_call(name, 64, torch.bfloat16, 0)
+    assert [c[0] for c in fake_attend.calls] == [name]
+    assert fn.launches == (0 if capturing else 1)
+
+
+@pytest.mark.parametrize('dk', [64, 10, 254])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_anc_attend_layer_offset_keeps_the_vector_width(dk, dtype):
+    """``anc_attend`` reads layer l at K + l * h * T * dk elements: every
+    layer of an aligned stack starts on the kernel's vector width."""
+    from captioning_tpu_torch.ops.beam_attend import vector_bytes
+    vb = vector_bytes(dk * torch.empty(0, dtype=dtype).element_size())
+    K = _meta((4, 6, 3, 7, dk), dtype)
+    for l in range(6):
+        assert K[:, l].data_ptr() % vb == 0

@@ -53,6 +53,28 @@ def test_mha_step_matches_jax(t):
     np.testing.assert_array_equal(v_t.numpy(), vc)
 
 
+@pytest.mark.parametrize('t', [31, 32, 47])
+def test_mha_step_matches_jax_across_the_ancestry_window(t):
+    """T 48: steps on both sides of the 32-step window (and the 16-step
+    chunks) of the CUDA kernel; the write lands at t only."""
+    rng = np.random.RandomState(t)
+    T48 = 48
+    mk = lambda *s: rng.randn(*s).astype('float32')
+    q, kn, vn = mk(N, H, DK), mk(N, H, DK), mk(N, H, DK)
+    kc, vc = mk(N, H, T48, DK), mk(N, H, T48, DK)
+    k_t, v_t = torch.from_numpy(kc.copy()), torch.from_numpy(vc.copy())
+    out = mha_step_fused(torch.from_numpy(q), torch.from_numpy(kn),
+                         torch.from_numpy(vn), k_t, v_t, t)[0]
+    j = [jnp.asarray(x) for x in (q, kn, vn, kc, vc)]
+    o1, k1, v1 = jax_ref(*j, t)
+    o2 = jax_fused(*j, t, interpret=True)[0]
+    for want in (o1, o2):
+        np.testing.assert_allclose(out.numpy(), np.asarray(want), atol=1e-5,
+                                   rtol=0)
+    np.testing.assert_array_equal(k_t.numpy(), np.asarray(k1))
+    np.testing.assert_array_equal(v_t.numpy(), np.asarray(v1))
+
+
 def test_mha_step_rejects_bad_shapes():
     q, kn, vn, kc, vc = (torch.from_numpy(x) for x in _case())
     with pytest.raises(ValueError):
