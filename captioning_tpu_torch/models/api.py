@@ -1,10 +1,11 @@
 """Captioner: a ported model bound into the decode engine's protocol.
 
-Port of ``captioning_tpu/models/api.py`` for the eval slice: ``setup``
-builds the transformer or one of the RNN captioners of
-``harness.MODELS`` (other model keys raise), ``bind`` returns the
-``DecodeModel`` the engine drives, and ``sample_beam``/``sample_stats``/
-``forward_tf`` are the entry points ``eval_split`` calls.  Parameters live
+Port of ``captioning_tpu/models/api.py``: ``setup`` builds the
+transformer or one of the RNN captioners of ``harness.MODELS`` (other
+model keys raise), ``bind`` returns the ``DecodeModel`` the engine drives,
+``sample_beam``/``sample_stats``/``forward_tf`` are the entry points
+``eval_split`` calls, and ``forward_tf(train=True)`` is the teacher-forced
+pass the XE trainer differentiates (``modules.trainer``).  Parameters live
 in ``self.module`` on ``self.device``; there is no jit cache, PyTorch runs
 eagerly.
 """
@@ -84,10 +85,31 @@ class Captioner:
     def _install(self, state_dict):
         module = self.module_cls(self.cfg)
         module.load_state_dict(state_dict, strict=True)
-        # eval only: no autograd graph is ever needed
+        # frozen until trainable(): decoding needs no autograd graph
         self.module = (module.requires_grad_(False).to(self.device)
                        .to_compute_dtype().eval())
         return self
+
+    def trainable(self):
+        """Make the parameters require grad, for ``modules.trainer``.  They
+        stay float32: training in bf16 needs float32 master weights, which
+        are not ported (ROADMAP.md)."""
+        if self.cfg.dtype != torch.float32:
+            raise NotImplementedError(
+                'training in %s needs float32 master weights, not ported '
+                'yet; see ROADMAP.md (train with --compute_dtype float32)'
+                % self.cfg.dtype)
+        self.module.requires_grad_(True)
+        return self
+
+    def jax_variables(self):
+        """The JAX variables tree (``params``, with use_bn ``batch_stats``)
+        as float32 numpy arrays: what ``misc.save_pytree`` writes as a
+        ``model.npz`` that the JAX package loads."""
+        from ..utils.misc import _unflatten_tree
+        from ..utils.weights import jax_from_state_dict
+        return _unflatten_tree(jax_from_state_dict(self.module.state_dict(),
+                                                   self.cfg))
 
     # -- engine protocol -------------------------------------------------------
     def bind(self) -> DecodeModel:
@@ -150,11 +172,27 @@ class Captioner:
                            **common)
 
     # -- entry points ------------------------------------------------------------
-    @torch.inference_mode()
-    def forward_tf(self, fc_feats, att_feats, seq, att_masks):
-        """Eval teacher-forced logprobs [N, T, V+1] over input tokens
-        ``seq`` [N, T] or [B, seq_per_img, T]."""
-        return self.module.forward_tf(fc_feats, att_feats, seq, att_masks)
+    def forward_tf(self, fc_feats, att_feats, seq, att_masks,
+                   train: bool = False, ss_prob: float = 0.0,
+                   generator: Optional[torch.Generator] = None):
+        """Teacher-forced logprobs [N, T, V+1] over input tokens ``seq``
+        [N, T] or [B, seq_per_img, T].  Eval runs under inference mode.
+        ``train`` builds the autograd graph, draws dropout and scheduled
+        sampling from ``generator`` (on ``self.device``; seed 0 when None,
+        as the JAX package takes PRNGKey(0)) and folds the batch's
+        statistics into the BatchNorms' running ones, in place.  The
+        generator is the train switch (the modules never read their
+        ``training`` flag), so an eval entry point between train steps
+        reads the parameters and buffers and writes nothing."""
+        if not train:
+            with torch.inference_mode():
+                return self.module.forward_tf(fc_feats, att_feats, seq,
+                                              att_masks)
+        if generator is None:
+            generator = torch.Generator(self.device).manual_seed(0)
+        with torch.enable_grad():
+            return self.module.forward_tf(fc_feats, att_feats, seq,
+                                          att_masks, generator, ss_prob)
 
     @torch.inference_mode()
     def sample_beam(self, fc_feats, att_feats, att_masks, rng,

@@ -1,8 +1,7 @@
 """Model configuration (port of ``captioning_tpu/models/harness.py:35-126``).
 
-Only the fields the ported eval models read are kept (the transformer and
-the RNN attention harness; ``drop_prob_lm`` is read by nothing yet, there
-is no training); the compute dtype is a torch dtype.  ``use_pallas``
+Only the fields the ported models read are kept (the transformer and the
+RNN attention harness); the compute dtype is a torch dtype.  ``use_pallas``
 chooses, for CPU tensors only, which JAX branch the RNN attention head
 mirrors (the fused kernel's twin or the plain jnp math); CUDA tensors
 always take the CUDA kernels.  Its "auto" value (None / -1) resolves as
@@ -43,6 +42,7 @@ class ModelConfig:
     d_model: int = 512
     d_ff: int = 2048
     num_att_heads: int = 8
+    dropout: float = 0.1
     use_pallas: int = 0
     dtype: torch.dtype = torch.float32
 
@@ -74,6 +74,7 @@ def config_from_opt(opt, vocab_size: int) -> ModelConfig:
         d_model=g('d_model', opt.input_encoding_size),
         d_ff=g('d_ff', opt.rnn_size),
         num_att_heads=g('num_att_heads', 8),
+        dropout=g('dropout', 0.1),
         use_pallas=_resolve_use_pallas(g('use_pallas', None)),
         dtype=_DTYPES[g('compute_dtype', 'float32')],
     )

@@ -1,14 +1,17 @@
-"""The RNN captioners (eval): UpDown / TopDown, Att2in2, Att2all2, StackAtt /
+"""The RNN captioners: UpDown / TopDown, Att2in2, Att2all2, StackAtt /
 DenseAtt, AdaAtt / AdaAttMO, NewFC / FC / LM.
 
-Port of the eval paths of ``captioning_tpu/models/harness.py``: the shared
+Port of ``captioning_tpu/models/harness.py``: the shared
 embeds of ``AttCaptioner`` (word embedding, with ReLU except for the FC
 family; the fc embed as an ``MLPEmbed``, a plain Linear (NewFC / FC) or
 none; att embeds, the optional masked BatchNorm and the ``ctx2att`` key
 projection for the models with attention; the logit MLP, none for the
 legacy 'fc') around a per-step core, exposing the engine's step protocol
-(``prepare_feature``, ``init_state``, ``step``) and an eval ``forward_tf``.
-There is no dropout: nothing here trains yet.  Module and parameter names
+(``prepare_feature``, ``init_state``, ``step``) and a teacher-forced
+``forward_tf``.  Train mode is the generator ``gen`` these take (None is
+eval): dropout at exactly the JAX sites, drawn from ``gen``
+(``layers.dropout``), the BatchNorm's batch statistics, and scheduled
+sampling in ``forward_tf``.  Module and parameter names
 follow the JAX tree (``core.attention.h2att``, ``core.lstm0.i2h``,
 ``core.h2h_0``, ``logit_hidden.0``, ...), so the weight bridge maps keys
 one to one.
@@ -47,7 +50,7 @@ from ..ops.attention import additive_attention_fused
 from ..ops.lstm import maxout_lstm_gates_fused
 from .config import ModelConfig
 from .layers import (Embedding, MaskedBatchNorm, MLPEmbed, additive_attention,
-                     init_dense, linear, uniform_)
+                     dropout, init_dense, linear, uniform_)
 
 # model keys served by this module; 'topdown' is UpDown
 MODELS = ('updown', 'topdown', 'att2in2', 'att2all2', 'stackatt',
@@ -111,7 +114,9 @@ class AttentionHead(nn.Module):
 
 class MaxoutLSTMCell(nn.Module):
     """The 5-gate maxout LSTM (reference FCModel.py:13-42): ``i2h`` and
-    ``h2h`` stay GEMMs, the gate chain runs ``maxout_lstm_gates_fused``."""
+    ``h2h`` stay GEMMs, the gate chain runs ``maxout_lstm_gates_fused``.
+    The JAX cell's output dropout is its callers' (``StackAttCore``,
+    ``FCCore``)."""
 
     def __init__(self, in_features: int, rnn_size: int):
         super().__init__()
@@ -135,8 +140,9 @@ class Att2in2Core(nn.Module):
         self.i2h = nn.Linear(E, 5 * H)
         self.h2h = nn.Linear(H, 5 * H)
         self.a2c = nn.Linear(H, 2 * H)
+        self.drop = cfg.drop_prob_lm
 
-    def forward(self, xt, feats, state):
+    def forward(self, xt, feats, state, gen=None):
         H = self.h2h.in_features
         h_prev, c_prev = state['h'][:, -1], state['c'][:, -1]
         att_res = self.attention(h_prev, feats)
@@ -145,7 +151,8 @@ class Att2in2Core(nn.Module):
         # a fresh sum, so the add may go in place
         s[:, 3 * H:] += linear(att_res, self.a2c)
         next_h, next_c = maxout_lstm_gates_fused(s, c_prev.contiguous())
-        return next_h, dict(state, h=next_h[:, None], c=next_c[:, None])
+        return (dropout(next_h, self.drop, gen),
+                dict(state, h=next_h[:, None], c=next_c[:, None]))
 
 
 class Att2all2Core(nn.Module):
@@ -160,14 +167,16 @@ class Att2all2Core(nn.Module):
         self.i2h = nn.Linear(E, 5 * H)
         self.h2h = nn.Linear(H, 5 * H)
         self.a2h = nn.Linear(H, 5 * H)
+        self.drop = cfg.drop_prob_lm
 
-    def forward(self, xt, feats, state):
+    def forward(self, xt, feats, state, gen=None):
         h_prev, c_prev = state['h'][:, -1], state['c'][:, -1]
         att_res = self.attention(h_prev, feats)
         s = (linear(xt, self.i2h) + linear(h_prev, self.h2h)
              + linear(att_res, self.a2h))
         next_h, next_c = maxout_lstm_gates_fused(s, c_prev.contiguous())
-        return next_h, dict(state, h=next_h[:, None], c=next_c[:, None])
+        return (dropout(next_h, self.drop, gen),
+                dict(state, h=next_h[:, None], c=next_c[:, None]))
 
 
 class UpDownCore(nn.Module):
@@ -181,16 +190,18 @@ class UpDownCore(nn.Module):
         self.attention = AttentionHead(H, cfg.att_hid_size,
                                        bool(cfg.use_pallas))
         self.lang_lstm = TorchLSTMCell(2 * H, H)
+        self.drop = cfg.drop_prob_lm
 
-    def forward(self, xt, feats, state):
+    def forward(self, xt, feats, state, gen=None):
         h, c = state['h'], state['c']
         h_att, c_att = self.att_lstm(
             torch.cat([h[:, 1], feats['fc_feats'], xt], 1), h[:, 0], c[:, 0])
         att = self.attention(h_att, feats)
         h_lang, c_lang = self.lang_lstm(torch.cat([att, h_att], 1), h[:, 1],
                                         c[:, 1])
-        return h_lang, dict(state, h=torch.stack([h_att, h_lang], 1),
-                            c=torch.stack([c_att, c_lang], 1))
+        return (dropout(h_lang, self.drop, gen),
+                dict(state, h=torch.stack([h_att, h_lang], 1),
+                     c=torch.stack([c_att, c_lang], 1)))
 
 
 class StackAttCore(nn.Module):
@@ -201,29 +212,35 @@ class StackAttCore(nn.Module):
         super().__init__()
         E, H = cfg.input_encoding_size, cfg.rnn_size
         use_pallas = bool(cfg.use_pallas)
+        p = self.drop = cfg.drop_prob_lm
         self.att1 = AttentionHead(H, cfg.att_hid_size, use_pallas)
         self.att2 = AttentionHead(H, cfg.att_hid_size, use_pallas)
         self.lstm0 = MaxoutLSTMCell(E + H, H)        # [xt, fc_embed(fc)]
         self.lstm1 = MaxoutLSTMCell(2 * H, H)
         self.emb2 = nn.Linear(H, H)
         self.lstm2 = MaxoutLSTMCell(2 * H, H)
-        self.fusion1 = MLPEmbed(2 * H, H) if dense_fusion else None
-        self.fusion2 = MLPEmbed(3 * H, H) if dense_fusion else None
+        self.fusion1 = MLPEmbed(2 * H, H, p) if dense_fusion else None
+        self.fusion2 = MLPEmbed(3 * H, H, p) if dense_fusion else None
 
-    def forward(self, xt, feats, state):
+    def forward(self, xt, feats, state, gen=None):
         h, c = state['h'], state['c']
+        # the chain reads each cell's dropped output, the state keeps h
         h0, c0 = self.lstm0(torch.cat([xt, feats['fc_feats']], 1), h[:, 0],
                             c[:, 0])
-        att1 = self.att1(h0, feats)
-        h1, c1 = self.lstm1(torch.cat([h0, att1], 1), h[:, 1], c[:, 1])
-        att2 = self.att2(h1 + linear(att1, self.emb2), feats)
+        o0 = dropout(h0, self.drop, gen)
+        att1 = self.att1(o0, feats)
+        h1, c1 = self.lstm1(torch.cat([o0, att1], 1), h[:, 1], c[:, 1])
+        o1 = dropout(h1, self.drop, gen)
+        att2 = self.att2(o1 + linear(att1, self.emb2), feats)
         if self.fusion1 is not None:
-            h2_in = torch.cat([self.fusion1(torch.cat([h0, h1], 1)), att2], 1)
+            h2_in = torch.cat([self.fusion1(torch.cat([o0, o1], 1), gen),
+                               att2], 1)
         else:
-            h2_in = torch.cat([h1, att2], 1)
+            h2_in = torch.cat([o1, att2], 1)
         h2, c2 = self.lstm2(h2_in, h[:, 2], c[:, 2])
-        out = (self.fusion2(torch.cat([h0, h1, h2], 1))
-               if self.fusion2 is not None else h2)
+        o2 = dropout(h2, self.drop, gen)
+        out = (self.fusion2(torch.cat([o0, o1, o2], 1), gen)
+               if self.fusion2 is not None else o2)
         return out, dict(state, h=torch.stack([h0, h1, h2], 1),
                          c=torch.stack([c0, c1, c2], 1))
 
@@ -243,6 +260,7 @@ class AdaAttCore(nn.Module):
         n = (5 if use_maxout else 4) * H
         self.use_maxout = use_maxout
         self.num_layers = L
+        self.drop = cfg.drop_prob_lm
         self.w2h = nn.Linear(E, n)
         self.v2h = nn.Linear(H, n)               # fc_embed(fc) is [H]
         for layer in range(L):
@@ -274,7 +292,8 @@ class AdaAttCore(nn.Module):
         tanh_c = torch.tanh(next_c)
         return gates[:, 2 * H:] * tanh_c, next_c, tanh_c
 
-    def forward(self, xt, feats, state):
+    def forward(self, xt, feats, state, gen=None):
+        p = self.drop
         img_fc = feats['fc_feats']
         hs, cs = [], []
         x = xt
@@ -283,7 +302,7 @@ class AdaAttCore(nn.Module):
             if layer == 0:
                 i2h = linear(x, self.w2h) + linear(img_fc, self.v2h)
             else:
-                x = hs[-1]
+                x = dropout(hs[-1], p, gen)
                 i2h = linear(x, getattr(self, 'i2h_%d' % (layer - 1)))
             s = i2h + linear(prev_h, getattr(self, 'h2h_%d' % layer))
             next_h, next_c, tanh_c = self._cell(s, prev_c)
@@ -297,15 +316,19 @@ class AdaAttCore(nn.Module):
             hs.append(next_h)
             cs.append(next_c)
 
+        top_h = dropout(hs[-1], p, gen)
+        fake_region = dropout(fake_region, p, gen)
+
         # AdaAtt_attention (reference AttModel.py:539-602)
-        fr = torch.relu(linear(fake_region, self.fr_linear))
+        fr = dropout(torch.relu(linear(fake_region, self.fr_linear)), p, gen)
         fr_embed = linear(fr, self.fr_embed)
-        h_out_linear = torch.tanh(linear(hs[-1], self.ho_linear))
+        h_out_linear = dropout(torch.tanh(linear(top_h, self.ho_linear)), p,
+                               gen)
         h_out_embed = linear(h_out_linear, self.ho_embed)
         img_all = torch.cat([fr[:, None], feats['att_feats']], 1)
         img_all_embed = torch.cat([fr_embed[:, None], feats['p_att_feats']],
                                   1)
-        hA = torch.tanh(img_all_embed + h_out_embed[:, None])
+        hA = dropout(torch.tanh(img_all_embed + h_out_embed[:, None]), p, gen)
         weight = torch.softmax(linear(hA, self.alpha_net)[..., 0], dim=-1)
         masks = feats['att_masks']
         if masks is not None:
@@ -313,7 +336,8 @@ class AdaAttCore(nn.Module):
             weight = weight / weight.sum(-1, keepdim=True).clamp_min(1e-9)
         dt = torch.promote_types(weight.dtype, img_all.dtype)
         vis_att = torch.einsum('bm,bmh->bh', weight.to(dt), img_all.to(dt))
-        h = torch.tanh(linear(vis_att + h_out_linear, self.att2h))
+        h = dropout(torch.tanh(linear(vis_att + h_out_linear, self.att2h)), p,
+                    gen)
         return h, dict(state, h=torch.stack(hs, 1), c=torch.stack(cs, 1))
 
 
@@ -323,19 +347,22 @@ class FCCore(nn.Module):
     FCModel.py:79-115).  The JAX core runs the seeding cell every step and
     selects it per row where ``t == 0``; here every row shares the host
     int ``t``, so the seeding cell runs once, at ``t == 0``: the same
-    values."""
+    values.  Its output is never read, so it takes no dropout mask (the
+    JAX cell draws one and drops it)."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.lstm = MaxoutLSTMCell(cfg.input_encoding_size, cfg.rnn_size)
+        self.drop = cfg.drop_prob_lm
 
-    def forward(self, xt, feats, state):
+    def forward(self, xt, feats, state, gen=None):
         h, c = state['h'][:, -1], state['c'][:, -1]
         if state['t'] == 0:
             h, c = self.lstm(feats['fc_feats'], torch.zeros_like(h),
                              torch.zeros_like(c))
         next_h, next_c = self.lstm(xt, h, c)
-        return next_h, dict(state, h=next_h[:, None], c=next_c[:, None])
+        return (dropout(next_h, self.drop, gen),
+                dict(state, h=next_h[:, None], c=next_c[:, None]))
 
 
 def state_num_layers(cfg: ModelConfig) -> int:
@@ -381,16 +408,17 @@ class AttCaptioner(nn.Module):
         # the FC family embeds words without the ReLU
         self.embed_relu = m not in _NO_ATT
         self.embed = Embedding(V1, E)
+        p = cfg.drop_prob_lm
         if m in ('att2in2', 'att2all2', 'language_model'):
             self.fc_embed = None
         elif m in ('newfc', 'fc'):
             self.fc_embed = nn.Linear(cfg.fc_feat_size, E)
         else:
-            self.fc_embed = MLPEmbed(cfg.fc_feat_size, H)
+            self.fc_embed = MLPEmbed(cfg.fc_feat_size, H, p)
         has_att = m not in _NO_ATT
         self.att_bn_in = (MaskedBatchNorm(cfg.att_feat_size)
                           if has_att and cfg.use_bn else None)
-        self.att_embed = MLPEmbed(cfg.att_feat_size, H) if has_att else None
+        self.att_embed = MLPEmbed(cfg.att_feat_size, H, p) if has_att else None
         self.att_bn_out = (MaskedBatchNorm(H) if has_att and cfg.use_bn == 2
                            else None)
         self.ctx2att = nn.Linear(H, cfg.att_hid_size) if has_att else None
@@ -433,18 +461,21 @@ class AttCaptioner(nn.Module):
         return self
 
     # -- public protocol -------------------------------------------------------
-    def prepare_feature(self, fc_feats, att_feats, att_masks):
+    def prepare_feature(self, fc_feats, att_feats, att_masks, gen=None):
         """reference AttModel.py:114-124 and the NewFC / LM overrides
         (:942-968).  The FC family's cores read no attention features, so
-        its feats carry none (the JAX tree carries them along unread)."""
+        its feats carry none (the JAX tree carries them along unread).  In
+        train mode (``gen``) the BatchNorms update their running
+        statistics in place."""
         cfg = self.cfg
+        train = gen is not None
         if cfg.caption_model == 'language_model':
             p_fc = torch.zeros(fc_feats.shape[0], cfg.input_encoding_size,
                                dtype=cfg.dtype, device=fc_feats.device)
         elif isinstance(self.fc_embed, nn.Linear):
             p_fc = linear(fc_feats, self.fc_embed)
         elif self.fc_embed is not None:
-            p_fc = self.fc_embed(fc_feats)
+            p_fc = self.fc_embed(fc_feats, gen)
         else:
             p_fc = fc_feats
         if self.att_embed is None:
@@ -452,10 +483,10 @@ class AttCaptioner(nn.Module):
                     'p_att_feats': None, 'att_masks': None}
         x = att_feats
         if self.att_bn_in is not None:
-            x = self.att_bn_in(x, att_masks)
-        x = self.att_embed(x)
+            x = self.att_bn_in(x, att_masks, train)
+        x = self.att_embed(x, gen)
         if self.att_bn_out is not None:
-            x = self.att_bn_out(x, att_masks)
+            x = self.att_bn_out(x, att_masks, train)
         return {'fc_feats': p_fc, 'att_feats': x,
                 'p_att_feats': linear(x, self.ctx2att),
                 'att_masks': att_masks}
@@ -472,7 +503,7 @@ class AttCaptioner(nn.Module):
                 'c': torch.zeros(shape, dtype=cfg.dtype, device=dev)}
 
     def step(self, it, feats, state, logsoftmax: bool = True,
-             uniform_t: bool = True, beam_width: int = 0):
+             uniform_t: bool = True, beam_width: int = 0, gen=None):
         """get_logprobs_state (reference AttModel.py:166-176); float32
         log-probs (or logits) [N, V+1].
 
@@ -482,7 +513,7 @@ class AttCaptioner(nn.Module):
         only fc_feats, which the cores consume per row, is repeated here.
         The other models get one feats row per query row.  ``uniform_t``
         and ``beam_width`` are layout hints of KV-cached models, unused by
-        an RNN state."""
+        an RNN state.  ``gen`` is train mode (dropout drawn from it)."""
         N = it.shape[0]
         af, fc = feats['att_feats'], feats['fc_feats']
         if af is not None and af.shape[0] != N and fc.shape[0] != N:
@@ -490,25 +521,31 @@ class AttCaptioner(nn.Module):
                 N // fc.shape[0], dim=0))
         xt = self.embed(it)
         if self.embed_relu:
-            xt = torch.relu(xt)
-        output, state = self.core(xt, feats, state)
+            xt = dropout(torch.relu(xt), self.cfg.drop_prob_lm, gen)
+        output, state = self.core(xt, feats, state, gen)
         for lin in self.logit_hidden:
-            output = torch.relu(linear(output, lin))
+            # the reference's hidden logit layers drop at 0.5 (AttModel.py:86-92)
+            output = dropout(torch.relu(linear(output, lin)), 0.5, gen)
         logits = linear(output, self.logit).float()
         state = dict(state, t=state['t'] + 1)
         if logsoftmax:
             return torch.log_softmax(logits, dim=-1), state
         return logits, state
 
-    # -- teacher forcing (eval) ------------------------------------------------
-    def forward_tf(self, fc_feats, att_feats, seq, att_masks):
-        """Eval teacher-forced log-probs [N, T, V+1] over input tokens
-        ``seq`` [N, T] or [B, seq_per_img, T] (reference AttModel._forward
-        without scheduled sampling); the feats stay one row per image for a
-        ``shared_feats`` model and are repeated per caption otherwise."""
+    # -- teacher forcing ---------------------------------------------------------
+    def forward_tf(self, fc_feats, att_feats, seq, att_masks, gen=None,
+                   ss_prob: float = 0.0):
+        """Teacher-forced log-probs [N, T, V+1] over input tokens ``seq``
+        [N, T] or [B, seq_per_img, T] (reference AttModel._forward); the
+        feats stay one row per image for a ``shared_feats`` model and are
+        repeated per caption otherwise.  In train mode (``gen``) scheduled
+        sampling follows the JAX ``Captioner.forward_tf``: from step 1 on,
+        each row feeds, with probability ``ss_prob``, a token drawn from
+        its previous output; the coin and the draw are made at every such
+        step whatever ``ss_prob`` is."""
         if seq.dim() == 3:
             seq = seq.reshape(-1, seq.shape[2])
-        feats = self.prepare_feature(fc_feats, att_feats, att_masks)
+        feats = self.prepare_feature(fc_feats, att_feats, att_masks, gen)
         if not self.shared_feats:
             n = seq.shape[0] // fc_feats.shape[0]
             feats = {k: v if v is None else v.repeat_interleave(n, dim=0)
@@ -516,6 +553,20 @@ class AttCaptioner(nn.Module):
         state = self.init_state(seq.shape[0])
         out = []
         for t in range(seq.shape[1]):
-            lp, state = self.step(seq[:, t], feats, state)
+            it = seq[:, t]
+            if gen is not None and t:
+                it = scheduled_sample(it, out[-1], ss_prob, gen)
+            lp, state = self.step(it, feats, state, gen=gen)
             out.append(lp)
         return torch.stack(out, 1)
+
+
+def scheduled_sample(it, prev_logprobs, ss_prob: float, gen):
+    """Each row's input: ``it`` or, where a uniform draw is below
+    ``ss_prob``, a token drawn from ``prev_logprobs`` [N, V+1] (the coin
+    first, then the draw, both from ``gen``; no gradient)."""
+    with torch.no_grad():
+        coin = torch.rand(it.shape[0], generator=gen,
+                          device=it.device) < ss_prob
+        drawn = torch.multinomial(prev_logprobs.exp(), 1, generator=gen)[:, 0]
+    return torch.where(coin, drawn.to(it.dtype), it)

@@ -6,6 +6,10 @@ N(0, 1).  Parameters are float32; a Linear or an Embedding computes in the
 dtype its weight was cast to (the models' ``to_compute_dtype``), as the
 JAX ``Dense`` and ``Embedding`` cast their float32 params to the compute
 dtype at every use.
+
+Train mode is an explicit ``torch.Generator`` (``gen``), as the JAX modules
+take ``train`` and a dropout rng: ``None`` runs the eval branch (no
+dropout, the BatchNorm's running statistics).
 """
 
 from __future__ import annotations
@@ -51,24 +55,42 @@ class Embedding(nn.Module):
         return self.embedding[ids]
 
 
-class MLPEmbed(nn.Module):
-    """Linear -> ReLU (-> Dropout, identity at eval); the att_embed pattern
-    (reference AttModel.py:74-85)."""
+def dropout(x, p: float, gen: Optional[torch.Generator]):
+    """``layers.Dropout``: in train mode (``gen`` given) and at p > 0 each
+    element is kept with probability 1 - p and scaled by 1 / (1 - p); the
+    mask is ``torch.rand`` on x's device drawn from ``gen`` (F.dropout takes
+    no generator).  Identity in eval or at p 0, drawing nothing."""
+    if gen is None or p == 0.0:
+        return x
+    keep = 1.0 - p
+    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
 
-    def __init__(self, in_features: int, features: int):
+
+class MLPEmbed(nn.Module):
+    """Linear -> ReLU -> Dropout(drop); the att_embed pattern (reference
+    AttModel.py:74-85)."""
+
+    def __init__(self, in_features: int, features: int, drop: float = 0.0):
         super().__init__()
         self.Dense_0 = nn.Linear(in_features, features)
+        self.drop = drop
 
     def init_weights(self, generator: torch.Generator):
         init_dense(self.Dense_0, generator)
 
-    def forward(self, x):
-        return torch.relu(linear(x, self.Dense_0))
+    def forward(self, x, gen: Optional[torch.Generator] = None):
+        return dropout(torch.relu(linear(x, self.Dense_0)), self.drop, gen)
 
 
 class MaskedBatchNorm(nn.Module):
-    """Eval branch of the masked BatchNorm1d over att features (use_bn):
-    normalise with the running statistics."""
+    """BatchNorm1d over ragged att features (use_bn).  Train mode
+    normalises with the statistics of the valid (mask 1) positions and
+    folds them into the running ones (momentum 0.9; the unbiased variance,
+    as torch's BatchNorm1d accumulates it), in place and outside the
+    autograd graph; eval mode normalises with the running ones."""
+
+    momentum = 0.9
 
     def __init__(self, c: int, eps: float = 1e-5):
         super().__init__()
@@ -78,8 +100,28 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer('mean', torch.zeros(c))
         self.register_buffer('var', torch.ones(c))
 
-    def forward(self, x, mask: Optional[torch.Tensor] = None):
-        y = (x - self.mean) * torch.rsqrt(self.var + self.eps)
+    def forward(self, x, mask: Optional[torch.Tensor] = None,
+                train: bool = False):
+        if train:
+            if mask is None:
+                n = torch.tensor(float(x.shape[0] * x.shape[1]),
+                                 device=x.device)
+                mean = x.mean((0, 1))
+                var = x.var((0, 1), unbiased=False)
+            else:
+                m = mask[..., None].to(x.dtype)
+                n = m.sum().clamp_min(1.0)
+                mean = (x * m).sum((0, 1)) / n
+                var = (((x - mean) ** 2) * m).sum((0, 1)) / n
+            with torch.no_grad():
+                unbiased = var * (n / (n - 1.0).clamp_min(1.0))
+                self.mean.copy_(self.momentum * self.mean
+                                + (1 - self.momentum) * mean)
+                self.var.copy_(self.momentum * self.var
+                               + (1 - self.momentum) * unbiased)
+        else:
+            mean, var = self.mean, self.var
+        y = (x - mean) * torch.rsqrt(var + self.eps)
         return y * self.scale + self.bias
 
 

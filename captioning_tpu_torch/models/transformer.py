@@ -22,8 +22,13 @@ CUDA kernel for CUDA tensors, its plain twin for CPU tensors); the vocab
 epilogue on ``step(return_hidden=True)`` is ``models.api``'s
 ``step_topk``.
 
-Only the eval paths exist here: training (dropout, per-row ``t`` for
-diverse beam) is later work, see ROADMAP.md.
+``forward_tf`` and ``prepare_feature`` also run in train mode, given a
+generator ``gen`` (None is eval): dropout at the JAX sites (the att embed
+at ``drop_prob_lm``; at ``dropout`` the attention probabilities, each
+residual branch, the feed-forward's inner activation and the embedding
+plus positional encoding), drawn from ``gen``, and the BatchNorm's batch
+statistics.  The decode step is eval only; per-row ``t`` for diverse beam
+is later work, see ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ from torch import nn
 
 from ..ops.beam_attend import attend_write_merged
 from .config import ModelConfig
-from .layers import MaskedBatchNorm, MLPEmbed, linear, uniform_
+from .layers import MaskedBatchNorm, MLPEmbed, dropout, linear, uniform_
 
 _NEG_INF = -1e9
 
@@ -85,13 +90,13 @@ def _softmax_f32(scores, dtype):
     return torch.softmax(scores.float(), dim=-1).to(dtype)
 
 
-def _attend(q, k, v, mask):
+def _attend(q, k, v, mask, p: float = 0.0, gen=None):
     """Scaled dot-product attention; mask broadcastable to the scores
-    (1 = attend)."""
+    (1 = attend); the probabilities take dropout p in train mode."""
     scores = q @ k.transpose(-1, -2) / _sqrt_in(q.shape[-1], q.dtype)
     if mask is not None:
         scores = scores.masked_fill(mask == 0, _NEG_INF)
-    return _softmax_f32(scores, q.dtype) @ v
+    return dropout(_softmax_f32(scores, q.dtype), p, gen) @ v
 
 
 def _xavier_(w: torch.Tensor, fan_in: int, fan_out: int,
@@ -116,14 +121,16 @@ class EncoderLayer(nn.Module):
         self.w1, self.w2 = _Lin(D, F_), _Lin(F_, D)
         self.norm1, self.norm2 = RefLayerNorm(D), RefLayerNorm(D)
 
-    def forward(self, x, mask, h: int):
+    def forward(self, x, mask, h: int, p: float = 0.0, gen=None):
         y = self.norm1(x)
         q = _split_heads(linear(y, self.wq), h)
         k = _split_heads(linear(y, self.wk), h)
         v = _split_heads(linear(y, self.wv), h)
-        x = x + linear(_merge_heads(_attend(q, k, v, mask)), self.wo)
-        y = linear(torch.relu(linear(self.norm2(x), self.w1)), self.w2)
-        return x + y
+        y = linear(_merge_heads(_attend(q, k, v, mask, p, gen)), self.wo)
+        x = x + dropout(y, p, gen)
+        y = linear(dropout(torch.relu(linear(self.norm2(x), self.w1)), p,
+                           gen), self.w2)
+        return x + dropout(y, p, gen)
 
 
 class DecoderLayer(nn.Module):
@@ -170,7 +177,7 @@ class TransformerCaptioner(nn.Module):
         D, F_ = cfg.d_model, cfg.d_ff
         self.att_bn_in = MaskedBatchNorm(cfg.att_feat_size) \
             if cfg.use_bn else None
-        self.att_embed = MLPEmbed(cfg.att_feat_size, D)
+        self.att_embed = MLPEmbed(cfg.att_feat_size, D, cfg.drop_prob_lm)
         self.att_bn_out = MaskedBatchNorm(D) if cfg.use_bn == 2 else None
         self.enc = nn.ModuleList(EncoderLayer(D, F_)
                                  for _ in range(cfg.N_enc))
@@ -213,22 +220,23 @@ class TransformerCaptioner(nn.Module):
         return self
 
     # -- encoder -------------------------------------------------------------
-    def encode(self, att_feats, att_masks):
+    def encode(self, att_feats, att_masks, gen=None):
+        train = gen is not None
         x = att_feats
         if self.att_bn_in is not None:
-            x = self.att_bn_in(x, att_masks)
-        x = self.att_embed(x)
+            x = self.att_bn_in(x, att_masks, train)
+        x = self.att_embed(x, gen)
         if self.att_bn_out is not None:
-            x = self.att_bn_out(x, att_masks)
+            x = self.att_bn_out(x, att_masks, train)
         mask = None if att_masks is None else att_masks[:, None, None, :]
         for layer in self.enc:
-            x = layer(x, mask, self.cfg.num_att_heads)
+            x = layer(x, mask, self.cfg.num_att_heads, self.cfg.dropout, gen)
         return self.enc_final_norm(x)
 
-    def prepare_feature(self, fc_feats, att_feats, att_masks):
+    def prepare_feature(self, fc_feats, att_feats, att_masks, gen=None):
         # decode steps attend the raw memory with the K/V projections folded
         # around the attention (DecoderLayer.lazy_cross)
-        return {'memory': self.encode(att_feats, att_masks),
+        return {'memory': self.encode(att_feats, att_masks, gen),
                 'att_masks': att_masks}
 
     def init_state(self, batch_size: int) -> Dict:
@@ -292,15 +300,18 @@ class TransformerCaptioner(nn.Module):
             return torch.log_softmax(logits, dim=-1), new_state
         return logits, new_state
 
-    # -- teacher forcing (eval) ------------------------------------------------
-    def forward_tf(self, fc_feats, att_feats, seq, att_masks):
-        """Eval-mode teacher-forced log-probs [N, T, V+1] over input tokens
-        ``seq`` (the reference _forward with its seq_mask semantics)."""
+    # -- teacher forcing ---------------------------------------------------------
+    def forward_tf(self, fc_feats, att_feats, seq, att_masks, gen=None,
+                   ss_prob: float = 0.0):
+        """Teacher-forced log-probs [N, T, V+1] over input tokens ``seq``
+        (the reference _forward with its seq_mask semantics), in train mode
+        given ``gen``.  ``ss_prob`` is unused: the JAX transformer takes no
+        scheduled sampling either."""
         cfg = self.cfg
-        h, dt = cfg.num_att_heads, cfg.dtype
+        h, dt, p = cfg.num_att_heads, cfg.dtype, cfg.dropout
         if seq.dim() == 3:
             seq = seq.reshape(-1, seq.shape[2])
-        memory = self.encode(att_feats, att_masks)
+        memory = self.encode(att_feats, att_masks, gen)
         nb = memory.shape[0]
         s = seq.shape[0] // nb        # seq_per_img rows share one memory row
         T = seq.shape[1]
@@ -313,23 +324,26 @@ class TransformerCaptioner(nn.Module):
                     else att_masks[:, None, None, None, :])
 
         x = self.tgt_embed[seq].to(dt) * _sqrt_in(cfg.d_model, dt)
-        x = x + self.pe[:T][None].to(dt)
+        x = dropout(x + self.pe[:T][None].to(dt), p, gen)
         for layer in self.dec:
             y = layer.norm1(x)
             q = _split_heads(linear(y, layer.s_wq), h)
             k = _split_heads(linear(y, layer.s_wk), h)
             v = _split_heads(linear(y, layer.s_wv), h)
-            x = x + linear(_merge_heads(_attend(q, k, v, tgt_mask)),
-                           layer.s_wo)
+            y = linear(_merge_heads(_attend(q, k, v, tgt_mask, p, gen)),
+                       layer.s_wo)
+            x = x + dropout(y, p, gen)
             y = layer.norm2(x)
             q2 = _split_heads(linear(y, layer.c_wq), h)
             mk = _split_heads(linear(memory, layer.c_wk), h)[:, None]
             mv = _split_heads(linear(memory, layer.c_wv), h)[:, None]
             q2 = q2.reshape(nb, s, *q2.shape[1:])
-            ctx = _attend(q2, mk, mv, src_mask).reshape(nb * s, h, T, -1)
-            x = x + linear(_merge_heads(ctx), layer.c_wo)
-            x = x + linear(torch.relu(linear(layer.norm3(x), layer.w1)),
-                           layer.w2)
+            ctx = _attend(q2, mk, mv, src_mask, p, gen).reshape(nb * s, h, T,
+                                                                 -1)
+            x = x + dropout(linear(_merge_heads(ctx), layer.c_wo), p, gen)
+            y = linear(dropout(torch.relu(linear(layer.norm3(x), layer.w1)),
+                               p, gen), layer.w2)
+            x = x + dropout(y, p, gen)
         x = self.dec_final_norm(x)
         return torch.log_softmax(linear(x, self.generator).float(), dim=-1)
 

@@ -156,10 +156,56 @@ def additive_attention_fused(att_h, att_feats, p_att_feats, att_masks,
     (nb divides N).  ``att_masks`` None means every region is valid (the
     kernel always takes a mask; renormalising by ones changes values by
     rounding only).  CPU tensors take the plain twin; CUDA tensors launch
-    the kernel."""
+    the kernel.
+
+    Differentiable in every input but the mask (``AdditiveAttention``):
+    the backward recomputes the plain twin under autograd and launches no
+    kernel.  That is the JAX package's own design (the custom VJP of
+    ``captioning_tpu/ops/attention.py:118-141`` recomputes through
+    ``additive_attention_ref``; no Pallas kernel there has a backward), not
+    a fallback: the forward on CUDA tensors is always the kernel."""
     if att_masks is None:
         att_masks = torch.ones(att_feats.shape[:2], dtype=torch.float32,
                                device=att_feats.device)
+    args = (att_h, att_feats, p_att_feats, att_masks, w_alpha, b_alpha)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in args):
+        return AdditiveAttention.apply(*args)
+    return _forward(*args)
+
+
+class AdditiveAttention(torch.autograd.Function):
+    """The kernel's forward with a backward by recompute through
+    ``additive_attention_ref`` (the JAX custom VJP's ``_bwd``).  A row of
+    ``alpha_net.weight`` passed as ``w_alpha`` gets its gradient through
+    the view."""
+
+    @staticmethod
+    def forward(ctx, att_h, att_feats, p_att_feats, att_masks, w_alpha,
+                b_alpha):
+        ctx.save_for_backward(att_h, att_feats, p_att_feats, att_masks,
+                              w_alpha, b_alpha)
+        return _forward(att_h, att_feats, p_att_feats, att_masks, w_alpha,
+                        b_alpha)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return recompute_grads(additive_attention_ref, ctx, (grad,))
+
+
+def recompute_grads(ref, ctx, grads):
+    """The gradients of ``ref`` at the saved inputs, recomputed under
+    autograd, for the inputs that need one (None for the others)."""
+    with torch.enable_grad():
+        xs = [x.detach().requires_grad_(need)
+              for x, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        outs = ref(*xs)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        want = [x for x in xs if x.requires_grad]
+        got = iter(torch.autograd.grad(outs, want, grads))
+    return tuple(next(got) if x.requires_grad else None for x in xs)
+
+
+def _forward(att_h, att_feats, p_att_feats, att_masks, w_alpha, b_alpha):
     nb, bw, M, H, A = _check(att_h, att_feats, p_att_feats, att_masks,
                              w_alpha, b_alpha)
     if att_h.device.type == 'cpu':

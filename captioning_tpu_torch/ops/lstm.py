@@ -33,6 +33,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .attention import recompute_grads
 
 
 def maxout_lstm_gates_ref(s, c_prev):
@@ -51,7 +52,13 @@ def maxout_lstm_gates_fused(s, c_prev):
 
     s: [N, 5H]; c_prev: [N, H]; both contiguous, of one dtype (float32 or
     bf16).  Returns (h, c) [N, H] in that dtype.  CPU tensors take the plain
-    twin; CUDA tensors launch the kernel."""
+    twin; CUDA tensors launch the kernel.
+
+    Differentiable in s and c_prev (``MaxoutLSTMGates``): the backward
+    recomputes ``maxout_lstm_gates_ref`` under autograd and launches no
+    kernel, the JAX package's design for its kernels (no Pallas kernel
+    there has a backward; its cells differentiate the plain chain), not a
+    fallback: the forward on CUDA tensors is always the kernel."""
     if (s.dim() != 2 or c_prev.dim() != 2 or s.shape[0] != c_prev.shape[0]
             or s.shape[1] != 5 * c_prev.shape[1]):
         raise ValueError('maxout_lstm_gates_fused: s [N, 5H] and c_prev '
@@ -63,6 +70,26 @@ def maxout_lstm_gates_fused(s, c_prev):
     if s.dtype != c_prev.dtype:
         raise ValueError('maxout_lstm_gates_fused: s is %s, c_prev %s'
                          % (s.dtype, c_prev.dtype))
+    if torch.is_grad_enabled() and (s.requires_grad or c_prev.requires_grad):
+        return MaxoutLSTMGates.apply(s, c_prev)
+    return _forward(s, c_prev)
+
+
+class MaxoutLSTMGates(torch.autograd.Function):
+    """The kernel's forward with a backward by recompute through
+    ``maxout_lstm_gates_ref``."""
+
+    @staticmethod
+    def forward(ctx, s, c_prev):
+        ctx.save_for_backward(s, c_prev)
+        return _forward(s, c_prev)
+
+    @staticmethod
+    def backward(ctx, grad_h, grad_c):
+        return recompute_grads(maxout_lstm_gates_ref, ctx, (grad_h, grad_c))
+
+
+def _forward(s, c_prev):
     if s.device.type == 'cpu':
         return maxout_lstm_gates_ref(s, c_prev)
     if not s.is_cuda or c_prev.device != s.device:

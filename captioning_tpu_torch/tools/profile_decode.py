@@ -28,6 +28,7 @@ from types import SimpleNamespace
 import torch
 
 V = 9487
+REGIONS, FEAT = 36, 2048        # bottom-up features: 36 regions x 2048
 BATCH, WALLS, TOP = 1024, 3, 15
 # the flagships' widths: configs/transformer/transformer.yml and
 # configs/updown/updown.yml (the shapes bench.py measures); StackAtt at the
@@ -54,7 +55,7 @@ def make_captioner(model: str, dtype_name: str, device: str, seed: int = 0):
     UNK."""
     from ..models.api import setup
     opt = SimpleNamespace(caption_model=model, vocab_size=V,
-                          fc_feat_size=2048, att_feat_size=2048,
+                          fc_feat_size=FEAT, att_feat_size=FEAT,
                           max_length=20, compute_dtype=dtype_name,
                           **MODELS[model])
     vocab = {str(i): 'w%d' % i for i in range(1, V + 1)}
@@ -67,8 +68,8 @@ def features(B: int, device: str, seed: int):
     """36 x 2048 region features and their mean as the fc feature, as the
     bottom-up features give them."""
     g = torch.Generator().manual_seed(seed)
-    att = torch.randn(B, 36, 2048, generator=g).to(device)
-    return att.mean(1), att, torch.ones(B, 36, device=device)
+    att = torch.randn(B, REGIONS, FEAT, generator=g).to(device)
+    return att.mean(1), att, torch.ones(B, REGIONS, device=device)
 
 
 def decode(cap, mode: str, fc, att, am):

@@ -116,9 +116,7 @@ def eval_split(captioner, loader, eval_kwargs=None):
                                   'ported yet; see ROADMAP.md')
     os.environ['REMOVE_BAD_ENDINGS'] = str(
         eval_kwargs.get('remove_bad_endings', 0))
-    if float(eval_kwargs.get('label_smoothing', 0) or 0) > 0 and verbose_loss:
-        raise NotImplementedError('label-smoothed val loss is not ported '
-                                  'yet; see ROADMAP.md')
+    label_smoothing = float(eval_kwargs.get('label_smoothing', 0) or 0)
     device = captioner.device
 
     loader.reset_iterator(split)
@@ -198,8 +196,13 @@ def eval_split(captioner, loader, eval_kwargs=None):
         loss_dev = None
         if labels is not None and verbose_loss:
             logprobs = captioner.forward_tf(fc, att, labels[..., :-1], am)
-            loss_dev = losses.language_model_criterion(
-                logprobs, labels[..., 1:], masks[..., 1:])
+            if label_smoothing > 0:
+                loss_dev = losses.label_smoothing_criterion(
+                    logprobs, labels[..., 1:], masks[..., 1:],
+                    label_smoothing)
+            else:
+                loss_dev = losses.language_model_criterion(
+                    logprobs, labels[..., 1:], masks[..., 1:])
 
         rec = {'data': data, 'loss_dev': loss_dev, 'done': None}
         if beam:

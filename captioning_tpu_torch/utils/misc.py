@@ -1,9 +1,10 @@
-"""Host-side helpers: pickles, sequence decode, ``model.npz`` trees.
+"""Host-side helpers: pickles, sequence decode, ``model.npz`` trees and
+the checkpoint writer.
 
 The port's own copy of the part of ``captioning_tpu/utils/misc.py`` that it
-uses (the JAX package's module also holds the checkpoint writer and JAX
-runtime switches, which need ``jax``).  The functions are the same, so a
-checkpoint written by the JAX package loads here unchanged.
+uses (the JAX package's module also holds JAX runtime switches).  The
+functions are the same, with ``save_pytree`` taking numpy trees, so a
+checkpoint written by either package loads in the other.
 """
 
 from __future__ import annotations
@@ -20,6 +21,10 @@ bad_endings = ['with', 'in', 'on', 'of', 'a', 'at', 'to', 'for', 'an',
 
 def pickle_load(f):
     return pickle.load(f, encoding='latin-1')
+
+
+def pickle_dump(obj, f):
+    return pickle.dump(obj, f, protocol=2)
 
 
 def decode_sequence(ix_to_word, seq):
@@ -92,7 +97,36 @@ def _unflatten_tree(flat: Dict[str, np.ndarray]) -> Any:
     return rebuild(root)
 
 
-def load_pytree(path: str) -> Any:
+def load_flat(path: str) -> Dict[str, np.ndarray]:
+    """An npz tree as written, {path: array}: unlike ``load_pytree`` it
+    keeps the '#<i>' list indices of an optimizer state whose lower chain
+    slots are empty."""
     with np.load(path, allow_pickle=False) as data:
-        flat = {k: data[k] for k in data.files}
-    return _unflatten_tree(flat)
+        return {k: data[k] for k in data.files}
+
+
+def load_pytree(path: str) -> Any:
+    return _unflatten_tree(load_flat(path))
+
+
+def save_pytree(tree: Any, path: str) -> None:
+    np.savez(path, **_flatten_tree(tree))
+
+
+def save_checkpoint(opt, params, infos, opt_state, histories=None, append=''):
+    """Reference artifact contract (misc.py:87-102) with npz tensors."""
+    if len(append) > 0:
+        append = '-' + append
+    if not os.path.isdir(opt.checkpoint_path):
+        os.makedirs(opt.checkpoint_path)
+    checkpoint_path = os.path.join(opt.checkpoint_path, 'model%s.npz' % append)
+    save_pytree(params, checkpoint_path)
+    print("model saved to {}".format(checkpoint_path))
+    if opt_state is not None:
+        optimizer_path = os.path.join(opt.checkpoint_path, 'optimizer%s.npz' % append)
+        save_pytree(opt_state, optimizer_path)
+    with open(os.path.join(opt.checkpoint_path, 'infos_' + opt.id + '%s.pkl' % append), 'wb') as f:
+        pickle_dump(infos, f)
+    if histories:
+        with open(os.path.join(opt.checkpoint_path, 'histories_' + opt.id + '%s.pkl' % append), 'wb') as f:
+            pickle_dump(histories, f)

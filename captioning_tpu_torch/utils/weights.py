@@ -1,4 +1,4 @@
-"""Weight bridge: the JAX param tree -> the port's ``state_dict``.
+"""Weight bridge: the JAX param tree <-> the port's ``state_dict``.
 
 Input: ``Captioner.init_params(...)`` of the JAX package as numpy arrays
 (the whole variables dict, or its ``'params'`` subtree), or
@@ -11,7 +11,11 @@ the port's modules carry the JAX names (``core/attention/h2att/kernel`` ->
 ``core.attention.h2att.weight``, ``logit_hidden_0`` -> ``logit_hidden.0``,
 ``batch_stats/att_bn_in/mean`` -> ``att_bn_in.mean``).  Every JAX key is
 consumed exactly once; a key left over or one the port needs but does not
-find raises.
+find raises.  ``jax_from_state_dict`` is the inverse: the flat JAX tree
+(``params/...`` and, with use_bn, ``batch_stats/...``), so a ``model.npz``
+the port writes loads in the JAX package.  With ``params_only`` both map
+a tree of the parameters alone (no BatchNorm statistics): the shape of the
+optimizer's per-parameter state.
 """
 
 from __future__ import annotations
@@ -46,12 +50,13 @@ def _flat(tree_or_flat) -> Dict[str, np.ndarray]:
     return {k: np.asarray(v) for k, v in flat.items()}
 
 
-def state_dict_from_jax(tree_or_flat, cfg: ModelConfig
+def state_dict_from_jax(tree_or_flat, cfg: ModelConfig,
+                        params_only: bool = False
                         ) -> Dict[str, torch.Tensor]:
     """The port's TransformerCaptioner / AttCaptioner state_dict from JAX
     params."""
     if cfg.caption_model in harness.MODELS:
-        return _harness_state_dict(_flat(tree_or_flat), cfg)
+        return _harness_state_dict(_flat(tree_or_flat), cfg, params_only)
     if cfg.caption_model != 'transformer':
         raise NotImplementedError('weight bridge: %r is not ported; see '
                                   'ROADMAP.md' % cfg.caption_model)
@@ -69,11 +74,10 @@ def state_dict_from_jax(tree_or_flat, cfg: ModelConfig
 
     linear('att_embed.Dense_0', take('params/att_embed/Dense_0/kernel'),
            take('params/att_embed/Dense_0/bias'))
-    for bn in ('att_bn_in', 'att_bn_out'):
-        if (bn == 'att_bn_in' and cfg.use_bn) or (bn == 'att_bn_out'
-                                                  and cfg.use_bn == 2):
-            out[bn + '.scale'] = take('params/%s/scale' % bn)
-            out[bn + '.bias'] = take('params/%s/bias' % bn)
+    for bn in _bns(cfg):
+        out[bn + '.scale'] = take('params/%s/scale' % bn)
+        out[bn + '.bias'] = take('params/%s/bias' % bn)
+        if not params_only:
             out[bn + '.mean'] = take('batch_stats/%s/mean' % bn)
             out[bn + '.var'] = take('batch_stats/%s/var' % bn)
     for part, names, L in (('enc', _ENC, cfg.N_enc),
@@ -102,6 +106,86 @@ def state_dict_from_jax(tree_or_flat, cfg: ModelConfig
     return out
 
 
+def _bns(cfg: ModelConfig):
+    return ('att_bn_in', 'att_bn_out')[:2 if cfg.use_bn == 2 else
+                                       1 if cfg.use_bn else 0]
+
+
+def jax_from_state_dict(state_dict, cfg: ModelConfig,
+                        params_only: bool = False) -> Dict[str, np.ndarray]:
+    """The flat JAX tree (float32 numpy) of the port's state_dict: the
+    inverse of ``state_dict_from_jax``."""
+    sd = {k: v.detach().float().cpu().numpy() for k, v in state_dict.items()}
+    if cfg.caption_model in harness.MODELS:
+        out = {}
+        for name, value in sd.items():
+            key = _jax_harness_key(name)
+            if key.startswith('batch_stats/') and params_only:
+                raise KeyError('jax_from_state_dict: %r is no parameter'
+                               % name)
+            out[key] = (value.T.copy() if key.endswith('/kernel')
+                        else value)
+        return out
+    if cfg.caption_model != 'transformer':
+        raise NotImplementedError('weight bridge: %r is not ported; see '
+                                  'ROADMAP.md' % cfg.caption_model)
+
+    def take(name):
+        if name not in sd:
+            raise KeyError('weight bridge: port key %r missing' % name)
+        return sd.pop(name)
+
+    out = {}
+
+    def linear(src, kernel, bias):
+        out[kernel] = take(src + '.weight').T.copy()
+        out[bias] = take(src + '.bias')
+
+    linear('att_embed.Dense_0', 'params/att_embed/Dense_0/kernel',
+           'params/att_embed/Dense_0/bias')
+    for bn in _bns(cfg):
+        out['params/%s/scale' % bn] = take(bn + '.scale')
+        out['params/%s/bias' % bn] = take(bn + '.bias')
+        if not params_only:
+            out['batch_stats/%s/mean' % bn] = take(bn + '.mean')
+            out['batch_stats/%s/var' % bn] = take(bn + '.var')
+    for part, names, L in (('enc', _ENC, cfg.N_enc),
+                           ('dec', _DEC, cfg.N_dec)):
+        for dst, src in names.items():
+            out['params/%s_kernel' % dst] = np.stack(
+                [take('%s.%d.%s.weight' % (part, i, src)).T
+                 for i in range(L)])
+            out['params/%s_bias' % dst] = np.stack(
+                [take('%s.%d.%s.bias' % (part, i, src)) for i in range(L)])
+        for j, norm in enumerate(_NORMS[part]):
+            for ab, leaf in (('a', 'a_2'), ('b', 'b_2')):
+                out['params/%s_norm%d_%s2' % (part, j + 1, ab)] = np.stack(
+                    [take('%s.%d.%s.%s' % (part, i, norm, leaf))
+                     for i in range(L)])
+        for leaf in ('a_2', 'b_2'):
+            out['params/%s_final_norm/%s' % (part, leaf)] = take(
+                '%s_final_norm.%s' % (part, leaf))
+    out['params/tgt_embed'] = take('tgt_embed')
+    linear('generator', 'params/generator/kernel', 'params/generator/bias')
+    if sd:
+        raise KeyError('weight bridge: port keys not consumed: %s'
+                       % sorted(sd))
+    return out
+
+
+def _jax_harness_key(name: str) -> str:
+    """'core.att_lstm.ih.weight' -> 'params/core/att_lstm/ih/kernel';
+    a BatchNorm's running statistics go to 'batch_stats/...'."""
+    parts = name.split('.')
+    if parts[0] == 'logit_hidden':
+        parts[0:2] = ['logit_hidden_' + parts[1]]
+    if parts[-1] == 'weight':
+        parts[-1] = 'kernel'
+    coll = ('batch_stats' if parts[0].startswith('att_bn_')
+            and parts[-1] in ('mean', 'var') else 'params')
+    return '/'.join([coll] + parts)
+
+
 def _harness_name(key: str) -> str:
     """'params/core/att_lstm/ih/kernel' -> 'core.att_lstm.ih.weight'."""
     parts = key.split('/')[1:]
@@ -112,10 +196,13 @@ def _harness_name(key: str) -> str:
     return '.'.join(parts)
 
 
-def _harness_state_dict(flat: Dict[str, np.ndarray], cfg: ModelConfig
+def _harness_state_dict(flat: Dict[str, np.ndarray], cfg: ModelConfig,
+                        params_only: bool = False
                         ) -> Dict[str, torch.Tensor]:
     with torch.device('meta'):
-        want = harness.AttCaptioner(cfg).state_dict()
+        module = harness.AttCaptioner(cfg)
+    want = (dict(module.named_parameters()) if params_only
+            else module.state_dict())
     out: Dict[str, torch.Tensor] = {}
     for key in sorted(flat):
         name = _harness_name(key)

@@ -61,7 +61,29 @@ Phases, in order; any failure raises and exits non-zero:
    and ``bench_anc_attend``) at full size with their t sweeps (graph
    replay at t 0 / 12 / 20 of T 21 and t 47 of T 48), with every launch
    counter reset just before and each kernel they run required to have
-   grown just after.
+   grown just after;
+9. XE training through the port's ``Trainer`` (``modules/trainer.py``):
+   (a) float32 agreement: one ``xe_step`` of UpDown, StackAtt, NewFC and
+   the transformer at full width, 2 images x 5 captions, dropout 0, from
+   one seeded init and batch, on the card (the kernels' forward, their
+   backward by recompute) and on the CPU (the twins): the loss within
+   1e-5 relative, every gradient within 1e-4 of its tensor's largest
+   magnitude, with TF32 off (a bias added to every score of a softmax
+   row has an exact gradient of 0: there both devices' values, rounding,
+   stay within 1e-6 of the model's largest gradient); (b) UpDown of ``configs/updown/updown.yml``
+   and StackAtt at the ``opts.py`` widths, batch 10 x 5, label length 16,
+   adam 5e-4, clip by value 0.1, ``ss_prob`` 0.25 (the ramp's maximum),
+   dropout 0.5: 3 warm-up steps, then 20 steps on one seeded batch with
+   the launch counters reset just before, B3 required at one forward
+   launch per attention head and time step (17 time steps: the input is
+   ``labels[..., :-1]``) and B5 at one per maxout cell and time step, the
+   backward launching none; (c) the transformer of
+   ``configs/transformer/transformer.yml`` with noam (warmup 20000) and
+   dropout 0.1, the same way, no kernel launched.  The last of the 20
+   steps draws the first's dropout and sampling again (the generator
+   state restored), so its loss, below the first's, shows the updates; each
+   run prints its median step time and spread (CUDA events and the host
+   wall) and its peak memory.
 
 Each decode mode requires the kernels its path runs: the top-k only in
 beam (the RNN plain-step route; the transformer's fused route selects in
@@ -954,6 +976,147 @@ def phase_benches(torch, wrappers):
 
 
 # ---------------------------------------------------------------------------
+# phase 9: XE training through the port's Trainer
+# ---------------------------------------------------------------------------
+
+def train_agreement(torch, model):
+    """One xe_step on the card and on the CPU from one init and batch,
+    dropout 0, no clip: (loss rel err, worst gradient err over its
+    tensor's largest magnitude)."""
+    from captioning_tpu_torch.modules.trainer import Trainer
+    from captioning_tpu_torch.tools import profile_train as pt
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError('TF32 matmuls are on: the f32 agreement needs '
+                             'them off')
+    batch = pt.train_batch(2, seed=3)
+    got = {}
+    for device in ('cuda', 'cpu'):
+        cap = pt.train_captioner(model, device, drop_prob_lm=0.0,
+                                 dropout=0.0)
+        tr = Trainer(cap, pt.train_opt(grad_clip_value=0.0))
+        fc, att, am, labels, masks = (x.to(device) for x in batch)
+        loss = tr.xe_step(fc, att, labels, masks, am, 5e-4, 0.0,
+                          torch.Generator(device).manual_seed(0))['loss']
+        got[device] = (float(loss), {n: p.grad.detach().cpu()
+                                     for n, p in tr.named_params.items()})
+        del cap, tr
+    (lg, gg), (lc, gc) = got['cuda'], got['cpu']
+    loss_err = abs(lg - lc) / abs(lc)
+    # a bias added to every score of a softmax row (alpha_net's, the
+    # attention K projections') has an exact gradient of 0: on both
+    # devices it is rounding, held to 1e-6 of the model's largest gradient
+    scale = max(float(g.abs().max()) for g in gc.values())
+    zero = sorted(n for n in gc if float(gc[n].abs().max()) <= 1e-6 * scale)
+    zero_err = max([float(gg[n].abs().max()) / scale for n in zero],
+                   default=0.0)
+    errs = {n: float((gg[n] - gc[n]).abs().max()) / float(gc[n].abs().max())
+            for n in gc if n not in zero}
+    worst = max(errs, key=errs.get)
+    grad_err = errs[worst]
+    log('  %s f32 xe_step, kernels (card) vs twins (CPU): loss %.6f vs '
+        '%.6f (rel %.2e); worst gradient err / its tensor max %.2e (%s) over '
+        '%d tensors; %d zero up to rounding (%s) at most %.2e of the '
+        'largest gradient on the card'
+        % (model, lg, lc, loss_err, grad_err, worst, len(errs), len(zero),
+           ', '.join(zero), zero_err))
+    if not (loss_err <= 1e-5 and grad_err <= 1e-4 and zero_err <= 1e-6):
+        raise AssertionError('%s f32 train step: loss rel err %.2e (max '
+                             '1e-5), gradient err %.2e (max 1e-4, %s), zero '
+                             'gradients %.2e (max 1e-6)'
+                             % (model, loss_err, grad_err, worst, zero_err))
+    return loss_err, grad_err
+
+
+def train_run(torch, model, wrappers, per_step, warm=3, steps=20):
+    """``warm`` + ``steps`` XE steps of ``model`` with its config's
+    options (``profile_train.TRAIN``) at batch 10 x 5, L 16 on one seeded
+    batch; the launch counters are set to 0 after the warm-up and each
+    wrapper must then count ``per_step[name]`` launches a step (0 for the
+    others).  The last step restores the generator state of the first
+    measured one, so the two losses see the same dropout and sampling
+    draws.  Returns the run's record."""
+    from captioning_tpu_torch.tools import profile_train as pt
+    torch.cuda.empty_cache()
+    tr, step, gen = pt.make_step(model)       # step(iteration), 1-based
+    for it in range(1, warm + 1):
+        step(it)
+    torch.cuda.synchronize()
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    first_state = gen.get_state()
+    losses, dev_ms, wall_ms = [], [], []
+    for it in range(warm + 1, warm + steps + 1):
+        if it == warm + steps:
+            gen.set_state(first_state)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t = time.time()
+        start.record()
+        loss = step(it)
+        end.record()
+        torch.cuda.synchronize()
+        wall_ms.append(1000 * (time.time() - t))
+        dev_ms.append(start.elapsed_time(end))
+        losses.append(float(loss))
+    counts = {name: fn.launches for name, fn in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for name, n in counts.items():
+        want = per_step.get(name, 0) * steps
+        if n != want:
+            raise AssertionError('%s training: %s launched %d times in %d '
+                                 'steps, expected %d' % (model, name, n,
+                                                         steps, want))
+    if not all(v == v and abs(v) != float('inf') for v in losses):
+        raise AssertionError('%s training: a loss is not finite: %s'
+                             % (model, losses))
+    if not losses[-1] < losses[0]:
+        raise AssertionError('%s training: the last loss %.6f is not below '
+                             'the first %.6f' % (model, losses[-1],
+                                                 losses[0]))
+
+    def spread(v):
+        v = sorted(v)
+        return v[len(v) // 2], v[0], v[-1]
+
+    rec = {'model': model, 'steps': steps, 'loss_first': losses[0],
+           'loss_last': losses[-1], 'step_ms_events': spread(dev_ms),
+           'step_ms_wall': spread(wall_ms), 'peak_gib': peak,
+           'launches_per_step': {n: c // steps for n, c in counts.items()
+                                 if c}}
+    log('  %s train step (batch 10 x 5, L 16): median %.2f ms by CUDA '
+        'events (min %.2f, max %.2f), host wall median %.2f ms (min %.2f, '
+        'max %.2f); peak memory %.3f GiB; loss %.4f -> %.4f over %d steps '
+        '(same draws); launches a step %s'
+        % ((model,) + rec['step_ms_events'] + rec['step_ms_wall']
+           + (peak, losses[0], losses[-1], steps,
+              rec['launches_per_step'])))
+    del tr
+    return rec, counts
+
+
+def phase_train(torch, wrappers):
+    """Phase 9; returns the launch counts of the training runs."""
+    torch.set_num_threads(min(8, os.cpu_count() or 1))
+    for model in ('updown', 'stackatt', 'newfc', 'transformer'):
+        train_agreement(torch, model)
+    # B3 once a head and B5 once a maxout cell, each time step (17)
+    runs = [('updown', {'additive_attention': 17}),
+            ('stackatt', {'additive_attention': 34,
+                          'maxout_lstm_gates': 51}),
+            ('transformer', {})]
+    launches = dict.fromkeys(wrappers, 0)
+    records = []
+    for model, per_step in runs:
+        rec, counts = train_run(torch, model, wrappers, per_step)
+        records.append(rec)
+        for name, n in counts.items():
+            launches[name] += n
+    log('  training record: %s' % json.dumps(records))
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phases 4-5: the model through Captioner
 # ---------------------------------------------------------------------------
 
@@ -1148,6 +1311,10 @@ def main():
         % tuple(library[n] for n in ('attend_write_merged', 'attend_merged',
                                      'mha_step_fused')))
     for name, n in phase_benches(torch, wrappers).items():
+        launches[name] += n
+
+    log('phase 9: XE training through the port\'s Trainer')
+    for name, n in phase_train(torch, wrappers).items():
         launches[name] += n
 
     bad = [m for m in sys.modules

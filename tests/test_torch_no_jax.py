@@ -1,11 +1,12 @@
 """The port imports no JAX and nothing of the JAX package: in a fresh
 interpreter where importing jax, flax, optax or ``captioning_tpu`` fails,
-every module of the port and ``tools/eval_torch.py`` import, and a tiny
-CPU beam and greedy decode run, for the transformer and for RNN captioners
-of each family (UpDown, StackAtt, NewFC, LM, AdaAttMO).  An AST scan of
-the port's sources, ``chip_smoke.py`` and ``tools/eval_torch.py`` finds no
-such import either, lazy ones included.  The entry points default to the
-GPU."""
+every module of the port, ``tools/eval_torch.py`` and
+``tools/train_torch.py`` import, and a tiny CPU beam and greedy decode and
+an XE train step run, for the transformer and for RNN captioners of each
+family (UpDown, StackAtt, NewFC, LM, AdaAttMO).  An AST scan of the port's
+sources, ``chip_smoke.py``, ``tools/eval_torch.py`` and
+``tools/train_torch.py`` finds no such import either, lazy ones included.
+The entry points default to the GPU."""
 
 import ast
 import os
@@ -31,9 +32,10 @@ mods = [m.name for m in pkgutil.walk_packages(
 assert len(mods) > 30, mods
 for mod in mods:
     importlib.import_module(mod)
-spec = importlib.util.spec_from_file_location(
-    'eval_torch', os.path.join('tools', 'eval_torch.py'))
-spec.loader.exec_module(importlib.util.module_from_spec(spec))
+for tool in ('eval_torch', 'train_torch'):
+    spec = importlib.util.spec_from_file_location(
+        tool, os.path.join('tools', tool + '.py'))
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 import torch
 from types import SimpleNamespace
 from captioning_tpu_torch.models.api import setup
@@ -53,6 +55,15 @@ assert seq.shape == (3, 5) and done['seq'].shape == (3, 1, 3, 5)
 assert torch.isfinite(stats['ent_sum']).all()
 seq, stats = cap.sample_stats(fc, att, am, None, {'beam_size': 1})
 assert seq.shape == (3, 5) and torch.isfinite(stats['lp_sum']).all()
+from captioning_tpu_torch.modules.trainer import Trainer
+for k, v in dict(optim='adam', learning_rate=1e-3, optim_alpha=0.9,
+                 optim_beta=0.999, optim_epsilon=1e-8, weight_decay=0,
+                 grad_clip_mode='value', grad_clip_value=0.1).items():
+    setattr(opt, k, v)
+labels = torch.randint(1, 20, (3, 2, 7), generator=g)
+out = Trainer(cap, opt).xe_step(fc, att, labels, torch.ones(3, 2, 7), am,
+                                1e-3, 0.25, torch.Generator().manual_seed(2))
+assert torch.isfinite(out['loss'])
 bad = [m for m in sys.modules
        if m.split('.')[0] in ('jax', 'flax', 'optax', 'captioning_tpu')
        and sys.modules[m] is not None]
@@ -87,7 +98,8 @@ def test_rnn_port_runs_without_jax(model):
 
 def _sources():
     out = [os.path.join(REPO, 'chip_smoke.py'),
-           os.path.join(REPO, 'tools', 'eval_torch.py')]
+           os.path.join(REPO, 'tools', 'eval_torch.py'),
+           os.path.join(REPO, 'tools', 'train_torch.py')]
     for root, _, files in os.walk(PKG):
         out += [os.path.join(root, f) for f in files if f.endswith('.py')]
     return sorted(out)

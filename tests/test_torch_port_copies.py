@@ -1,6 +1,8 @@
 """The port's copies of the JAX package's host-only modules behave as the
-originals: the npz tree I/O, the options, the data loader's batches on the
-synthetic dataset, and the caption metrics through ``language_eval``."""
+originals: the npz tree I/O and the checkpoint writer, the options, the
+learning-rate schedules of ``utils/optimizers.py``, the data loader's
+batches on the synthetic dataset, and the caption metrics through
+``language_eval``."""
 
 import json
 import os
@@ -34,6 +36,82 @@ def test_pytree_io_matches_jax_package(tmp_path):
         assert pflat[key].dtype == value.dtype
         np.testing.assert_array_equal(pflat[key], value)
     assert got['params']['layers'][1] is None
+
+
+def test_checkpoint_writer_matches_jax_package(tmp_path):
+    """``save_checkpoint`` of both packages on one numpy tree, optimizer
+    state (its empty clip slot leaves no '#0' key) and infos / histories
+    writes the same files, npz keys, arrays and pickles."""
+    from types import SimpleNamespace
+
+    from captioning_tpu.utils import misc as jmisc
+    from captioning_tpu_torch.utils import misc as pmisc
+    rng = np.random.RandomState(1)
+    params = {'params': {'logit': {'kernel': rng.randn(3, 4)
+                                   .astype('float32')}},
+              'batch_stats': {'att_bn_in': {'mean': np.zeros(3, 'float32')}}}
+    count, mu = np.asarray(3, np.int32), rng.randn(3, 4).astype('float32')
+    # the JAX trainer's state: (clip's empty state, (adam's state,)); the
+    # port hands the writer the flat tree of the same leaves
+    jax_state = ((), ([count, {'logit': {'kernel': mu}}],))
+    opt_state = {'#1/#0/#0': count, '#1/#0/#1/logit/kernel': mu}
+    infos = {'iter': 3, 'epoch': 1, 'best_val_score': -2.5,
+             'loader_state_dict': {'train': {'index': 2}}}
+    histories = {'loss_history': {1: 3.0, 2: 2.5}}
+    for name, misc in (('jax', jmisc), ('port', pmisc)):
+        for append in ('', 'best'):
+            misc.save_checkpoint(
+                SimpleNamespace(checkpoint_path=str(tmp_path / name),
+                                id='x'), params, infos,
+                jax_state if name == 'jax' else opt_state, histories,
+                append=append)
+    files = sorted(os.listdir(tmp_path / 'jax'))
+    assert files == sorted(os.listdir(tmp_path / 'port'))
+    assert 'optimizer-best.npz' in files and 'histories_x.pkl' in files
+    for f in files:
+        a, b = tmp_path / 'jax' / f, tmp_path / 'port' / f
+        if f.endswith('.npz'):
+            jflat, pflat = pmisc.load_flat(str(a)), pmisc.load_flat(str(b))
+            assert sorted(jflat) == sorted(pflat), f
+            for key in jflat:
+                np.testing.assert_array_equal(pflat[key], jflat[key])
+        else:
+            assert a.read_bytes() == b.read_bytes(), f
+    assert sorted(pmisc.load_flat(str(tmp_path / 'jax' / 'optimizer.npz'))
+                  ) == sorted(opt_state)
+
+
+def test_lr_schedules_match_jax_package():
+    """``noam_rate``, ``epoch_decay_lr`` and ``ReduceLROnPlateau`` (with its
+    state dict) against the originals on the same inputs."""
+    from types import SimpleNamespace
+
+    from captioning_tpu.utils import optimizers as jopt
+    from captioning_tpu_torch.utils import optimizers as popt
+    for step in (0, 1, 7, 1999, 2000, 2001, 50000):
+        for d, factor, warmup in ((512, 1.0, 2000), (16, 2.0, 20000)):
+            assert popt.noam_rate(step, d, factor, warmup) == \
+                jopt.noam_rate(step, d, factor, warmup)
+    for start, every, rate in ((-1, 3, 0.8), (0, 3, 0.8), (2, 1, 0.5)):
+        opt = SimpleNamespace(learning_rate=5e-4, learning_rate_decay_rate=rate,
+                              learning_rate_decay_start=start,
+                              learning_rate_decay_every=every)
+        for epoch in range(12):
+            assert popt.epoch_decay_lr(opt, epoch) == \
+                jopt.epoch_decay_lr(opt, epoch)
+    rng = np.random.RandomState(0)
+    vals = list(np.cumsum(rng.randn(40)) * 0.1 + 3.0)
+    for mode in ('min', 'max'):
+        kw = dict(mode=mode, factor=0.5, patience=2, cooldown=1, min_lr=1e-5)
+        want, got = (jopt.ReduceLROnPlateau(4e-4, **kw),
+                     popt.ReduceLROnPlateau(4e-4, **kw))
+        for i, v in enumerate(vals):
+            want.step(v)
+            got.step(v)
+            assert got.state_dict() == want.state_dict()
+            if i == 20:          # resume mid-way from the other's state
+                got = popt.ReduceLROnPlateau(1.0, **kw)
+                got.load_state_dict(want.state_dict())
 
 
 def test_opts_match_jax_package(ds):

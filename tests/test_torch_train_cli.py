@@ -1,0 +1,296 @@
+"""tools/train_torch.py end to end on the synthetic dataset (--device cpu,
+UpDown at tiny widths, 16 train images at batch 8: 2 iterations an epoch,
+dropout 0):
+
+* one epoch writes the JAX package's checkpoint contract: model /
+  optimizer npz, infos (with the loader state, the best val score and the
+  plateau state) and histories pickles, their ``-best`` copies and, with
+  save_history_ckpt, the ``-<iter>`` ones;
+* the JAX ``eval_split`` on the port's ``model-best.npz`` gives the same
+  captions as tools/eval_torch.py on it;
+* 2 + 2 steps resumed through --start_from give the loss history of 4
+  straight steps (within 1e-5);
+* each package resumes the other's checkpoint (model, optimizer.npz in
+  the optax layout, infos, loader state) and its first step matches the
+  other package's straight run (the loss within 1e-4);
+* a val ``eval_split`` between two steps changes nothing the next step
+  reads."""
+
+import os
+import pickle
+
+import numpy as np
+import pytest
+
+from tests.util_synth import build_synthetic_dataset
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope='module')
+def ds(tmp_path_factory):
+    return build_synthetic_dataset(str(tmp_path_factory.mktemp('synth_tcli')))
+
+
+def _args(ds, ckpt, epochs, **kw):
+    opts = dict(caption_model='updown', id='tr', checkpoint_path=ckpt,
+                input_json=ds.input_json, input_label_h5=ds.input_label_h5,
+                input_fc_dir=ds.input_fc_dir, input_att_dir=ds.input_att_dir,
+                fc_feat_size=ds.fc_dim, att_feat_size=ds.att_dim,
+                rnn_size=24, input_encoding_size=16, att_hid_size=8,
+                batch_size=8, seq_per_img=5, max_length=6,
+                max_epochs=epochs, save_checkpoint_every=2, language_eval=0,
+                val_images_use=4, losses_log_every=1, drop_prob_lm=0.0,
+                learning_rate=5e-3, num_data_threads=2, seed=3)
+    opts.update(kw)
+    args = []
+    for k, v in opts.items():
+        if v is True:
+            args.append('--' + k)
+        elif v is not None:
+            args += ['--' + k, str(v)]
+    return args
+
+
+def _train_port(args):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        'train_torch', os.path.join(REPO, 'tools', 'train_torch.py'))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.main(['--device', 'cpu'] + args)
+
+
+def _train_jax(args):
+    import captioning_tpu.utils.opts as jopts
+    from tools.train import train
+    train(jopts.parse_opt(args))
+
+
+def _load(path):
+    with open(path, 'rb') as f:
+        return pickle.load(f, encoding='latin-1')
+
+
+def _losses(ckpt):
+    hist = _load(os.path.join(ckpt, 'histories_tr.pkl'))['loss_history']
+    return [hist[i] for i in sorted(hist)]
+
+
+@pytest.fixture(scope='module')
+def port_run(ds, tmp_path_factory):
+    root = tmp_path_factory.mktemp('port_run')
+    ckpt = str(root / 'ckpt')
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        _train_port(_args(ds, ckpt, 1, save_history_ckpt=1,
+                          reduce_on_plateau=True))
+    finally:
+        os.chdir(cwd)
+    return root, ckpt
+
+
+def test_one_epoch_writes_the_checkpoint_contract(port_run):
+    _, ckpt = port_run
+    names = set(os.listdir(ckpt))
+    for stem in ('model%s.npz', 'optimizer%s.npz', 'infos_tr%s.pkl'):
+        for append in ('', '-best', '-2'):
+            assert stem % append in names, stem % append
+    assert 'histories_tr.pkl' in names
+    infos = _load(os.path.join(ckpt, 'infos_tr.pkl'))
+    assert (infos['iter'], infos['epoch']) == (2, 1)
+    assert infos['loader_state_dict'] is not None
+    assert np.isfinite(infos['best_val_score'])
+    assert infos['plateau_state_dict']['best'] is not None
+    hist = _load(os.path.join(ckpt, 'histories_tr.pkl'))
+    assert sorted(hist['loss_history']) == [1, 2]
+    assert list(hist['val_result_history']) == [2]
+    with np.load(os.path.join(ckpt, 'optimizer.npz')) as f:
+        assert int(f['#1/#0/#0']) == 2          # adam's step count
+
+
+def test_jax_eval_split_matches_eval_torch_on_the_port_checkpoint(
+        port_run, ds, monkeypatch):
+    import importlib.util
+
+    from captioning_tpu.data.dataset import DataLoader
+    from captioning_tpu.models import setup as jax_setup
+    from captioning_tpu.utils import eval_utils
+    from captioning_tpu.utils.misc import load_pytree
+    root, ckpt = port_run
+    run = root / 'eval'
+    run.mkdir()
+    monkeypatch.chdir(run)
+    spec = importlib.util.spec_from_file_location(
+        'eval_torch', os.path.join(REPO, 'tools', 'eval_torch.py'))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.main(['--device', 'cpu', '--model',
+              os.path.join(ckpt, 'model-best.npz'), '--infos_path',
+              os.path.join(ckpt, 'infos_tr-best.pkl'), '--split', 'val',
+              '--num_images', '4', '--language_eval', '0', '--force', '1',
+              '--beam_size', '3', '--max_length', '6', '--id', 'tr'])
+    got = _load(run / 'eval_results' / '.saved_pred_tr_val.pkl')[0]
+
+    opt = _load(os.path.join(ckpt, 'infos_tr-best.pkl'))['opt']
+    loader = DataLoader(opt)
+    cap = jax_setup(opt, loader.get_vocab())
+    variables = load_pytree(os.path.join(ckpt, 'model-best.npz'))
+    kw = {'split': 'val', 'num_images': 4, 'language_eval': 0,
+          'verbose': False, 'id': 'tr_jax', 'max_length': 6,
+          'beam_size': 3, 'verbose_loss': 1}
+    _, want, _ = eval_utils.eval_split(cap, variables, loader, kw)
+    assert len(want) == 4
+    assert [p['caption'] for p in got] == [p['caption'] for p in want]
+
+
+def test_resumed_run_equals_the_straight_run(ds, tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    straight, resumed = str(tmp_path / 'straight'), str(tmp_path / 'res')
+    _train_port(_args(ds, straight, 2))
+    _train_port(_args(ds, resumed, 1))
+    _train_port(_args(ds, resumed, 2, start_from=resumed))
+    want, got = _losses(straight), _losses(resumed)
+    assert len(want) == 4
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize('first,then', [('jax', 'port'), ('port', 'jax')])
+def test_each_package_resumes_the_others_checkpoint(ds, tmp_path,
+                                                    monkeypatch, first,
+                                                    then):
+    """``first`` trains 4 steps, keeping its step-2 checkpoint (model,
+    optimizer, infos with the loader state); ``then`` resumes from that
+    checkpoint and its step 3 matches ``first``'s."""
+    import shutil
+    monkeypatch.chdir(tmp_path)
+    run = {'jax': _train_jax, 'port': _train_port}
+    straight, resumed = str(tmp_path / 'straight'), str(tmp_path / 'res')
+    run[first](_args(ds, straight, 2, save_history_ckpt=1))
+    os.makedirs(resumed)
+    for name in ('model%s.npz', 'optimizer%s.npz', 'infos_tr%s.pkl'):
+        shutil.copy(os.path.join(straight, name % '-2'),
+                    os.path.join(resumed, name % ''))
+    run[then](_args(ds, resumed, 2, start_from=resumed))
+    want, got = _losses(straight), _losses(resumed)
+    assert len(want) == 4 and len(got) == 2      # steps 3 and 4
+    np.testing.assert_allclose(got[0], want[2], atol=1e-4, rtol=0)
+
+
+def test_eval_split_between_steps_leaves_training_unchanged(ds, tmp_path,
+                                                            monkeypatch):
+    """A val ``eval_split`` (inference mode: teacher-forced loss and beam
+    decode) between two XE steps changes nothing the next step reads: the
+    losses, the parameters and the BatchNorm statistics equal a run
+    without it, and the parameters still require grad."""
+    import torch
+
+    from captioning_tpu_torch.data.dataset import DataLoader
+    from captioning_tpu_torch.models.api import setup
+    from captioning_tpu_torch.modules.trainer import Trainer
+    from captioning_tpu_torch.utils import eval_utils
+    from tests.torch_port_util import train_opt
+    from tests.util_synth import make_opt
+    monkeypatch.chdir(tmp_path)
+    opt = train_opt(make_opt(ds, 'updown', use_bn=2, max_length=6))
+    loader = DataLoader(opt)
+    opt.vocab_size = loader.vocab_size
+    data = loader.get_batch('train')
+    t = lambda k, dt: torch.as_tensor(np.asarray(data[k]), dtype=dt)
+    batch = (t('fc_feats', torch.float32), t('att_feats', torch.float32),
+             t('labels', torch.long), t('masks', torch.float32),
+             t('att_masks', torch.float32))
+    runs = []
+    for with_eval in (False, True):
+        cap = setup(opt, loader.get_vocab(), device='cpu').init_params(
+            torch.Generator().manual_seed(0))
+        tr = Trainer(cap, opt)
+        losses = [float(tr.xe_step(*batch, 1e-2, 0.0,
+                                   torch.Generator().manual_seed(1))['loss'])]
+        if with_eval:
+            eval_utils.eval_split(cap, loader, {
+                'split': 'val', 'num_images': 4, 'language_eval': 0,
+                'verbose': False, 'id': 'mid', 'beam_size': 2,
+                'max_length': 6})
+        losses.append(float(tr.xe_step(*batch, 1e-2, 0.0,
+                                       torch.Generator().manual_seed(2))[
+                                           'loss']))
+        assert all(p.requires_grad for p in cap.module.parameters())
+        runs.append((losses, {k: v.clone() for k, v in
+                              cap.module.state_dict().items()}))
+    (want, want_sd), (got, got_sd) = runs
+    assert got == want
+    for k in want_sd:
+        assert torch.equal(got_sd[k], want_sd[k]), k
+
+
+@pytest.mark.parametrize('model', ['updown', 'stackatt', 'transformer'])
+def test_profile_train_steps_on_the_cpu(model, monkeypatch):
+    """``tools/profile_train.py``'s set-up (the one ``chip_smoke.py`` phase
+    9 trains with) at tiny widths on the CPU: its config's options, one
+    seeded batch of 10 x 5 captions of length 16, steps that lower the
+    loss; its entry point refuses to run without a GPU."""
+    import torch
+
+    from captioning_tpu_torch.tools import profile_decode as pd
+    from captioning_tpu_torch.tools import profile_train as pt
+    monkeypatch.setattr(pd, 'V', 40)
+    monkeypatch.setattr(pd, 'FEAT', 12)
+    monkeypatch.setattr(pd, 'REGIONS', 5)
+    monkeypatch.setattr(pd, 'MODELS', {
+        'transformer': dict(input_encoding_size=16, rnn_size=32,
+                            num_layers=2, att_hid_size=8, N_enc=1, N_dec=1,
+                            d_model=16, d_ff=32, num_att_heads=4),
+        'updown': dict(input_encoding_size=24, rnn_size=24, num_layers=2,
+                       att_hid_size=8),
+        'stackatt': dict(input_encoding_size=16, rnn_size=24, num_layers=1,
+                         att_hid_size=8)})
+    # a rate that moves the tiny model in a few steps (noam's first steps
+    # barely move it)
+    model_kw, opt_kw, ss_prob, _ = pt.TRAIN[model]
+    monkeypatch.setitem(pt.TRAIN, model,
+                        (model_kw, opt_kw, ss_prob, lambda it: 1e-2))
+    tr, step, gen = pt.make_step(model, 'cpu')
+    assert tr.captioner.module.cfg.drop_prob_lm == 0.5
+    first_state = gen.get_state()
+    first = float(step(1))
+    for it in range(2, 6):
+        step(it)
+    gen.set_state(first_state)
+    assert float(step(6)) < first
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(SystemExit, match='CUDA'):
+        pt.main(['--model', model])
+
+
+@pytest.mark.parametrize('flag,value,match', [
+    ('mesh_shape', 'data:2', 'A7'), ('dist_auto', 1, 'A7'),
+    ('use_ppo', 1, 'A5'), ('compute_dtype', 'bfloat16', 'float32 master'),
+    ('self_critical_after', 0, 'A5'), ('structure_after', 0, 'A5')])
+def test_unported_training_raises(ds, tmp_path, monkeypatch, flag, value,
+                                  match):
+    """What the XE loop does not port raises NotImplementedError naming its
+    ROADMAP item (an SCST or structure stage once it is reached, after the
+    exception checkpoint of the JAX loop), and ``--device cuda`` without a
+    GPU raises."""
+    import importlib.util
+
+    import torch
+
+    import captioning_tpu_torch.utils.opts as popts
+    monkeypatch.chdir(tmp_path)
+    spec = importlib.util.spec_from_file_location(
+        'train_torch', os.path.join(REPO, 'tools', 'train_torch.py'))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    ckpt = str(tmp_path / 'ckpt')
+    opt = popts.parse_opt(_args(ds, ckpt, 1))
+    setattr(opt, flag, value)
+    with pytest.raises(NotImplementedError, match=match):
+        mod.train(opt, device='cpu')
+    if flag == 'self_critical_after':
+        assert os.path.isfile(os.path.join(ckpt, 'model.npz'))
+        monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+        with pytest.raises(RuntimeError, match='CUDA'):
+            mod.main(_args(ds, ckpt, 1))

@@ -84,3 +84,31 @@ def inputs(B=4, seed=0, ragged=True):
     if ragged:
         am[1::2, 3:] = 0
     return fc, att, am
+
+
+def train_opt(opt, **kw):
+    """``opt`` with the XE trainer's options: adam 1e-2 (a rate large
+    enough that 3 steps move the loss), clip by value 0.1, dropout 0 (the
+    torch and JAX streams never agree), no label smoothing."""
+    base = dict(optim='adam', learning_rate=1e-2, optim_alpha=0.9,
+                optim_beta=0.999, optim_epsilon=1e-8, weight_decay=0.0,
+                grad_clip_mode='value', grad_clip_value=0.1, noamopt=False,
+                label_smoothing=0, drop_worst_rate=0.0, drop_prob_lm=0.0,
+                dropout=0.0)
+    for k, v in dict(base, **kw).items():
+        setattr(opt, k, v)
+    return opt
+
+
+def train_batch(B=4, spi=5, L=6, seed=0):
+    """labels / masks [B, seq_per_img, L + 2] as the loader gives them: a
+    0 (BOS) column, captions of 2..L tokens, a trailing 0; the mask covers
+    BOS, the tokens and the first 0 after them."""
+    rng = np.random.RandomState(seed)
+    lengths = rng.randint(2, L + 1, (B, spi))
+    labels = np.zeros((B, spi, L + 2), np.int64)
+    tok = rng.randint(1, V, (B, spi, L))
+    pos = np.arange(L)
+    labels[..., 1:L + 1] = np.where(pos < lengths[..., None], tok, 0)
+    masks = (np.arange(L + 2) <= lengths[..., None] + 1).astype('float32')
+    return labels, masks
