@@ -1,47 +1,56 @@
-"""Batched decoding for eval: greedy with carried stats, and beam search.
+"""Batched decoding: greedy and sampling, beam search (one group or diverse
+groups), diverse sampling, the winner-logprob replay and the logprob
+recompute.
 
-Port of the eval routes of ``captioning_tpu/engine/decoding.py``:
+Port of ``captioning_tpu/engine/decoding.py``:
 
-* ``sample`` — greedy with the entropy / chosen-logprob sums carried and
-  the exact early exit once every row has finished; through the fused
-  ``k = 1`` vocab epilogue when the model has ``step_topk``, else through
-  the plain step's float32 log-softmax table;
-* ``sample_beam`` -> ``_beam_search_fast`` — single group, with the
-  finished-beam pool merge and the exact early exit; fused (per-row
-  top-``bdash`` survivors from the vocab epilogue, the t = 0 lane-0 top-k)
-  when the model has ``step_topk``, else the plain branch (the full
-  [B*bdash, V+1] candidate table, its ``[B, bdash*(V+1)]`` top-k, UNK
-  adjust, temperature log-softmax).  Beam state follows the model's
-  ancestry table when it has one, else a plain row gather.
+* ``sample`` — greedy, gumbel, temperature sampling, top-k and top-p, with
+  the step constraints (``decoding_constraint``, ``remove_bad_endings``,
+  ``block_trigrams``); the per-step ``[N, L, V+1]`` tables, or (with
+  ``return_stats``) the entropy / chosen-logprob sums carried with the
+  exact early exit once every row has finished.  Greedy stats go through
+  the fused ``k = 1`` vocab epilogue when the model has ``step_topk``.
+  Beam options route to ``sample_beam``, ``group_size > 1`` to
+  ``diverse_sample``;
+* ``sample_beam`` -> ``_beam_search_fast`` (one group without the scatter
+  constraints: the finished-beam pool merge and the exact early exit;
+  fused per-row top-``bdash`` survivors when the model has ``step_topk``,
+  else the full candidate table) or ``beam_search`` (the general body:
+  diverse groups with their penalty, the constraints, UNK suppression and
+  the freeze of the groups outside their time window); with
+  ``want_logps`` the winners' per-step distributions are replayed
+  (``replay_beam_logps``);
+* ``diverse_sample`` — staggered groups with the batch-pooled diversity
+  penalty;
+* ``scan_logprobs`` — the recompute over a given sequence, in train mode
+  (an autograd graph, dropout drawn from a generator) when given one.
 
-The JAX scans become host loops; the early-exit condition costs one host
-sync per step.  Every top-k resolves a tie to the lowest index, as
-``lax.top_k``: the beam and pool merges are full of exact ties (NEG fills,
-lane-0 masking, pool entries that must win ties against candidates).  The
-plain branch's selection over the full ``[B, bdash*(V+1)]`` table goes
-through ``ops.topk.topk_lastdim`` (a CUDA kernel on the card); the small
-merges over [B, bdash²] and [B, 2·bdash] use the stable-sort ``top_k``.
-The JAX gates ``NBG % 8 == 0`` and ``N % 8 == 0`` in front of the fused
-branches are TPU tiling rules and are dropped: the CUDA kernels take any
-row count.
+The JAX scans become host loops over host-int steps; an early exit costs
+one host sync per step.  Every top-k resolves a tie to the lowest index, as
+``lax.top_k``.  The selections over a full ``[B, bdash*(V+1)]`` table go
+through ``ops.topk.topk_lastdim`` (a CUDA kernel on the card, ``bdash <=
+16``); the small merges over [B, bdash²] and [B, 2·bdash] use the
+stable-sort ``top_k``.  The JAX gates ``NBG % 8 == 0`` / ``N % 8 == 0`` in
+front of the fused branches are TPU tiling rules and are dropped.
 
-Not ported yet (each raises ``NotImplementedError``; see ROADMAP.md):
-diverse groups, decoding constraints, bad-ending removal, trigram
-blocking, the winner-logprob replay (``want_logps=True``) and the
-non-greedy sample methods.
+Randomness: every sampled step takes its noise from ``draw(kind, t,
+shape)`` with ``kind`` 'uniform' (gumbel sampling) or 'gumbel' (the
+categorical, ``argmax(logits + gumbel)`` as ``jax.random.categorical``).
+The ``rng`` of a decode is a ``torch.Generator`` on the decode's device
+(``generator_draw``), such a ``draw`` callable, or None (a generator seeded
+0).  Eval model steps draw nothing: the engine hands them no rng.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from ..ops.topk import top_k, topk_lastdim
+from ..ops.topk import MAX_K, top_k, topk_lastdim
 
 NEG = -1e30  # "never selected" sentinel (finite to keep arithmetic NaN-free)
-_ROADMAP = 'not ported yet; see ROADMAP.md, Queue A'
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,15 +58,17 @@ class DecodeModel:
     """A captioner bound for decoding.
 
     ``step(it, feats, state, rng, logsoftmax, uniform_t, beam_width) ->
-    (float32 [N, V+1] log-probs or logits, state)``: one plain step.
+    (float32 [N, V+1] log-probs or logits, state)``: one plain step; ``rng``
+    is a ``torch.Generator`` in train mode (dropout), None in eval;
+    ``uniform_t=False`` asks for a per-row step ``t`` (staggered groups).
     ``step_topk(it, feats, state, rng, k, temp, unk_bias, unk_idx,
     beam_width) -> (top_lsm [N, k], top_ix [N, k], row_sum [N], ent [N],
     state)``: one step plus the fused vocab epilogue, used when set.
     ``beam_init(state, bdash)`` adds the ancestry table after lane
     replication; ``beam_reorder(state, flat_idx)`` gathers every leaf but
     the physical caches; without them beam rows are reordered by a plain
-    gather.  The JAX protocol's bad-ending ids serve routes not ported yet
-    and come back with them."""
+    gather.  ``init_state(batch, beam)``: ``beam`` is True for single-group
+    beam search."""
     prepare: Callable  # (fc, att, att_masks, rng) -> feats
     init_state: Callable  # (batch, beam=False) -> state
     step: Callable
@@ -67,11 +78,16 @@ class DecodeModel:
     eos_idx: int = 0
     pad_idx: int = 0
     unk_idx: Optional[int] = None
+    bad_endings_ix: Tuple[int, ...] = ()
     beam_init: Optional[Callable] = None
     beam_reorder: Optional[Callable] = None
     shared_beam_feats: bool = False
     step_topk: Optional[Callable] = None
 
+
+# ---------------------------------------------------------------------------
+# helpers
+# ---------------------------------------------------------------------------
 
 def repeat_tree(n: int, tree):
     """B x ... -> B*n x ... with the repeat index fastest."""
@@ -89,6 +105,43 @@ def reorder_state(tree, idx):
     gather; the JAX engine's one-hot matmul is an exact TPU substitute)."""
     return {k: v.index_select(0, idx) if torch.is_tensor(v) else v
             for k, v in tree.items()}
+
+
+def _where_tree(mask, new, old):
+    """Per-row select between two states: ``new`` where ``mask`` [N].  A
+    leaf that a step updated in place (the same tensor in both) is kept;
+    a host-int leaf of ``old`` broadcasts."""
+    out = {}
+    for k, v in new.items():
+        o = old[k]
+        if v is o or not torch.is_tensor(v):
+            out[k] = v
+        else:
+            m = mask.view((-1,) + (1,) * (v.dim() - 1))
+            out[k] = torch.where(m, v, o)
+    return out
+
+
+def generator_draw(generator: torch.Generator):
+    """``draw(kind, t, shape)`` from ``generator`` on its device: 'uniform'
+    in [0, 1), 'gumbel' as ``jax.random.gumbel`` makes it from a uniform
+    (-log(-log(u)), u at least the smallest normal float32)."""
+    tiny = torch.finfo(torch.float32).tiny
+
+    def draw(kind, t, shape):
+        u = torch.rand(shape, generator=generator, device=generator.device)
+        if kind == 'uniform':
+            return u
+        return -torch.log(-torch.log(u.clamp_min(tiny)))
+    return draw
+
+
+def _draw_fn(rng, device):
+    if rng is None:
+        rng = torch.Generator(device).manual_seed(0)
+    if isinstance(rng, torch.Generator):
+        return generator_draw(rng)
+    return lambda kind, t, shape: rng(kind, t, shape).to(device)
 
 
 def penalty_fn(length_penalty: str):
@@ -129,83 +182,34 @@ def _beam_dynamic_setup(dm: DecodeModel, opt: Dict[str, Any]):
     return temperature, length_penalty, 0.0, -1
 
 
-def _check_slice(opt: Dict[str, Any]):
-    for flag in ('decoding_constraint', 'remove_bad_endings',
-                 'block_trigrams'):
-        if int(opt.get(flag, 0) or 0):
-            raise NotImplementedError('%s: %s' % (flag, _ROADMAP))
-    if int(opt.get('group_size', 1) or 1) > 1:
-        raise NotImplementedError('group_size > 1 (diverse beam): %s'
-                                  % _ROADMAP)
+def _flag(opt, name, default=0):
+    return int(opt.get(name, default) or default)
 
 
 # ---------------------------------------------------------------------------
-# greedy with carried stats
+# step constraints and the next word
 # ---------------------------------------------------------------------------
 
-def sample(dm: DecodeModel, fc_feats, att_feats, att_masks, rng,
-           opt: Dict[str, Any], return_stats: bool = True):
-    """Greedy decode.  Returns (seq [B*n, L] int64, {'ent_sum', 'lp_sum'}
-    [B*n] float32).  Beam options route to ``sample_beam``."""
-    sample_method = opt.get('sample_method', 'greedy') or 'greedy'
-    beam_size = int(opt.get('beam_size', 1) or 1)
-    if beam_size > 1 and sample_method in ('greedy', 'beam_search'):
-        seq, stats, _ = sample_beam(dm, fc_feats, att_feats, att_masks, rng,
-                                    opt, want_logps=not return_stats)
-        return seq, stats
-    _check_slice(opt)
-    if sample_method != 'greedy':
-        raise NotImplementedError('sample_method %r: %s'
-                                  % (sample_method, _ROADMAP))
-    if not return_stats or not int(opt.get('output_logsoftmax', 1)):
-        raise NotImplementedError('per-step logprob tables: %s' % _ROADMAP)
-    sample_n = int(opt.get('sample_n', 1) or 1)
-    L = dm.seq_length
-    feats = dm.prepare(fc_feats, att_feats, att_masks, rng)
-    if not dm.shared_beam_feats:
-        feats = repeat_tree(sample_n, feats)
-    N = fc_feats.shape[0] * sample_n
-    state = dm.init_state(N)
-    dev = att_feats.device
-    it = torch.full((N,), dm.bos_idx, dtype=torch.long, device=dev)
-    unfinished = torch.ones(N, dtype=torch.bool, device=dev)
-    seq = torch.zeros(N, L, dtype=torch.long, device=dev)
-    ent_sum = torch.zeros(N, dtype=torch.float32, device=dev)
-    lp_sum = torch.zeros(N, dtype=torch.float32, device=dev)
-    for t in range(L):
-        # eval stats and the argmax are taken on the untempered
-        # log-softmax (no UNK suppression outside beam search)
-        if dm.step_topk is not None:
-            tv, ti, _, en, state = dm.step_topk(it, feats, state, rng, 1,
-                                                1.0, 0.0, -1, 0)
-            tv, ti = tv[:, 0], ti[:, 0]
-        else:
-            lsm, state = dm.step(it, feats, state, rng, True, uniform_t=True)
-            ti = lsm.argmax(1)       # the first maximum, as jnp.argmax
-            tv = lsm.gather(1, ti[:, None])[:, 0]
-            en = -(lsm.exp() * lsm).sum(-1)
-        keep = unfinished if t else torch.ones_like(unfinished)
-        it = torch.where(keep, ti, dm.pad_idx)
-        unfinished = keep & (it != dm.eos_idx)
-        seq[:, t] = it
-        ent_sum += torch.where(keep, en, 0.0)
-        lp_sum += torch.where(keep, tv, 0.0)
-        # EXACT early exit: once every row has finished, the remaining
-        # steps only write pads and gated-off stats (one host sync)
-        if not bool(unfinished.any()):
-            break
-    return seq, {'ent_sum': ent_sum, 'lp_sum': lp_sum}
-
-
-# ---------------------------------------------------------------------------
-# beam search (single group)
-# ---------------------------------------------------------------------------
-
-def _gather(x, ix):
-    """take_along_axis(x, ix, axis=1) for [B, R(, ...)] tables."""
-    if x.dim() == 2:
-        return torch.gather(x, 1, ix)
-    return torch.gather(x, 1, ix[..., None].expand(-1, -1, x.shape[2]))
+def _apply_step_constraints(lp, prev_tok, has_prev, dm: DecodeModel,
+                            decoding_constraint: int,
+                            remove_bad_endings: int):
+    """-inf at each row's previous token (``decoding_constraint``) and at
+    column 0 after a bad-ending word (``remove_bad_endings``), on the rows
+    where ``has_prev`` (a bool, or a [N] bool tensor for per-row steps)."""
+    bad_endings = remove_bad_endings and dm.bad_endings_ix
+    if not (decoding_constraint or bad_endings):
+        return lp
+    N = lp.shape[0]
+    hp = torch.as_tensor(has_prev, device=lp.device).expand(N)
+    lp = lp.clone()
+    if decoding_constraint:
+        rows = torch.arange(N, device=lp.device)
+        lp[rows, prev_tok] += torch.where(hp, -torch.inf, 0.0)
+    if bad_endings:
+        bad = torch.zeros(dm.vocab_plus, dtype=torch.bool, device=lp.device)
+        bad[list(dm.bad_endings_ix)] = True
+        lp[:, 0] += torch.where(hp & bad[prev_tok], -torch.inf, 0.0)
+    return lp
 
 
 def _unk_adjust(lsm, unk_bias: float, unk_idx: int):
@@ -216,9 +220,203 @@ def _unk_adjust(lsm, unk_bias: float, unk_idx: int):
     return lsm
 
 
+def _trigram_penalty(logprobs, seq_buf, t):
+    """Trigram blocking: at step t >= 3 every w completing (seq[t-2],
+    seq[t-1], w) as a trigram already ending at positions 2..t-1 takes
+    -0.693 * 2 per occurrence.  ``seq_buf`` [N, L] holds the tokens so far
+    (zeros from t on); ``t`` is a host int or a [N] tensor (per-row
+    steps)."""
+    N, L = seq_buf.shape
+    dev = seq_buf.device
+    pos = torch.arange(L, device=dev)
+    prefix1 = seq_buf[:, (pos - 2).clamp_min(0)]
+    prefix2 = seq_buf[:, (pos - 1).clamp_min(0)]
+    t_arr = torch.as_tensor(t, device=dev).expand(N)[:, None]
+    cur1 = torch.gather(seq_buf, 1, (t_arr - 2).clamp_min(0))
+    cur2 = torch.gather(seq_buf, 1, (t_arr - 1).clamp_min(0))
+    valid = (pos[None] >= 2) & (pos[None] <= t_arr - 1)
+    match = (prefix1 == cur1) & (prefix2 == cur2) & valid
+    counts = torch.zeros_like(logprobs).scatter_add_(
+        1, seq_buf, match.to(logprobs.dtype))
+    return torch.where(t_arr >= 3, counts * (-0.693 * 2.0), 0.0)
+
+
+def sample_next_word(logprobs, sample_method: str, temperature: float,
+                     draw, t):
+    """(token [N], its logprob [N]) of one step: greedy; 'gumbel' (argmax
+    of the tempered log-softmax of logprobs plus gumbel noise made from a
+    uniform draw); else the categorical over logprobs / temperature, top-k
+    ('top<k>') or nucleus ('top<p>', 0 < p < 1) masked, as ``argmax(lp +
+    gumbel)``.  The JAX package's traced-method sampler computes the same
+    function, one compiled program for every method."""
+    if sample_method == 'greedy':
+        it = logprobs.argmax(1)       # the first maximum, as jnp.argmax
+        return it, logprobs.gather(1, it[:, None])[:, 0]
+    if sample_method == 'gumbel':
+        eps = 1e-20
+        u = draw('uniform', t, logprobs.shape)
+        g = -torch.log(-torch.log(u + eps) + eps)
+        y = torch.log_softmax((logprobs + g) / temperature, dim=-1)
+        it = y.argmax(1)
+        return it, logprobs.gather(1, it[:, None])[:, 0]
+    lp = logprobs / temperature
+    if sample_method.startswith('top'):
+        top_num = float(sample_method[3:])
+        if 0 < top_num < 1:
+            # nucleus: keep the most probable words up to mass top_num
+            probs = torch.softmax(lp, dim=1)
+            sorted_probs, order = torch.sort(probs, dim=1, descending=True,
+                                             stable=True)
+            mask = torch.cumsum(sorted_probs, dim=1) < top_num
+            mask = torch.cat([torch.ones_like(mask[:, :1]), mask[:, :-1]], 1)
+            kept = sorted_probs * mask
+            kept = kept / kept.sum(1, keepdim=True)
+            # back to vocab order
+            lp = torch.empty_like(kept).scatter_(
+                1, order, torch.log(kept.clamp_min(1e-38)))
+        else:
+            k = int(top_num)
+            kth = torch.sort(lp, dim=1).values[:, -k][:, None]
+            lp = torch.where(lp >= kth, lp, NEG)
+    it = (lp + draw('gumbel', t, lp.shape)).argmax(1)
+    return it, lp.gather(1, it[:, None])[:, 0]
+
+
+# ---------------------------------------------------------------------------
+# sample (greedy / temperature / top-k / top-p / gumbel)
+# ---------------------------------------------------------------------------
+
+def sample(dm: DecodeModel, fc_feats, att_feats, att_masks, rng,
+           opt: Dict[str, Any], return_stats: bool = True):
+    """Returns (seq [B*n, L] int64, {'ent_sum', 'lp_sum'} [B*n]): the
+    entropy and chosen-logprob sums of the step distributions, carried,
+    stopping once every row has finished; or with ``return_stats=False``
+    (the JAX engine's default) (seq, seqLogprobs [B*n, L, V+1] float32, the
+    constrained step distributions, zeroed after each row's finish).  Beam
+    options route to ``sample_beam``, ``group_size > 1`` to
+    ``diverse_sample``.  ``rng``: the sampling noise (module doc)."""
+    sample_method = opt.get('sample_method', 'greedy') or 'greedy'
+    beam_size = _flag(opt, 'beam_size', 1)
+    if beam_size > 1 and sample_method in ('greedy', 'beam_search'):
+        seq, out, _ = sample_beam(dm, fc_feats, att_feats, att_masks, rng,
+                                  opt, want_logps=not return_stats)
+        return seq, out
+    if _flag(opt, 'group_size', 1) > 1:
+        return diverse_sample(dm, fc_feats, att_feats, att_masks, rng, opt)
+    temperature = float(opt.get('temperature', 1.0) or 1.0)
+    sample_n = _flag(opt, 'sample_n', 1)
+    output_logsoftmax = _flag(opt, 'output_logsoftmax', 1)
+    decoding_constraint = _flag(opt, 'decoding_constraint')
+    block_trigrams = _flag(opt, 'block_trigrams')
+    remove_bad_endings = _flag(opt, 'remove_bad_endings')
+    L = dm.seq_length
+    feats = dm.prepare(fc_feats, att_feats, att_masks, None)
+    if not dm.shared_beam_feats:
+        feats = repeat_tree(sample_n, feats)
+    N = fc_feats.shape[0] * sample_n
+    state = dm.init_state(N)
+    dev = att_feats.device if att_feats is not None else fc_feats.device
+    draw = _draw_fn(rng, dev)
+    # greedy stats need only argmax + two scalars per row: with no
+    # constraint in the way, the fused k = 1 epilogue gives exactly those
+    fused_greedy = (return_stats and dm.step_topk is not None
+                    and sample_method == 'greedy' and output_logsoftmax
+                    and not decoding_constraint and not block_trigrams
+                    and not remove_bad_endings)
+    it = torch.full((N,), dm.bos_idx, dtype=torch.long, device=dev)
+    unfinished = torch.ones(N, dtype=torch.bool, device=dev)
+    seq = torch.zeros(N, L, dtype=torch.long, device=dev)
+    ent_sum = torch.zeros(N, dtype=torch.float32, device=dev)
+    lp_sum = torch.zeros(N, dtype=torch.float32, device=dev)
+    tables = []
+    for t in range(L):
+        if fused_greedy:
+            # eval stats and the argmax are taken on the untempered
+            # log-softmax
+            tv, ti, _, en, state = dm.step_topk(it, feats, state, None, 1,
+                                                1.0, 0.0, -1, 0)
+            nxt, chosen = ti[:, 0], tv[:, 0]
+        else:
+            logprobs, state = dm.step(it, feats, state, None,
+                                      bool(output_logsoftmax),
+                                      uniform_t=True)
+            # it == seq[:, t-1] for t >= 1
+            logprobs = _apply_step_constraints(
+                logprobs, it, t > 0, dm, decoding_constraint,
+                remove_bad_endings)
+            if block_trigrams:
+                logprobs = logprobs + _trigram_penalty(logprobs, seq, t)
+            nxt, _ = sample_next_word(logprobs, sample_method, temperature,
+                                      draw, t)
+            if return_stats:
+                en = -(logprobs.exp() * logprobs).sum(-1)
+                chosen = logprobs.gather(1, nxt[:, None])[:, 0]
+        keep = unfinished if t else torch.ones_like(unfinished)
+        nxt = torch.where(keep, nxt, dm.pad_idx)
+        unfinished = keep & (nxt != dm.eos_idx)
+        seq[:, t] = nxt
+        it = nxt
+        if not return_stats:
+            tables.append(torch.where(keep[:, None], logprobs, 0.0))
+            continue
+        ent_sum += torch.where(keep, en, 0.0)
+        lp_sum += torch.where(keep, chosen, 0.0)
+        # EXACT early exit: once every row has finished, the remaining
+        # steps only write pads and gated-off stats (one host sync)
+        if not bool(unfinished.any()):
+            break
+    if return_stats:
+        return seq, {'ent_sum': ent_sum, 'lp_sum': lp_sum}
+    return seq, torch.stack(tables, 1)
+
+
+def scan_logprobs(dm: DecodeModel, fc_feats, att_feats, att_masks, gen_seq,
+                  generator: Optional[torch.Generator] = None,
+                  sample_n: int = 1, output_logsoftmax: int = 1):
+    """The per-step distributions [N, L, V+1] of the model fed ``gen_seq``
+    [N, L] (bos, then gen_seq[:, :-1]), zeroed after each row's finish as
+    ``sample`` stores them: step t is kept while no token before t was eos
+    or pad.  ``generator`` is the model's train switch: given, the steps
+    draw dropout from it (the caller builds the autograd graph)."""
+    L = dm.seq_length
+    feats = dm.prepare(fc_feats, att_feats, att_masks, generator)
+    if not dm.shared_beam_feats:
+        feats = repeat_tree(sample_n, feats)
+    N = fc_feats.shape[0] * sample_n
+    state = dm.init_state(N)
+    gen_seq = gen_seq.long()
+    inputs = torch.cat([torch.full_like(gen_seq[:, :1], dm.bos_idx),
+                        gen_seq[:, :-1]], 1)
+    outs = []
+    for t in range(L):
+        lp, state = dm.step(inputs[:, t], feats, state, generator,
+                            bool(output_logsoftmax), uniform_t=True)
+        outs.append(lp)
+    return torch.where(_keep_mask(gen_seq, dm)[..., None],
+                       torch.stack(outs, 1), 0.0)
+
+
+def _keep_mask(seqs, dm: DecodeModel):
+    """[N, L] bool: step t counts while no token before t is eos / pad."""
+    alive = (seqs[:, :-1] != dm.pad_idx) & (seqs[:, :-1] != dm.eos_idx)
+    keep = torch.cat([torch.ones_like(alive[:, :1]), alive], 1)
+    return torch.cumprod(keep.long(), 1).bool()
+
+
+# ---------------------------------------------------------------------------
+# beam search: one group, the table work fused at write time
+# ---------------------------------------------------------------------------
+
+def _gather(x, ix):
+    """take_along_axis(x, ix, axis=1) for [B, R(, ...)] tables."""
+    if x.dim() == 2:
+        return torch.gather(x, 1, ix)
+    return torch.gather(x, 1, ix[..., None].expand(-1, -1, x.shape[2]))
+
+
 def _beam_search_fast(dm: DecodeModel, init, init_state, feats_per_beam,
-                      rng, opt: Dict[str, Any]):
-    """Single-group beam search.
+                      opt: Dict[str, Any]):
+    """Single-group beam search without the scatter constraints.
 
     With ``dm.step_topk`` (fused): ``init`` = (tv0 [B, bdash], ti0,
     row_sum0 [B], ent0 [B]), the vocab epilogue of the bos step
@@ -230,7 +428,7 @@ def _beam_search_fast(dm: DecodeModel, init, init_state, feats_per_beam,
     'ent_sum', 'lp_sum' [B, 1, bdash]}, sorted descending by ``p``."""
     temperature, length_penalty, unk_bias, unk_idx = _beam_dynamic_setup(
         dm, opt)
-    bdash = int(opt.get('beam_size', 10))
+    bdash = _flag(opt, 'beam_size', 10)
     fused = dm.step_topk is not None
     use_anc = dm.beam_init is not None and dm.beam_reorder is not None
     step_bw = bdash if use_anc else 0
@@ -342,12 +540,12 @@ def _beam_search_fast(dm: DecodeModel, init, init_state, feats_per_beam,
         it = sel_ix.view(NBG)
         if fused:
             tv_c, ti_c, rs, en, state = dm.step_topk(
-                it, feats_per_beam, state, rng, bdash, temperature,
+                it, feats_per_beam, state, None, bdash, temperature,
                 unk_bias, unk_idx, step_bw)
             row_sum = rs.view(B, bdash)
             ent_row = en.view(B, bdash)
         else:
-            logits, state = dm.step(it, feats_per_beam, state, rng, False,
+            logits, state = dm.step(it, feats_per_beam, state, None, False,
                                     uniform_t=True, beam_width=step_bw)
             cand, row_sum, ent_row = _finish_table(
                 torch.log_softmax(logits / temperature, dim=-1), beam_sums,
@@ -370,43 +568,327 @@ def _finish_table(lsm, sums, unk_bias: float, unk_idx: int):
     return cand, row_sum.view(B, bdash), ent_row.view(B, bdash)
 
 
+# ---------------------------------------------------------------------------
+# beam search: the general body (diverse groups, constraints)
+# ---------------------------------------------------------------------------
+
+def beam_search(dm: DecodeModel, init_logprobs, init_state, feats_per_beam,
+                opt: Dict[str, Any]):
+    """Batched (diverse) beam search, the general body.
+
+    init_logprobs: [B, V+1] log-softmax of the bos step; init_state: the
+    state of batch B after it; feats_per_beam: the feats of B*G*bdash rows
+    (B*G blocks for a shared-feats model).  Returns the finished-beam pools
+    {'seq' [B, G, bdash, L], 'p', 'unaug_p', 'ent_sum', 'lp_sum' [B, G,
+    bdash]}, each group's sorted descending by ``p``.
+
+    Group g runs its local step t - g at global step t.  Within a step the
+    groups' table math runs one group after another (group g's diversity
+    penalty reads the tokens earlier groups chose at its local time, after
+    their update); the model step is batched over every group.  A group
+    outside its window [0, L-1] is frozen: its table work is skipped, its
+    rows are stepped with any token (the identity reorder and token 0) and
+    every state leaf is selected back.  The physical K/V caches that the
+    step writes in place are not: such a row writes at its frozen ``t``,
+    before its start the slot its first step overwrites, after its finish
+    slot L + 1, which no row reads (or no slot at all: the write is
+    dropped past the cache)."""
+    temperature, length_penalty, unk_bias, unk_idx = _beam_dynamic_setup(
+        dm, opt)
+    beam_size = _flag(opt, 'beam_size', 10)
+    G = _flag(opt, 'group_size', 1)
+    diversity_lambda = float(opt.get('diversity_lambda', 0.5))
+    decoding_constraint = _flag(opt, 'decoding_constraint')
+    remove_bad_endings = _flag(opt, 'remove_bad_endings')
+    bdash = beam_size // G
+    if bdash > MAX_K:
+        raise ValueError('beam search over %d beams a group: the selection '
+                         'kernel (ops.topk.topk_lastdim) takes k <= %d'
+                         % (bdash, MAX_K))
+    B, V1 = init_logprobs.shape
+    L = dm.seq_length
+    NBG = B * G * bdash
+    dev = init_logprobs.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    use_anc = dm.beam_init is not None and dm.beam_reorder is not None
+
+    state = repeat_tree(G * bdash, init_state)
+    if use_anc:
+        state = dm.beam_init(state, bdash)
+    # every (group, beam) lane starts from the bos distribution
+    tables = [init_logprobs.repeat_interleave(bdash, 0)] * G
+
+    def zeros():
+        return torch.zeros(B, bdash, **f32)
+
+    def negs():
+        return torch.full((B, bdash), NEG, **f32)
+
+    seqs = [torch.zeros(B, bdash, L, dtype=torch.long, device=dev)
+            for _ in range(G)]
+    ucum, sums, ent, lpc = ([zeros() for _ in range(G)] for _ in range(4))
+    pseq = [torch.zeros(B, bdash, L, dtype=torch.long, device=dev)
+            for _ in range(G)]
+    pp, pu = [negs() for _ in range(G)], [negs() for _ in range(G)]
+    pent, plpc = [zeros() for _ in range(G)], [zeros() for _ in range(G)]
+    lanes = torch.arange(bdash, device=dev)
+    identity = lanes[None].expand(B, bdash)
+    base = (torch.arange(B, device=dev)[:, None, None] * G
+            + torch.arange(G, device=dev)[None, :, None]) * bdash
+
+    for t in range(L + G - 1):
+        sel_list, beamix_list, active = [], [], []
+        for g in range(G):
+            lt = t - g
+            active.append(0 <= lt <= L - 1)
+            if not active[-1]:
+                sel_list.append(torch.zeros_like(identity))
+                beamix_list.append(identity)
+                continue
+            # ---- constraints ----
+            lp = _apply_step_constraints(
+                tables[g], seqs[g].view(B * bdash, L)[:, max(lt - 1, 0)],
+                lt > 0, dm, decoding_constraint, remove_bad_endings)
+            lp = _unk_adjust(lp, unk_bias, unk_idx)
+            unaug_lp = lp.view(B, bdash, V1)
+            # ---- diversity penalty: each token the earlier groups' beams
+            # chose at this local time, counted per image ----
+            lp3 = unaug_lp
+            if g > 0:
+                toks = torch.cat([seqs[i][:, :, lt] for i in range(g)], 1)
+                change = torch.zeros(B, V1, **f32).scatter_add_(
+                    1, toks, torch.ones(toks.shape, **f32))
+                lp3 = unaug_lp - diversity_lambda * change[:, None, :]
+            # ---- beam step ----
+            first_mask = torch.where((lt == 0) & (lanes > 0), NEG, 0.0)
+            candidates = (sums[g] + first_mask)[..., None] + lp3
+            ys, ix = topk_lastdim(candidates.view(B, bdash * V1), bdash)
+            beam_ix = ix // V1
+            sel_ix = ix % V1
+
+            new_seq = _gather(seqs[g], beam_ix)
+            new_seq[:, :, lt] = sel_ix
+            new_ucum = (_gather(ucum[g], beam_ix)
+                        + _gather(unaug_lp.sum(-1), beam_ix))
+            ent_row = -(unaug_lp.exp() * unaug_lp).sum(-1)
+            new_ent = _gather(ent[g], beam_ix) + _gather(ent_row, beam_ix)
+            chosen_lp = torch.gather(unaug_lp.view(B, bdash * V1), 1,
+                                     beam_ix * V1 + sel_ix)
+            new_lpc = _gather(lpc[g], beam_ix) + chosen_lp
+
+            # ---- finished-beam pool merge ----
+            just_ended = (sel_ix == dm.eos_idx) | (lt == L - 1)
+            cand_p = torch.where(just_ended, length_penalty(lt + 1, ys), NEG)
+            top_p, top_i = top_k(torch.cat([pp[g], cand_p], 1), bdash)
+            pp[g] = top_p
+            pu[g] = _gather(torch.cat([pu[g], new_ucum], 1), top_i)
+            pseq[g] = _gather(torch.cat([pseq[g], new_seq], 1), top_i)
+            pent[g] = _gather(torch.cat([pent[g], new_ent], 1), top_i)
+            plpc[g] = _gather(torch.cat([plpc[g], new_lpc], 1), top_i)
+            sums[g] = ys - 1000.0 * just_ended
+            seqs[g], ucum[g], ent[g], lpc[g] = (new_seq, new_ucum, new_ent,
+                                                new_lpc)
+            sel_list.append(sel_ix)
+            beamix_list.append(beam_ix)
+
+        if t == L + G - 2:
+            break          # the last step's model output is never read
+        # ---- the model step, batched over every group ----
+        state_ix = (base + torch.stack(beamix_list, 1)).view(-1)
+        it = torch.stack(sel_list, 1).view(NBG)
+        new_state = (dm.beam_reorder(state, state_ix) if use_anc
+                     else reorder_state(state, state_ix))
+        logits, stepped = dm.step(it, feats_per_beam, new_state, None, False,
+                                  uniform_t=(G == 1),
+                                  beam_width=bdash if use_anc else 0)
+        new_tables = torch.log_softmax(logits / temperature, dim=-1).view(
+            B, G, bdash * V1)
+        if all(active):
+            state = stepped
+        else:
+            act = torch.tensor(active, device=dev)
+            state = _where_tree(act[None, :, None].expand(B, G, bdash)
+                                .reshape(-1), stepped, state)
+        tables = [new_tables[:, g].reshape(B * bdash, V1) if active[g]
+                  else tables[g] for g in range(G)]
+
+    return {'seq': torch.stack(pseq, 1), 'p': torch.stack(pp, 1),
+            'unaug_p': torch.stack(pu, 1), 'ent_sum': torch.stack(pent, 1),
+            'lp_sum': torch.stack(plpc, 1)}
+
+
+def replay_beam_logps(dm: DecodeModel, feats, seqs, opt: Dict[str, Any]):
+    """The per-step constrained distributions [N, L, V+1] of given beam
+    winners ``seqs`` [N, L] (``feats`` of N rows, or N / n for a
+    shared-feats model): step 0 the bos step's log-softmax, later steps
+    ``log_softmax(logits / temperature)`` as the beam loop tempered them,
+    then the beam's constraint masks and UNK suppression; zero past each
+    winner's finish."""
+    temperature, _, unk_bias, unk_idx = _beam_dynamic_setup(dm, opt)
+    decoding_constraint = _flag(opt, 'decoding_constraint')
+    remove_bad_endings = _flag(opt, 'remove_bad_endings')
+    N, L = seqs.shape
+    state = dm.init_state(N)
+    inputs = torch.cat([torch.full_like(seqs[:, :1], dm.bos_idx),
+                        seqs[:, :-1]], 1)
+    outs = []
+    for t in range(L):
+        # the input token at step t is seq[t-1] (bos at t = 0)
+        it = inputs[:, t]
+        logits, state = dm.step(it, feats, state, None, False,
+                                uniform_t=True)
+        lp = torch.log_softmax(logits / temperature if t > 0 else logits,
+                               dim=-1)
+        lp = _apply_step_constraints(lp, it, t > 0, dm, decoding_constraint,
+                                     remove_bad_endings)
+        outs.append(_unk_adjust(lp, unk_bias, unk_idx))
+    return torch.where(_keep_mask(seqs, dm)[..., None], torch.stack(outs, 1),
+                       0.0)
+
+
 def sample_beam(dm: DecodeModel, fc_feats, att_feats, att_masks, rng,
                 opt: Dict[str, Any], want_logps: bool = False):
-    """Beam decode.  Returns (seq [B*sample_n, L], {'ent_sum', 'lp_sum'}
-    [B*sample_n], done) with ``done`` the pool of ``_beam_search_fast``."""
-    _check_slice(opt)
-    if want_logps:
-        raise NotImplementedError('want_logps=True (winner-logprob '
-                                  'replay): %s' % _ROADMAP)
-    bdash = int(opt.get('beam_size', 10))
-    sample_n = int(opt.get('sample_n', 1) or 1)
+    """Beam decode.  Returns (seq [B*sample_n, L], the winners' replayed
+    distributions [B*sample_n, L, V+1] with ``want_logps``, else their
+    carried {'ent_sum', 'lp_sum'} [B*sample_n], done) with ``done`` the
+    finished-beam pools [B, G, bdash, ...]; ``sample_n`` is 1 (the best
+    beam of group 0) or bdash (group 0's beams).  One group without the
+    scatter constraints takes ``_beam_search_fast`` (``_beam_general: 1``
+    forces the general body), the rest ``beam_search``.  Beam decoding
+    draws nothing: ``rng`` is unused."""
+    beam_size = _flag(opt, 'beam_size', 10)
+    group_size = _flag(opt, 'group_size', 1)
+    sample_n = _flag(opt, 'sample_n', 1)
+    bdash = beam_size // group_size
     if sample_n not in (1, bdash):
         raise ValueError('when beam search, sample_n == 1 or beam size')
+    fast = (group_size == 1 and not _flag(opt, 'decoding_constraint')
+            and not _flag(opt, 'remove_bad_endings')
+            and not _flag(opt, '_beam_general'))
     _, _, unk_bias, unk_idx = _beam_dynamic_setup(dm, opt)
     B = fc_feats.shape[0]
     L = dm.seq_length
 
-    feats = dm.prepare(fc_feats, att_feats, att_masks, rng)
-    state = dm.init_state(B, beam=True)
+    feats = dm.prepare(fc_feats, att_feats, att_masks, None)
+    # single-group beams only: staggered groups step rows at different t
+    state = dm.init_state(B, beam=(group_size == 1))
     it = torch.full((B,), dm.bos_idx, dtype=torch.long,
-                    device=att_feats.device)
+                    device=fc_feats.device)
     # the bos step's distribution is untempered (the reference applies the
     # temperature from the second step on)
-    if dm.step_topk is not None:
-        *init, state = dm.step_topk(it, feats, state, rng, bdash, 1.0,
+    if fast and dm.step_topk is not None:
+        *init, state = dm.step_topk(it, feats, state, None, bdash, 1.0,
                                     unk_bias, unk_idx, 0)
     else:
-        init, state = dm.step(it, feats, state, rng, True, uniform_t=True)
-    # beam lanes of one image share its feats row (shared_beam_feats)
-    feats_per_beam = feats if dm.shared_beam_feats else repeat_tree(
-        bdash, feats)
-    done = _beam_search_fast(dm, init, state, feats_per_beam, rng, opt)
-    if sample_n == 1:
-        seq = done['seq'][:, 0, 0]
-        stats = {'ent_sum': done['ent_sum'][:, 0, 0],
-                 'lp_sum': done['lp_sum'][:, 0, 0]}
+        init, state = dm.step(it, feats, state, None, True, uniform_t=True)
+    # the beam lanes of one (image, group) share its feats row
+    # (shared_beam_feats); by the effective beam count otherwise
+    feats_per_beam = repeat_tree(
+        group_size if dm.shared_beam_feats else group_size * bdash, feats)
+    if fast:
+        done = _beam_search_fast(dm, init, state, feats_per_beam, opt)
     else:
+        done = beam_search(dm, init, state, feats_per_beam, opt)
+
+    if sample_n == 1:
+        seq = done['seq'][:, 0, 0]                       # best of group 0
+        stats = {k: done[k][:, 0, 0] for k in ('ent_sum', 'lp_sum')}
+        replay_feats = feats
+    else:
+        # group 0's bdash beams
         seq = done['seq'][:, 0].reshape(B * sample_n, L)
-        stats = {'ent_sum': done['ent_sum'][:, 0].reshape(B * sample_n),
-                 'lp_sum': done['lp_sum'][:, 0].reshape(B * sample_n)}
-    return seq, stats, done
+        stats = {k: done[k][:, 0].reshape(B * sample_n)
+                 for k in ('ent_sum', 'lp_sum')}
+        replay_feats = (feats if dm.shared_beam_feats
+                        else repeat_tree(sample_n, feats))
+    if not want_logps:
+        return seq, stats, done
+    return seq, replay_beam_logps(dm, replay_feats, seq, opt), done
+
+
+# ---------------------------------------------------------------------------
+# diverse sampling (group-staggered sampling, not beam)
+# ---------------------------------------------------------------------------
+
+def diverse_sample(dm: DecodeModel, fc_feats, att_feats, att_masks, rng,
+                   opt: Dict[str, Any]):
+    """Returns (seq [B*G, L], the sampled tokens' logprobs [B*G, L]).
+
+    Groups are folded into the batch (row b*G + g) and staggered in time:
+    group g samples its local step t - g at global step t, so one batched
+    model call per global step serves every group, each row at its own
+    ``t``; a group outside its window is stepped and selected back.  The
+    diversity penalty is pooled over the batch: every token that any row
+    of an earlier group chose at this group's local time is penalized
+    once for every row, once for each such group.  Constraints and the
+    trigram block act at each group's local time; a row stops (pads) once
+    its previous token is eos or pad."""
+    sample_method = opt.get('sample_method', 'greedy') or 'greedy'
+    temperature = float(opt.get('temperature', 1.0) or 1.0)
+    G = _flag(opt, 'group_size', 1)
+    diversity_lambda = float(opt.get('diversity_lambda', 0.5))
+    decoding_constraint = _flag(opt, 'decoding_constraint')
+    block_trigrams = _flag(opt, 'block_trigrams')
+    remove_bad_endings = _flag(opt, 'remove_bad_endings')
+    B = fc_feats.shape[0]
+    L = dm.seq_length
+    V1 = dm.vocab_plus
+    dev = att_feats.device if att_feats is not None else fc_feats.device
+    draw = _draw_fn(rng, dev)
+
+    feats = dm.prepare(fc_feats, att_feats, att_masks, None)
+    feats_g = feats if dm.shared_beam_feats else repeat_tree(G, feats)
+    state = dm.init_state(B * G)
+    seq_tbl = torch.zeros(B, G, L, dtype=torch.long, device=dev)
+    lp_tbl = torch.zeros(B, G, L, dtype=torch.float32, device=dev)
+    it_tbl = torch.full((B, G), dm.bos_idx, dtype=torch.long, device=dev)
+
+    # group g is active for t in [g, L+g-1]: L+G-1 steps cover them all
+    for t in range(L + G - 1):
+        local_t = [t - g for g in range(G)]
+        active = [0 <= x <= L - 1 for x in local_t]
+        # a group outside its window reads some column: its result is
+        # selected away
+        lt = [min(max(x, 0), L - 1) for x in local_t]
+        logits, new_state = dm.step(it_tbl.reshape(B * G), feats_g, state,
+                                    None, False, uniform_t=False)
+        lp4 = torch.log_softmax(logits / temperature, dim=-1).view(B, G, V1)
+
+        # diversity: n_chosen[gt, v] = the earlier groups gs < gt of which
+        # some row chose v at gt's local time
+        n_chosen = torch.zeros(G, V1, dtype=torch.float32, device=dev)
+        for gt in range(1, G):
+            for gs in range(gt):
+                chosen = torch.zeros(V1, dtype=torch.bool, device=dev)
+                chosen[seq_tbl[:, gs, lt[gt]]] = True
+                n_chosen[gt] += chosen
+        lp4 = lp4 - diversity_lambda * n_chosen[None]
+
+        lt_t = torch.tensor(lt, device=dev)
+        prev_tok = torch.gather(seq_tbl, 2, (lt_t - 1).clamp_min(0)
+                                .view(1, G, 1).expand(B, G, 1))[..., 0]
+        has_prev = torch.tensor([x > 0 for x in local_t], device=dev)
+        lp = _apply_step_constraints(
+            lp4.reshape(B * G, V1), prev_tok.reshape(-1),
+            has_prev[None].expand(B, G).reshape(-1), dm,
+            decoding_constraint, remove_bad_endings)
+        if block_trigrams:
+            lp = lp + _trigram_penalty(lp, seq_tbl.view(B * G, L),
+                                       lt_t[None].expand(B, G).reshape(-1))
+        it, sample_lp = sample_next_word(lp, sample_method, 1.0, draw, t)
+        it, sample_lp = it.view(B, G), sample_lp.view(B, G)
+
+        # unfinished recomputed from the sequence
+        first = torch.tensor([x == 0 for x in local_t], device=dev)[None]
+        unfinished = (prev_tok != dm.pad_idx) & (prev_tok != dm.eos_idx)
+        it = torch.where(first | unfinished, it, dm.pad_idx)
+
+        act = torch.tensor(active, device=dev)
+        for g in range(G):
+            if active[g]:
+                seq_tbl[:, g, lt[g]] = it[:, g]
+                lp_tbl[:, g, lt[g]] = sample_lp[:, g]
+        it_tbl = torch.where(act[None], it, it_tbl)
+        state = (new_state if all(active) else _where_tree(
+            act[None].expand(B, G).reshape(-1), new_state, state))
+    return seq_tbl.view(B * G, L), lp_tbl.view(B * G, L)

@@ -3,9 +3,11 @@
 Port of ``captioning_tpu/models/api.py``: ``setup`` builds the
 transformer or one of the RNN captioners of ``harness.MODELS`` (other
 model keys raise), ``bind`` returns the ``DecodeModel`` the engine drives,
-``sample_beam``/``sample_stats``/``forward_tf`` are the entry points
-``eval_split`` calls, and ``forward_tf(train=True)`` is the teacher-forced
-pass the XE trainer differentiates (``modules.trainer``).  Parameters live
+``sample_beam`` / ``sample_stats`` / ``sample`` / ``forward_tf`` are the
+entry points ``eval_split`` and ``eval_split_n`` call, ``forward_tf(train=
+True)`` is the teacher-forced pass the XE trainer differentiates
+(``modules.trainer``) and ``scan_logprobs`` the recompute over a sampled
+sequence.  Parameters live
 in ``self.module`` on ``self.device``; there is no jit cache, PyTorch runs
 eagerly.
 """
@@ -25,11 +27,16 @@ from .harness import AttCaptioner
 from .transformer import TransformerCaptioner
 
 
-def _unk_index(vocab: Optional[Dict[str, str]], vocab_size: int):
-    """The UNK id: ``vocab[str(vocab_size)] == 'UNK'`` in the COCO vocab."""
-    if vocab is not None and vocab.get(str(vocab_size)) == 'UNK':
-        return vocab_size
-    return None
+def _vocab_indices(vocab: Optional[Dict[str, str]], vocab_size: int):
+    """The bad-ending ids (the words of ``harness.BAD_ENDINGS``, which
+    ``remove_bad_endings`` bans before EOS) and the UNK id
+    (``vocab[str(vocab_size)] == 'UNK'`` in the COCO vocab)."""
+    if vocab is None:
+        return (), None
+    bad_ix = tuple(int(k) for k, v in vocab.items()
+                   if v in harness.BAD_ENDINGS)
+    unk_idx = vocab_size if vocab.get(str(vocab_size)) == 'UNK' else None
+    return bad_ix, unk_idx
 
 
 def _is_cache(name: str) -> bool:
@@ -57,7 +64,8 @@ class Captioner:
                 'see ROADMAP.md' % (cfg.caption_model,
                                     ', '.join(harness.MODELS)))
         self.cfg = cfg
-        self.unk_idx = _unk_index(vocab, cfg.vocab_size)
+        self.bad_endings_ix, self.unk_idx = _vocab_indices(vocab,
+                                                           cfg.vocab_size)
         if self.unk_idx is None:
             self.unk_idx = cfg.unk_idx
         self.device = torch.device(device)
@@ -116,23 +124,25 @@ class Captioner:
         module = self.module
         cfg = self.cfg
 
+        # the rng of prepare / step is the train switch: a generator draws
+        # dropout from it (and updates the BatchNorms' running statistics),
+        # None is eval
         def prepare(fc, att, att_masks, rng):
-            return module.prepare_feature(fc, att, att_masks)
+            return module.prepare_feature(fc, att, att_masks, rng)
 
         def init_state(batch, beam=False):
-            return module.init_state(batch)
+            return module.init_state(batch, beam=beam)
 
         def step(it, feats, state, rng, logsoftmax=True, uniform_t=False,
                  beam_width=0):
-            # eval steps draw no randomness: the rng is accepted and unused
             return module.step(it, feats, state, logsoftmax, uniform_t,
-                               beam_width)
+                               beam_width, gen=rng)
 
         common = dict(
             prepare=prepare, init_state=init_state, step=step,
             seq_length=cfg.seq_length, vocab_plus=cfg.vocab_size + 1,
             bos_idx=cfg.bos_idx, eos_idx=cfg.eos_idx, pad_idx=cfg.pad_idx,
-            unk_idx=self.unk_idx)
+            unk_idx=self.unk_idx, bad_endings_ix=self.bad_endings_ix)
         if self.module_cls is AttCaptioner:
             # the attention heads of the shared-feats models read one feats
             # row per beam block, the other RNN models get one per lane; the
@@ -197,16 +207,51 @@ class Captioner:
     @torch.inference_mode()
     def sample_beam(self, fc_feats, att_feats, att_masks, rng,
                     opt: Dict[str, Any], want_logps: bool = False):
-        """(seq, {'ent_sum', 'lp_sum'}, done) — see decoding.sample_beam."""
+        """(seq, {'ent_sum', 'lp_sum'} or with ``want_logps`` the winners'
+        replayed distributions [N, L, V+1], done) — see
+        decoding.sample_beam."""
         return decoding.sample_beam(self.bind(), fc_feats, att_feats,
                                     att_masks, rng, opt, want_logps)
 
     @torch.inference_mode()
+    def sample(self, fc_feats, att_feats, att_masks, rng,
+               opt: Dict[str, Any]):
+        """(seq, the per-step distributions [N, L, V+1]; [N, L] sampled
+        logprobs for diverse groups) — see decoding.sample.  ``rng``: a
+        ``torch.Generator`` on ``self.device`` for the sampling draws (or
+        a ``draw`` callable, or None for seed 0)."""
+        return decoding.sample(self.bind(), fc_feats, att_feats, att_masks,
+                               rng, opt, return_stats=False)
+
+    @torch.inference_mode()
     def sample_stats(self, fc_feats, att_feats, att_masks, rng,
                      opt: Dict[str, Any]):
-        """(seq, {'ent_sum', 'lp_sum'}) for greedy decode."""
+        """(seq, {'ent_sum', 'lp_sum'}) for the sample family (greedy,
+        sample, gumbel, top-k, top-p): the sums carried, with the exact
+        early exit.  ``rng`` as in ``sample``."""
         return decoding.sample(self.bind(), fc_feats, att_feats, att_masks,
                                rng, opt, return_stats=True)
+
+    def scan_logprobs(self, fc_feats, att_feats, att_masks, gen_seq,
+                      generator: Optional[torch.Generator] = None,
+                      sample_n: int = 1):
+        """The per-step distributions [N, L, V+1] of ``gen_seq`` [N, L]
+        recomputed (decoding.scan_logprobs).  The generator is the train
+        switch, as in ``forward_tf``: None runs under inference mode; a
+        generator (on ``self.device``) builds the autograd graph with
+        dropout drawn from it."""
+        dm = self.bind()
+        if generator is None:
+            with torch.inference_mode():
+                return decoding.scan_logprobs(dm, fc_feats, att_feats,
+                                              att_masks, gen_seq, None,
+                                              sample_n)
+        with torch.enable_grad():
+            # a sequence sampled under inference mode is copied into a
+            # tensor that autograd may save
+            return decoding.scan_logprobs(dm, fc_feats, att_feats, att_masks,
+                                          gen_seq.clone(), generator,
+                                          sample_n)
 
 
 def setup(opt, vocab: Optional[Dict[str, str]] = None,

@@ -52,6 +52,10 @@ from .config import ModelConfig
 from .layers import (Embedding, MaskedBatchNorm, MLPEmbed, additive_attention,
                      dropout, init_dense, linear, uniform_)
 
+# words banned from preceding EOS by remove_bad_endings (reference
+# AttModel.py:29-30, the JAX harness's BAD_ENDINGS)
+BAD_ENDINGS = ['a', 'an', 'the', 'in', 'for', 'at', 'of', 'with', 'before',
+               'after', 'on', 'upon', 'near', 'to', 'is', 'are', 'am']
 # model keys served by this module; 'topdown' is UpDown
 MODELS = ('updown', 'topdown', 'att2in2', 'att2all2', 'stackatt',
           'denseatt', 'adaatt', 'adaattmo', 'newfc', 'fc', 'language_model')
@@ -345,10 +349,11 @@ class FCCore(nn.Module):
     """NewFC / FC / LM: one maxout LSTM whose state is seeded with the image
     embedding at the first step (reference AttModel.py:904-968,
     FCModel.py:79-115).  The JAX core runs the seeding cell every step and
-    selects it per row where ``t == 0``; here every row shares the host
-    int ``t``, so the seeding cell runs once, at ``t == 0``: the same
-    values.  Its output is never read, so it takes no dropout mask (the
-    JAX cell draws one and drops it)."""
+    selects it per row where ``t == 0``.  Here, where every row shares the
+    host int ``t``, the seeding cell runs once, at ``t == 0``: the same
+    values; a per-row ``t`` (staggered diverse groups) runs it every step
+    and selects it per row, as the JAX core.  Its output is never read, so
+    it takes no dropout mask (the JAX cell draws one and drops it)."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -357,9 +362,15 @@ class FCCore(nn.Module):
 
     def forward(self, xt, feats, state, gen=None):
         h, c = state['h'][:, -1], state['c'][:, -1]
-        if state['t'] == 0:
-            h, c = self.lstm(feats['fc_feats'], torch.zeros_like(h),
-                             torch.zeros_like(c))
+        t = state['t']
+        if torch.is_tensor(t) or t == 0:
+            h_fc, c_fc = self.lstm(feats['fc_feats'], torch.zeros_like(h),
+                                   torch.zeros_like(c))
+            if torch.is_tensor(t):
+                first = (t == 0)[:, None]
+                h_fc = torch.where(first, h_fc, h)
+                c_fc = torch.where(first, c_fc, c)
+            h, c = h_fc, c_fc
         next_h, next_c = self.lstm(xt, h, c)
         return (dropout(next_h, self.drop, gen),
                 dict(state, h=next_h[:, None], c=next_c[:, None]))
@@ -491,10 +502,12 @@ class AttCaptioner(nn.Module):
                 'p_att_feats': linear(x, self.ctx2att),
                 'att_masks': att_masks}
 
-    def init_state(self, batch_size: int) -> Dict:
+    def init_state(self, batch_size: int, beam: bool = False) -> Dict:
         """h / c [N, L, rnn_size] in the compute dtype, and the step ``t``
-        as a Python int, shared by every row (FCCore seeds its state at
-        ``t == 0``; the other cores are positionless)."""
+        as a Python int, shared by every row, until a per-row step makes it
+        a [N] tensor (FCCore seeds its state at ``t == 0``; the other cores
+        are positionless).  ``beam`` is the engine's layout hint for
+        KV-cached models."""
         cfg = self.cfg
         shape = (batch_size, state_num_layers(cfg), cfg.rnn_size)
         dev = self.logit.weight.device
@@ -511,10 +524,16 @@ class AttCaptioner(nn.Module):
         per block of N // nb query rows (block-shared beam lanes or
         seq_per_img captions): the attention heads read them shared, and
         only fc_feats, which the cores consume per row, is repeated here.
-        The other models get one feats row per query row.  ``uniform_t``
-        and ``beam_width`` are layout hints of KV-cached models, unused by
-        an RNN state.  ``gen`` is train mode (dropout drawn from it)."""
+        The other models get one feats row per query row.
+        ``uniform_t=False`` carries ``t`` per row (a [N] tensor: FCCore
+        seeds each row at its own first step); ``beam_width`` is a layout
+        hint of KV-cached models, unused by an RNN state.  ``gen`` is train
+        mode (dropout drawn from it)."""
         N = it.shape[0]
+        if not uniform_t and not torch.is_tensor(state['t']):
+            state = dict(state, t=torch.full((N,), state['t'],
+                                             dtype=torch.long,
+                                             device=it.device))
         af, fc = feats['att_feats'], feats['fc_feats']
         if af is not None and af.shape[0] != N and fc.shape[0] != N:
             feats = dict(feats, fc_feats=fc.repeat_interleave(

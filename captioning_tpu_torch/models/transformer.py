@@ -20,15 +20,20 @@ params at every use, LayerNorm params stay float32).  The self-attention of
 every decode step goes through ``ops.beam_attend.attend_write_merged`` (a
 CUDA kernel for CUDA tensors, its plain twin for CPU tensors); the vocab
 epilogue on ``step(return_hidden=True)`` is ``models.api``'s
-``step_topk``.
+``step_topk``.  A step at per-row positions (``uniform_t=False``: the
+staggered groups of diverse decoding) and a step in train mode go the
+plain way, as the JAX module takes them on every backend: each row's
+positional row, its K/V written at its own slot, the ancestry attend masked
+per row (``_attend_rows``).
 
 ``forward_tf`` and ``prepare_feature`` also run in train mode, given a
 generator ``gen`` (None is eval): dropout at the JAX sites (the att embed
 at ``drop_prob_lm``; at ``dropout`` the attention probabilities, each
 residual branch, the feed-forward's inner activation and the embedding
 plus positional encoding), drawn from ``gen``, and the BatchNorm's batch
-statistics.  The decode step is eval only; per-row ``t`` for diverse beam
-is later work, see ROADMAP.md.
+statistics; so does the decode step (the recompute of
+``engine.decoding.scan_logprobs``), with the attention dropout of the
+folded cross-attention as the JAX module draws it.
 """
 
 from __future__ import annotations
@@ -99,6 +104,41 @@ def _attend(q, k, v, mask, p: float = 0.0, gen=None):
     return dropout(_softmax_f32(scores, q.dtype), p, gen) @ v
 
 
+def _attend_rows(q, k, v, anc, time_mask, bw: int, h: int, p: float = 0.0,
+                 gen=None):
+    """One decode step's self-attention over merged-lane caches, rows at
+    their own positions (the JAX ``_attend_merged_eval``).
+
+    q: [N, D]; k / v: [N, Tp, D]; time_mask: [N, Tp] (the valid past
+    positions of each row); with ``bw``, ``anc`` [N, Tp] maps each row's
+    past positions to the sibling slot (in its block of ``bw`` rows) that
+    holds them: the scores run over every sibling slot and the ancestor's
+    is selected by an exact mask.  Returns the merged-head contexts [N, D];
+    the probabilities take dropout p in train mode."""
+    N, T, D = k.shape
+    dk = D // h
+    scale = _sqrt_in(dk, q.dtype)
+    if bw:
+        nb = N // bw
+        q4 = q.reshape(nb, bw, h, dk)
+        k5 = k.reshape(nb, bw, T, h, dk)
+        v5 = v.reshape(nb, bw, T, h, dk)
+        scores = torch.einsum('bqhd,bsthd->bqhst', q4, k5) / scale
+        sel = torch.nn.functional.one_hot(anc.reshape(nb, bw, T).long(),
+                                          bw).bool()           # [b,q,t,s]
+        allowed = sel.transpose(-1, -2) & time_mask.reshape(nb, bw, 1, T)
+        scores = scores.masked_fill(~allowed[:, :, None], _NEG_INF)
+        pr = _softmax_f32(scores.reshape(nb, bw, h, bw * T), q.dtype)
+        pr = dropout(pr, p, gen).reshape(nb, bw, h, bw, T)
+        return torch.einsum('bqhst,bsthd->bqhd', pr, v5).reshape(N, D)
+    scores = torch.einsum('bhd,bthd->bht', q.reshape(N, h, dk),
+                          k.reshape(N, T, h, dk)) / scale
+    scores = scores.masked_fill(~time_mask[:, None, :], _NEG_INF)
+    pr = dropout(_softmax_f32(scores, q.dtype), p, gen)
+    return torch.einsum('bht,bthd->bhd', pr,
+                        v.reshape(N, T, h, dk)).reshape(N, D)
+
+
 def _xavier_(w: torch.Tensor, fan_in: int, fan_out: int,
              generator: torch.Generator):
     uniform_(w, math.sqrt(6.0 / (fan_in + fan_out)), generator)
@@ -144,12 +184,15 @@ class DecoderLayer(nn.Module):
         self.norm1, self.norm2, self.norm3 = (RefLayerNorm(D)
                                               for _ in range(3))
 
-    def lazy_cross(self, y, mem, att_masks, h: int):
+    def lazy_cross(self, y, mem, att_masks, h: int, p: float = 0.0,
+                   gen=None):
         """Decode-step cross-attention over the raw encoder memory, with
         the K/V projections folded around the attention.
 
         y: [B, D] with B = nb * bw (bw lanes of a beam block share one
-        memory row); mem: [nb, M, D]; att_masks: [nb, M] or None."""
+        memory row); mem: [nb, M, D]; att_masks: [nb, M] or None.  In train
+        mode the probabilities take dropout p, and the folded V bias is
+        weighted by their dropped sums, as the JAX module computes it."""
         B, D = y.shape
         dk = D // h
         nb = mem.shape[0]
@@ -161,10 +204,15 @@ class DecoderLayer(nn.Module):
                   / _sqrt_in(dk, q.dtype))
         if att_masks is not None:
             scores = scores.masked_fill(att_masks[:, None, :] == 0, _NEG_INF)
-        ctx = _softmax_f32(scores, q.dtype) @ mem          # [nb, bw*h, D]
+        pr = dropout(_softmax_f32(scores, q.dtype), p, gen)
+        ctx = pr @ mem                                      # [nb, bw*h, D]
         wv = self.c_wv.weight.to(mem.dtype).view(h, dk, D)
         out = torch.einsum('bhd,hkd->bhk', ctx.reshape(B, h, D), wv)
-        out = out + self.c_wv.bias.to(mem.dtype).view(1, h, dk)
+        bv = self.c_wv.bias.to(mem.dtype).view(1, h, dk)
+        if gen is not None and p > 0:
+            out = out + bv * pr.sum(-1).reshape(B, h, 1)
+        else:
+            out = out + bv
         return linear(out.reshape(B, D), self.c_wo)
 
 
@@ -239,9 +287,11 @@ class TransformerCaptioner(nn.Module):
         return {'memory': self.encode(att_feats, att_masks, gen),
                 'att_masks': att_masks}
 
-    def init_state(self, batch_size: int) -> Dict:
-        """Per-layer merged-lane caches [N, Tp, D] and the uniform step
-        ``t`` as a Python int (the host decode loop owns it)."""
+    def init_state(self, batch_size: int, beam: bool = False) -> Dict:
+        """Per-layer merged-lane caches [N, Tp, D] and the step ``t`` as a
+        Python int (the host decode loop owns it; a per-row step makes it a
+        [N] tensor).  ``beam`` (single-group beam search) is the JAX
+        module's layout hint: one layout serves every route here."""
         cfg = self.cfg
         Tp = -(-(cfg.seq_length + 1) // 8) * 8
         dev = self.pe.device
@@ -255,18 +305,19 @@ class TransformerCaptioner(nn.Module):
     # -- decode step -----------------------------------------------------------
     def step(self, it, feats, state, logsoftmax: bool = True,
              uniform_t: bool = True, beam_width: int = 0,
-             return_hidden: bool = False):
+             return_hidden: bool = False, gen=None):
         """One cached decoder step at the uniform position ``state['t']``.
 
         The per-layer caches (and ``state['anc']``) are updated IN PLACE;
         the returned state is a new dict over the same buffers with t + 1.
         ``beam_width > 0`` attends through ``state['anc']`` (rows grouped
         in blocks of ``beam_width`` physical slots); 0 is plain decoding.
+        ``uniform_t=False`` (rows at their own ``t``) and train mode
+        (``gen``, dropout drawn from it) take ``_step_rows``.
         """
-        if not uniform_t:
-            raise NotImplementedError(
-                'per-row t (diverse beam groups) is not ported yet; see '
-                'ROADMAP.md, Queue A')
+        if gen is not None or not uniform_t:
+            return self._step_rows(it, feats, state, logsoftmax, beam_width,
+                                   return_hidden, gen)
         cfg = self.cfg
         h, dt, D = cfg.num_att_heads, cfg.dtype, cfg.d_model
         t0 = int(state['t'])
@@ -292,13 +343,67 @@ class TransformerCaptioner(nn.Module):
             x = x + layer.lazy_cross(layer.norm2(x), mem, am, h)
             x = x + linear(torch.relu(linear(layer.norm3(x), layer.w1)),
                            layer.w2)
+        return self._logits(x, new_state, logsoftmax, return_hidden)
+
+    def _logits(self, x, state, logsoftmax: bool, return_hidden: bool):
         x = self.dec_final_norm(x)
         if return_hidden:
-            return x, new_state
+            return x, state
         logits = linear(x, self.generator).float()
         if logsoftmax:
-            return torch.log_softmax(logits, dim=-1), new_state
-        return logits, new_state
+            return torch.log_softmax(logits, dim=-1), state
+        return logits, state
+
+    def _step_rows(self, it, feats, state, logsoftmax: bool,
+                   beam_width: int, return_hidden: bool, gen=None):
+        """The plain step: each row at its own ``state['t']`` (an int or a
+        [N] tensor), in eval or in train mode (``gen``).  Eval writes the
+        caches in place; train writes new ones (the returned state holds
+        them), so the graph keeps every step's entries.  A row past the
+        cache (a diverse group frozen after its finish) writes nothing,
+        as the JAX scatter drops an update out of bounds."""
+        cfg = self.cfg
+        h, dt, D, p = cfg.num_att_heads, cfg.dtype, cfg.d_model, cfg.dropout
+        B = it.shape[0]
+        Tp = state['k0'].shape[1]
+        t = state['t']
+        t_rows = (t if torch.is_tensor(t) else
+                  torch.full((B,), t, dtype=torch.long, device=it.device))
+        x = self.tgt_embed[it].to(dt) * _sqrt_in(D, dt)
+        x = x + self.pe[t_rows.clamp(max=self.pe.shape[0] - 1)].to(dt)
+        x = dropout(x, p, gen)
+        new_state = dict(state, t=t_rows + 1)
+        ok = t_rows < Tp
+        rows = torch.arange(B, device=it.device)[ok]
+        slots = t_rows[ok]
+        time_mask = (torch.arange(Tp, device=it.device)[None]
+                     <= t_rows[:, None])
+        anc = None
+        if beam_width:
+            # this step's entry lives in the row's own slot
+            anc = state['anc'].index_put(
+                (rows, slots), (rows % beam_width).to(state['anc'].dtype))
+            new_state['anc'] = anc
+        mem, am = feats['memory'], feats['att_masks']
+        for i, layer in enumerate(self.dec):
+            y = layer.norm1(x)
+            k_new, v_new = linear(y, layer.s_wk), linear(y, layer.s_wv)
+            kc, vc = state['k%d' % i], state['v%d' % i]
+            if gen is None:
+                kc.index_put_((rows, slots), k_new[ok])
+                vc.index_put_((rows, slots), v_new[ok])
+            else:
+                kc = kc.index_put((rows, slots), k_new[ok])
+                vc = vc.index_put((rows, slots), v_new[ok])
+                new_state['k%d' % i], new_state['v%d' % i] = kc, vc
+            ctx = _attend_rows(linear(y, layer.s_wq), kc, vc, anc, time_mask,
+                               beam_width, h, p, gen)
+            x = x + dropout(linear(ctx, layer.s_wo), p, gen)
+            x = x + dropout(layer.lazy_cross(layer.norm2(x), mem, am, h, p,
+                                             gen), p, gen)
+            x = x + dropout(linear(dropout(torch.relu(
+                linear(layer.norm3(x), layer.w1)), p, gen), layer.w2), p, gen)
+        return self._logits(x, new_state, logsoftmax, return_hidden)
 
     # -- teacher forcing ---------------------------------------------------------
     def forward_tf(self, fc_feats, att_feats, seq, att_masks, gen=None,

@@ -102,10 +102,10 @@ def replay_ms(fn, iters=20):
     return start.elapsed_time(end) / iters
 
 
-def capture_table(cap, fc, att, am, step=CAPTURE_STEP):
-    """The [B, 5 V1] candidate table that the plain beam route hands to
-    ``topk_lastdim`` at loop step ``step`` of one beam-5 decode of
-    ``cap`` (a copy)."""
+def capture_table(cap, fc, att, am, step=CAPTURE_STEP, mode='beam5'):
+    """The [B, 5 V1] candidate table that the plain beam route (or the
+    general body, mode 'general5') hands to ``topk_lastdim`` at loop step
+    ``step`` of one beam-5 decode of ``cap`` (a copy)."""
     from captioning_tpu_torch.engine import decoding
     from captioning_tpu_torch.tools import profile_decode as pd
     real, seen = decoding.topk_lastdim, []
@@ -118,7 +118,7 @@ def capture_table(cap, fc, att, am, step=CAPTURE_STEP):
         return real(x, k)
     decoding.topk_lastdim = keep
     try:
-        pd.decode(cap, 'beam5', fc, att, am)
+        pd.decode(cap, mode, fc, att, am)
     finally:
         decoding.topk_lastdim = real
     return seen[step]

@@ -3,15 +3,18 @@
 take the device time.
 
     python -m captioning_tpu_torch.tools.profile_decode \\
-        [--model transformer|updown|stackatt|newfc] [--mode beam5|greedy]
+        [--model transformer|updown|stackatt|newfc] [--mode beam5|greedy|...]
 
 The model is built at the flagship widths (``MODELS``: the transformer of
 ``configs/transformer/transformer.yml``, UpDown of
 ``configs/updown/updown.yml``, StackAtt at the ``opts.py`` widths, NewFC
 of ``configs/fc.yml``; COCO vocab 9487 + 1, 36 x 2048 features, max
 length 20, bf16, B = 1024) with random weights from a seed, as
-``chip_smoke.py`` builds it.  One warm-up batch, 3 unprofiled batches
-(host clock ending in a synchronize), then one profiled batch.  Device
+``chip_smoke.py`` builds it, and decodes by one of ``MODES`` (beam 5 and
+greedy, and phase 10's: the constrained general beam body, diverse beam,
+sample_n 5 by four methods, the replay, diverse greedy).  One warm-up
+batch, 3 unprofiled batches (host clock ending in a synchronize), then one
+profiled batch.  Device
 busy is the sum of the self device time of the profiler's device events
 (each kernel once); idle share = 1 - busy / the profiled batch's wall.
 The profiler slows a host-bound decode, so both walls are printed, and
@@ -47,6 +50,30 @@ MODELS = {
 }
 BEAM = {'beam_size': 5, 'sample_n': 1, 'group_size': 1, 'suppress_UNK': 1}
 GREEDY = {'sample_method': 'greedy', 'beam_size': 1, 'sample_n': 1}
+DBS = {'beam_size': 6, 'group_size': 3, 'diversity_lambda': 0.5,
+       'sample_n': 1, 'suppress_UNK': 1}
+# mode -> (entry point, options, captions an image): the eval decodes
+# (beam 5, greedy) and the rest of the engine (the general beam body with
+# the constraints, diverse beam, sample_n 5 by four methods, the replay,
+# diverse greedy in 5 groups)
+MODES = {
+    'beam5': ('beam', BEAM, 1),
+    'greedy': ('stats', GREEDY, 1),
+    'general5': ('beam', dict(BEAM, decoding_constraint=1,
+                              remove_bad_endings=1), 1),
+    'dbs6g3': ('beam', DBS, 1),
+    'sample5': ('sample', {'sample_method': 'sample', 'sample_n': 5,
+                           'beam_size': 1}, 5),
+    'top3x5': ('sample', {'sample_method': 'top3', 'sample_n': 5,
+                          'beam_size': 1}, 5),
+    'top0.9x5': ('sample', {'sample_method': 'top0.9', 'sample_n': 5,
+                            'beam_size': 1}, 5),
+    'gumbel5': ('sample', {'sample_method': 'gumbel', 'sample_n': 5,
+                           'beam_size': 1}, 5),
+    'replay5': ('replay', BEAM, 1),
+    'dgreedy5': ('sample', {'sample_method': 'greedy', 'group_size': 5,
+                            'diversity_lambda': 0.5, 'beam_size': 1}, 5),
+}
 
 
 def make_captioner(model: str, dtype_name: str, device: str, seed: int = 0):
@@ -54,11 +81,15 @@ def make_captioner(model: str, dtype_name: str, device: str, seed: int = 0):
     own init with a seeded generator; the COCO vocab's last entry is
     UNK."""
     from ..models.api import setup
+    from ..models.harness import BAD_ENDINGS
     opt = SimpleNamespace(caption_model=model, vocab_size=V,
                           fc_feat_size=FEAT, att_feat_size=FEAT,
                           max_length=20, compute_dtype=dtype_name,
                           **MODELS[model])
-    vocab = {str(i): 'w%d' % i for i in range(1, V + 1)}
+    # every fourth word a function word (remove_bad_endings bans them
+    # before EOS)
+    vocab = {str(i): BAD_ENDINGS[i // 4 % len(BAD_ENDINGS)] if i % 4 == 0
+             else 'w%d' % i for i in range(1, V + 1)}
     vocab[str(V)] = 'UNK'
     return setup(opt, vocab, device).init_params(
         torch.Generator().manual_seed(seed))
@@ -72,18 +103,36 @@ def features(B: int, device: str, seed: int):
     return att.mean(1), att, torch.ones(B, REGIONS, device=device)
 
 
-def decode(cap, mode: str, fc, att, am):
-    if mode == 'beam5':
-        seq, stats, _ = cap.sample_beam(fc, att, am, None, BEAM)
+def decode(cap, mode: str, fc, att, am, rng=None):
+    """(seq, {'ent_sum', 'lp_sum'}) of one ``MODES`` decode through the
+    entry point a user calls; the table modes' sums are taken from the
+    tables (a diverse sample's from its sampled logprobs, entropy 0, as
+    ``eval_split`` takes them).  ``rng``: the sampling noise (a generator
+    on the device, a ``draw`` callable, or None for seed 0)."""
+    kind, opt, _ = MODES[mode]
+    if kind == 'beam':
+        seq, stats, _ = cap.sample_beam(fc, att, am, rng, opt)
+        return seq, stats
+    if kind == 'stats':
+        return cap.sample_stats(fc, att, am, rng, opt)
+    if kind == 'replay':
+        seq, lp, _ = cap.sample_beam(fc, att, am, rng, opt, want_logps=True)
     else:
-        seq, stats = cap.sample_stats(fc, att, am, None, GREEDY)
-    return seq, stats
+        seq, lp = cap.sample(fc, att, am, rng, opt)
+    if lp.dim() == 3:
+        return seq, {'ent_sum': -(lp.exp() * lp).sum((1, 2)),
+                     'lp_sum': lp.gather(2, seq[..., None]).sum((1, 2))}
+    # a step counts while no earlier token ended the row
+    keep = torch.cat([torch.ones_like(seq[:, :1]),
+                      (seq[:, :-1] > 0).long().cumprod(1)], 1).bool()
+    return seq, {'ent_sum': torch.zeros_like(lp[:, 0]),
+                 'lp_sum': torch.where(keep, lp, 0.0).sum(1)}
 
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     p.add_argument('--model', default='transformer', choices=sorted(MODELS))
-    p.add_argument('--mode', default='beam5', choices=('beam5', 'greedy'))
+    p.add_argument('--mode', default='beam5', choices=sorted(MODES))
     a = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit('profile_decode: needs a CUDA device')

@@ -2,12 +2,14 @@
 ``captioning_tpu/utils/eval_utils.py`` for one device).
 
 ``eval_split`` walks a split, takes the teacher-forced val loss where the
-batch has labels, decodes (beam or greedy, entropy / perplexity sums
-carried through the decode), truncates to ``num_images`` and runs
-``language_eval`` over the port's copy of ``coco_eval``.  One
-batch stays in flight: a batch's captions are post-processed after the
-next batch's decode has been issued.  The mesh and multi-host branches of
-the JAX loop, and the multi-sample ``eval_split_n``, are not ported.
+batch has labels, decodes (beam or the sample family with the entropy /
+perplexity sums carried through the decode; diverse groups and other
+methods through the per-step tables), truncates to ``num_images`` and runs
+``language_eval`` over the port's copy of ``coco_eval``; ``eval_split_n``
+adds ``sample_n`` captions an image, which ``language_eval`` scores with
+the diversity suite of ``eval_multi``.  One batch stays in flight: a
+batch's captions are post-processed after the next batch's decode has been
+issued.  The mesh and multi-host branches of the JAX loop are not ported.
 """
 
 from __future__ import annotations
@@ -46,12 +48,36 @@ def getCOCO(dataset) -> AnnotationDB:
 
 
 def language_eval(dataset, preds, preds_n, eval_kwargs, split):
-    """COCO metrics over the predictions (reference eval_utils.py:47-126)."""
+    """COCO metrics over the predictions (reference eval_utils.py:47-126);
+    with ``preds_n`` (the multi-sample predictions of ``eval_split_n``) the
+    novelty and vocabulary of the samples and the diversity suite of
+    ``eval_multi`` too."""
     import json
-    if preds_n:
-        raise NotImplementedError('multi-sample (sample_n > 1) language '
-                                  'eval is not ported yet; see ROADMAP.md')
     model_id = eval_kwargs.get('id', '')
+    eval_oracle = eval_kwargs.get('eval_oracle', 0)
+    out = {}
+    if len(preds_n) > 0:
+        if 'coco' in dataset:
+            dataset_file = 'data/dataset_coco.json'
+        elif 'flickr30k' in dataset or 'f30k' in dataset:
+            dataset_file = 'data/dataset_flickr30k.json'
+        else:
+            dataset_file = None
+        if dataset_file and os.path.isfile(dataset_file):
+            with open(dataset_file) as f:
+                images = json.load(f)['images']
+            training_sentences = set(
+                ' '.join(s['tokens']) for img in images
+                if img.get('split') not in ['val', 'test']
+                for s in img['sentences'])
+            generated_sentences = set(p['caption'] for p in preds_n)
+            novels = generated_sentences - training_sentences
+            out['novel_sentences'] = float(len(novels)) / len(preds_n)
+            words = []
+            for sent in generated_sentences:
+                words += sent.split()
+            out['vocab_size'] = len(set(words))
+
     os.makedirs('eval_results', exist_ok=True)
     cache_path = os.path.join('eval_results/',
                               '.cache_' + model_id + '_' + split + '.json')
@@ -68,7 +94,7 @@ def language_eval(dataset, preds, preds_n, eval_kwargs, split):
     ids = [p['image_id'] for p in preds_filt]
     res = {p['image_id']: [p['caption']] for p in preds_filt}
     overall, img_to_eval = evaluate_captions(coco.gts_for(ids), res)
-    out = dict(overall)
+    out.update(overall)
     out['perplexity'] = mean_perplexity
     out['entropy'] = mean_entropy
     if img_to_eval and 'SPICE' in next(iter(img_to_eval.values())):
@@ -81,6 +107,28 @@ def language_eval(dataset, preds, preds_n, eval_kwargs, split):
                                      else None)
     for p in preds_filt:
         img_to_eval[p['image_id']]['caption'] = p['caption']
+
+    if len(preds_n) > 0:
+        from . import eval_multi
+        cache_path_n = os.path.join(
+            'eval_results/', '.cache_' + model_id + '_' + split + '_n.json')
+        allspice = eval_multi.eval_allspice(dataset, preds_n, model_id, split)
+        if allspice:
+            out.update(allspice['overall'])
+        div_stats = eval_multi.eval_div_stats(dataset, preds_n, model_id,
+                                              split)
+        out.update(div_stats['overall'])
+        oracle = None
+        if eval_oracle:
+            oracle = eval_multi.eval_oracle(dataset, preds_n, model_id, split)
+            out.update(oracle['overall'])
+        self_cider = eval_multi.eval_self_cider(dataset, preds_n, model_id,
+                                                split)
+        out.update(self_cider['overall'])
+        with open(cache_path_n, 'w') as f:
+            json.dump({'allspice': allspice, 'div_stats': div_stats,
+                       'oracle': oracle, 'self_cider': self_cider}, f)
+
     out['bad_count_rate'] = (sum(count_bad(p['caption'])
                                  for p in preds_filt) / float(n))
     with open(os.path.join('eval_results/',
@@ -98,10 +146,22 @@ def _stats_from_sums(seq, stats, real_rows):
     return seq, entropy, perplexity
 
 
+def _sample_family(method: str) -> bool:
+    """The methods the carried-stats route serves (the JAX
+    ``Captioner._dynamic_sample_params`` family)."""
+    return method in ('greedy', 'gumbel', 'sample') or method.startswith(
+        'top')
+
+
 def eval_split(captioner, loader, eval_kwargs=None):
     """reference eval_utils.py:128-226 on ``captioner.device``.
 
-    Returns (val_loss, predictions, lang_stats)."""
+    Decodes by beam (the carried sums), the sample family at one group (the
+    carried sums, the exact early exit) or else the per-step tables (the
+    'slow' route: diverse groups, whose group 0 is reported, and any other
+    method); with ``sample_n > 1`` each batch also goes through
+    ``eval_split_n``.  Sampling draws from one generator on the device,
+    seeded from ``seed``.  Returns (val_loss, predictions, lang_stats)."""
     eval_kwargs = eval_kwargs or {}
     verbose = eval_kwargs.get('verbose', True)
     verbose_loss = eval_kwargs.get('verbose_loss', 1)
@@ -111,9 +171,7 @@ def eval_split(captioner, loader, eval_kwargs=None):
     split = eval_kwargs.get('split', 'val')
     lang_eval = eval_kwargs.get('language_eval', 0)
     dataset = eval_kwargs.get('dataset', 'coco')
-    if int(eval_kwargs.get('sample_n', 1) or 1) > 1:
-        raise NotImplementedError('sample_n > 1 (eval_split_n) is not '
-                                  'ported yet; see ROADMAP.md')
+    sample_n = eval_kwargs.get('sample_n', 1)
     os.environ['REMOVE_BAD_ENDINGS'] = str(
         eval_kwargs.get('remove_bad_endings', 0))
     label_smoothing = float(eval_kwargs.get('label_smoothing', 0) or 0)
@@ -128,10 +186,13 @@ def eval_split(captioner, loader, eval_kwargs=None):
                    'length_penalty', 'max_length')
                   if eval_kwargs.get(k) is not None}
     sample_opt['sample_n'] = 1
+    method = sample_opt.get('sample_method', 'greedy')
+    group_size = int(sample_opt.get('group_size', 1) or 1)
     beam = (int(sample_opt.get('beam_size', 1) or 1) > 1 and
-            sample_opt.get('sample_method', 'greedy') in ('greedy',
-                                                          'beam_search'))
-    rng = torch.Generator().manual_seed(int(eval_kwargs.get('seed', 0)))
+            method in ('greedy', 'beam_search'))
+    stats_route = not beam and group_size == 1 and _sample_family(method)
+    rng = torch.Generator(device).manual_seed(int(eval_kwargs.get('seed',
+                                                                  0)))
 
     def dev(x, dtype=None):
         return None if x is None else torch.as_tensor(
@@ -142,19 +203,47 @@ def eval_split(captioner, loader, eval_kwargs=None):
     loss_sum = 0.0
     loss_evals = 1e-8
     predictions = []
+    n_predictions = []
 
     def _process(rec):
         """Post-process one issued batch, strictly in batch order."""
         nonlocal loss, loss_sum, loss_evals
         data = rec['data']
+        real_rows = len(data['infos'])
         if rec['loss_dev'] is not None:
             loss = float(rec['loss_dev'])
             loss_sum += loss
             loss_evals += 1
-        seq, entropy, perplexity = _stats_from_sums(rec['seq'], rec['stats'],
-                                                    len(data['infos']))
+        if rec['kind'] != 'slow':
+            seq, entropy, perplexity = _stats_from_sums(
+                rec['seq'], rec['stats'], real_rows)
+        else:
+            seq = rec['seq'].cpu().numpy()[:real_rows * group_size]
+            lp = rec['lp'].cpu().numpy()[:real_rows * group_size]
+            if group_size > 1:
+                # diverse sampling folds groups into rows [B*G, L]; the
+                # split loop reports one caption per image: group 0 (use
+                # eval_split_n / dgreedy for all groups)
+                seq = seq.reshape(-1, group_size, seq.shape[-1])[:, 0]
+                lp = lp.reshape((-1, group_size) + lp.shape[1:])[:, 0]
+            denom = (seq > 0).sum(1) + 1
+            if lp.ndim == 3:
+                entropy = -(np.exp(lp) * lp).sum(-1).sum(1) / denom
+                perplexity = -np.take_along_axis(
+                    lp, seq[..., None], axis=2)[..., 0].sum(1) / denom
+            else:
+                # diverse sampling returns only the sampled logprob per step
+                # [N, L]: perplexity from them (a step counts while no
+                # earlier token ended the row), entropy unavailable
+                keep = np.concatenate(
+                    [np.ones((seq.shape[0], 1), bool),
+                     np.cumprod(seq[:, :-1] > 0, axis=1).astype(bool)],
+                    axis=1)
+                entropy = np.zeros(lp.shape[0], lp.dtype)
+                perplexity = -np.where(keep, lp, 0.0).sum(1) / denom
         if verbose_beam and rec['done'] is not None:
-            beams = rec['done']['seq'].cpu().numpy()
+            # every finished beam of each image
+            beams = rec['done']['seq'].cpu().numpy()[:real_rows]
             for i in range(beams.shape[0]):
                 flat = beams[i].reshape(-1, beams.shape[-1])
                 print('\n'.join(utils.decode_sequence(vocab, flat)))
@@ -177,6 +266,9 @@ def eval_split(captioner, loader, eval_kwargs=None):
                     shutil.copyfile(src, dst)
             if verbose:
                 print('image %s: %s' % (entry['image_id'], entry['caption']))
+        if sample_n > 1:
+            eval_split_n(captioner, n_predictions, rec['inputs'] + [data],
+                         vocab, rng, eval_kwargs)
         for _ in range(rec['n'] - rec['ix1']):
             predictions.pop()
         if verbose:
@@ -204,14 +296,18 @@ def eval_split(captioner, loader, eval_kwargs=None):
                 loss_dev = losses.language_model_criterion(
                     logprobs, labels[..., 1:], masks[..., 1:])
 
-        rec = {'data': data, 'loss_dev': loss_dev, 'done': None}
+        rec = {'data': data, 'loss_dev': loss_dev, 'done': None,
+               'inputs': [fc, att, am]}
         if beam:
             seq, stats, done = captioner.sample_beam(fc, att, am, rng,
                                                      sample_opt)
-            rec.update(seq=seq, stats=stats, done=done)
-        else:
+            rec.update(kind='beam', seq=seq, stats=stats, done=done)
+        elif stats_route:
             seq, stats = captioner.sample_stats(fc, att, am, rng, sample_opt)
-            rec.update(seq=seq, stats=stats)
+            rec.update(kind='stats', seq=seq, stats=stats)
+        else:
+            seq, lp = captioner.sample(fc, att, am, rng, sample_opt)
+            rec.update(kind='slow', seq=seq, lp=lp)
 
         ix1 = data['bounds']['it_max']
         if num_images != -1:
@@ -227,13 +323,82 @@ def eval_split(captioner, loader, eval_kwargs=None):
     if pending is not None:
         _process(pending)
 
+    if len(n_predictions) > 0 and 'perplexity' in n_predictions[0]:
+        n_predictions = sorted(n_predictions, key=lambda x: x['perplexity'])
     os.makedirs('eval_results', exist_ok=True)
     with open(os.path.join('eval_results/', '.saved_pred_'
                            + eval_kwargs.get('id', '') + '_' + split +
                            '.pkl'), 'wb') as f:
-        pickle.dump((predictions, []), f)
+        pickle.dump((predictions, n_predictions), f)
     lang_stats = None
     if lang_eval == 1:
-        lang_stats = language_eval(dataset, predictions, [], eval_kwargs,
-                                   split)
+        lang_stats = language_eval(dataset, predictions, n_predictions,
+                                   eval_kwargs, split)
     return loss_sum / loss_evals, predictions, lang_stats
+
+
+def eval_split_n(captioner, n_predictions, input_data, vocab, rng,
+                 eval_kwargs=None):
+    """Multi-sample eval (reference eval_utils.py:230-281): ``sample_n``
+    captions an image by ``sample_n_method``, appended to
+    ``n_predictions``: 'bs' (the beams of one beam search of width
+    sample_n), 'sample' / 'gumbel' / 'top<k>' / 'top<p>' (sample_n draws,
+    with their perplexity), 'dbs' (the best beam of each of sample_n
+    diverse groups of ``beam_size`` beams) or 'd<method>' (diverse sampling
+    by <method> in sample_n groups).  ``rng`` draws the samples; the
+    decoding options of ``eval_kwargs`` (the constraints, temperature,
+    length penalty, ``diversity_lambda``) apply."""
+    eval_kwargs = eval_kwargs or {}
+    verbose = eval_kwargs.get('verbose', True)
+    beam_size = eval_kwargs.get('beam_size', 1)
+    sample_n = eval_kwargs.get('sample_n', 1)
+    sample_n_method = eval_kwargs.get('sample_n_method', 'sample')
+    fc, att, am, data = input_data
+    B = len(data['infos'])
+    base = {k: eval_kwargs.get(k) for k in
+            ('temperature', 'decoding_constraint', 'block_trigrams',
+             'remove_bad_endings', 'suppress_UNK', 'length_penalty',
+             'diversity_lambda')
+            if eval_kwargs.get(k) is not None}
+
+    def add(sents, per_image, extra=None):
+        for k, sent in enumerate(sents):
+            entry = {'image_id': data['infos'][k // per_image]['id'],
+                     'caption': sent}
+            if extra is not None:
+                entry['perplexity'] = float(extra[k])
+            n_predictions.append(entry)
+
+    if sample_n_method == 'bs':
+        opt = dict(base, sample_n=sample_n, beam_size=sample_n, group_size=1)
+        _, _, done = captioner.sample_beam(fc, att, am, rng, opt)
+        seqs = done['seq'][:, 0].cpu().numpy()[:B]          # [B, bdash, L]
+        add(utils.decode_sequence(vocab, seqs[:, :sample_n].reshape(
+            -1, seqs.shape[-1])), sample_n)
+    elif _sample_family(sample_n_method):
+        opt = dict(base, sample_n=sample_n, sample_method=sample_n_method,
+                   beam_size=1, group_size=1)
+        seq, lp = captioner.sample(fc, att, am, rng, opt)
+        seq = seq.cpu().numpy()[:B * sample_n]
+        lp = lp.cpu().numpy()[:B * sample_n]
+        perplexity = -np.take_along_axis(
+            lp, seq[..., None], axis=2)[..., 0].sum(1) / (
+                (seq > 0).sum(1) + 1)
+        add(utils.decode_sequence(vocab, seq), sample_n, perplexity)
+    elif sample_n_method == 'dbs':
+        opt = dict(base, beam_size=beam_size * sample_n,
+                   group_size=sample_n)
+        _, _, done = captioner.sample_beam(fc, att, am, rng, opt)
+        seqs = done['seq'][:, :, 0].cpu().numpy()[:B]  # best of each group
+        add(utils.decode_sequence(vocab, seqs.reshape(-1, seqs.shape[-1])),
+            sample_n)
+    else:
+        opt = dict(base, sample_method=sample_n_method[1:],
+                   group_size=sample_n, beam_size=1)
+        seq, _ = captioner.sample(fc, att, am, rng, opt)
+        add(utils.decode_sequence(vocab, seq.cpu().numpy()[:B * sample_n]),
+            sample_n)
+    if verbose:
+        for entry in sorted(n_predictions[-B * sample_n:],
+                            key=lambda x: str(x['image_id'])):
+            print('image %s: %s' % (entry['image_id'], entry['caption']))

@@ -83,7 +83,24 @@ Phases, in order; any failure raises and exits non-zero:
    steps draws the first's dropout and sampling again (the generator
    state restored), so its loss, below the first's, shows the updates; each
    run prints its median step time and spread (CUDA events and the host
-   wall) and its peak memory.
+   wall) and its peak memory;
+10. the rest of the decoding engine through ``Captioner`` at B = 1024,
+   bf16 (``profile_decode.MODES``, a vocab where every fourth word is a
+   function word that ``remove_bad_endings`` bans before EOS): the
+   transformer's general beam body at one group with
+   ``decoding_constraint`` and ``remove_bad_endings`` (beam 5: B1, B6),
+   diverse beam (beam 6 in 3 groups, ``diversity_lambda`` 0.5: B6; the
+   per-row step is plain), ``sample_n`` 5 by sample, top-3, top-0.9 and
+   gumbel (B1), and beam 5 with the winner-logprob replay (B1, B2);
+   UpDown's diverse beam (B3, B6) and ``sample_n`` 5 sampling (B3); NewFC's
+   diverse beam (B5, B6: the per-row FC seeding) and diverse greedy in 5
+   groups (B5).  Each mode with the launch counters reset just before and
+   its kernels required to have grown just after, its cap/s (captions
+   returned) on a line of its own, then its f32 agreement at B = 8,
+   kernels (CUDA) against twins (CPU), the sampling noise drawn once on
+   the CPU and fed to both; and the top-k held bit for bit against its
+   twin on a candidate table of the constrained general body, which holds
+   -inf.
 
 Each decode mode requires the kernels its path runs: the top-k only in
 beam (the RNN plain-step route; the transformer's fused route selects in
@@ -1117,94 +1134,131 @@ def phase_train(torch, wrappers):
 
 
 # ---------------------------------------------------------------------------
-# phases 4-5: the model through Captioner
+# phases 4-7 and 10: the models' decodes through Captioner
 # ---------------------------------------------------------------------------
 
-def check_output(torch, seq, stats, B, L, V):
+def check_output(torch, seq, stats, B, L, V, nan_entropy=False):
     if tuple(seq.shape) != (B, L) or int(seq.min()) < 0 or int(
             seq.max()) > V:
         raise AssertionError('decode output: shape %s range [%d, %d]'
                              % (tuple(seq.shape), int(seq.min()),
                                 int(seq.max())))
-    for key in ('ent_sum', 'lp_sum'):
+    for key in ('lp_sum',) if nan_entropy else ('ent_sum', 'lp_sum'):
         if not bool(torch.isfinite(stats[key]).all()):
             raise AssertionError('decode output: %s not finite' % key)
     if not bool((stats['lp_sum'] <= 0).all()):
         raise AssertionError('decode output: positive logprob sum')
 
 
-def phase_decode(torch, model, wrappers, required, batches=3, tables=None):
-    """Beam 5 and greedy at B = 1024, bf16, through ``Captioner``; each
-    mode runs with the launch counters of every wrapper of ``wrappers``
-    (name -> wrapper) set to 0 just before it, and each kernel of
-    ``required[mode]`` must have grown just after.  With ``tables`` (a
-    list), one more beam batch after the counts are read appends the
-    candidate table of its middle step.  Then the f32 agreement of the
-    kernels (CUDA) with the twins (CPU)."""
-    # the model helpers shared with the profiler: the flagships' widths,
-    # make_captioner, features, decode
+# phase 10: model -> [(a mode of profile_decode.MODES, the kernels its
+# path runs)]
+PHASE10 = {
+    'transformer': [('general5', ['attend_write_merged', 'topk_lastdim']),
+                    ('dbs6g3', ['topk_lastdim']),
+                    ('sample5', ['attend_write_merged']),
+                    ('top3x5', ['attend_write_merged']),
+                    ('top0.9x5', ['attend_write_merged']),
+                    ('gumbel5', ['attend_write_merged']),
+                    ('replay5', ['attend_write_merged', 'logit_topk'])],
+    'updown': [('dbs6g3', ['additive_attention', 'topk_lastdim']),
+               ('sample5', ['additive_attention'])],
+    'newfc': [('dbs6g3', ['maxout_lstm_gates', 'topk_lastdim']),
+              ('dgreedy5', ['maxout_lstm_gates'])],
+}
+
+
+def cpu_draws(torch, seed):
+    """One noise for both devices: ``draw(kind, t, shape)`` made on the
+    CPU from a seeded generator the first time a key is asked for, the
+    same tensor after (the engine moves it to the decode's device)."""
+    from captioning_tpu_torch.engine.decoding import generator_draw
+    base, cache = generator_draw(torch.Generator().manual_seed(seed)), {}
+
+    def draw(kind, t, shape):
+        key = (kind, t, tuple(shape))
+        if key not in cache:
+            cache[key] = base(kind, t, shape)
+        return cache[key]
+    return draw
+
+
+def phase_decode(torch, model, modes, wrappers, batches=3, tables=None,
+                 table_mode='beam5'):
+    """Each mode of ``modes`` ([(a mode of profile_decode.MODES, required
+    kernels)]) at B = 1024, bf16, through ``Captioner``, with every
+    wrapper's launch counter set to 0 just before it and each required
+    kernel's grown just after; its cap/s (captions returned: 5 an image for
+    sample_n 5 and the 5 diverse groups).  With ``tables`` (a list), one
+    more ``table_mode`` batch after the counts are read appends the
+    candidate table of its middle step.  Then each mode's f32 agreement of
+    the kernels (CUDA) with the twins (CPU) at B = 8, the sampling noise
+    drawn once on the CPU and fed to both."""
+    from captioning_tpu_torch.tools import bench_topk as bt
     from captioning_tpu_torch.tools import profile_decode as pd
-    torch.cuda.empty_cache()      # earlier phases' blocks: a clean pool
+    torch.cuda.empty_cache()
     cap = pd.make_captioner(model, 'bfloat16', 'cuda')
     B, L = 1024, 20
     fc, att, am = pd.features(B, 'cuda', seed=1)
-    rates = {}
-    launches = dict.fromkeys(wrappers, 0)
-    for mode in ('beam5', 'greedy'):
+    rates, launches = {}, dict.fromkeys(wrappers, 0)
+    for mode, required in modes:
+        rows = B * pd.MODES[mode][2]
         for fn in wrappers.values():
             fn.launches = 0
-        seq, stats = pd.decode(cap, mode, fc, att, am)  # warm-up
-        torch.cuda.synchronize()
-        check_output(torch, seq, stats, B, L, pd.V)
         ms = []
-        for _ in range(batches):
+        for i in range(batches + 1):          # a warm-up, then timed ones
             t = time.time()
             seq, stats = pd.decode(cap, mode, fc, att, am)
             torch.cuda.synchronize()
-            ms.append(1000 * (time.time() - t))
-            check_output(torch, seq, stats, B, L, pd.V)
+            if i:
+                ms.append(1000 * (time.time() - t))
+            # the constrained general body's entropy is NaN where a step's
+            # row holds -inf (0 * -inf), as in the JAX engine
+            check_output(torch, seq, stats, rows, L, pd.V,
+                         nan_entropy=mode == 'general5')
         counts = {name: fn.launches for name, fn in wrappers.items()}
-        for name in required[mode]:
+        for name in required:
             if counts[name] <= 0:
                 raise AssertionError('%s was never launched on the %s %s '
                                      'path' % (name, model, mode))
         for name, n in counts.items():
             launches[name] += n
-        rates[mode] = B / (sorted(ms)[batches // 2] / 1000)
-        steps = int((seq > 0).sum(1).max()) + 1
-        log('  %s %s B=%d: %.1f cap/s at the median batch (ms per batch: '
-            '%s; longest caption %d steps), mean ent_sum %.3f, launches %s '
-            '(a batch: %s)'
-            % (model, mode, B, rates[mode], ', '.join('%.1f' % v for v in ms),
-               steps, float(stats['ent_sum'].mean()), counts,
+        rates[mode] = rows / (sorted(ms)[batches // 2] / 1000)
+        log('  cap/s %s %s: %.1f' % (model, mode, rates[mode]))
+        log('  %s %s B=%d (%d captions): ms per batch %s; longest caption '
+            '%d steps; launches %s (a batch: %s)'
+            % (model, mode, B, rows, ', '.join('%.1f' % v for v in ms),
+               int((seq > 0).sum(1).max()) + 1, counts,
                {n: c // (batches + 1) for n, c in counts.items() if c}))
-        if mode == 'beam5' and tables is not None:
-            from captioning_tpu_torch.tools import bench_topk as bt
-            tables.append(bt.capture_table(cap, fc, att, am))
+        del seq, stats
+    if tables is not None:
+        tables.append(bt.capture_table(cap, fc, att, am, mode=table_mode))
     del cap
+    torch.cuda.empty_cache()
 
-    # f32: kernels (CUDA) against twins (CPU) on one small batch
     torch.set_num_threads(min(8, os.cpu_count() or 1))
     agree = {}
     capg = pd.make_captioner(model, 'float32', 'cuda')
     capc = pd.make_captioner(model, 'float32', 'cpu')
     fc, att, am = pd.features(8, 'cpu', seed=2)
-    for mode in ('beam5', 'greedy'):
-        sg, stg = pd.decode(capg, mode, fc.cuda(), att.cuda(), am.cuda())
-        sc, stc = pd.decode(capc, mode, fc, att, am)
+    for i, (mode, _) in enumerate(modes):
+        draw = cpu_draws(torch, 100 + i)
+        sg, stg = pd.decode(capg, mode, fc.cuda(), att.cuda(), am.cuda(),
+                            draw)
+        sc, stc = pd.decode(capc, mode, fc, att, am, draw)
         same = (sg.cpu() == sc).all(1).float().mean().item()
-        err = (stg['ent_sum'].cpu() - stc['ent_sum']).abs().max().item()
+        err = (stg['lp_sum'].cpu() - stc['lp_sum']).abs().max().item()
         agree[mode] = same
         log('  %s f32 %s: captions identical kernels vs twins %.3f, max '
-            'ent_sum diff %.2e' % (model, mode, same, err))
+            'lp_sum diff %.2e' % (model, mode, same, err))
         if same < 0.75:
-            raise AssertionError('f32 decode: kernels and twins agree on '
-                                 'only %.3f of the captions' % same)
+            raise AssertionError('f32 %s %s: kernels and twins agree on only '
+                                 '%.3f of the captions' % (model, mode, same))
     return rates, launches, agree
 
 
 def main():
     import torch
+    wall = time.time()
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; nothing was run', file=sys.stderr)
         return 2
@@ -1281,9 +1335,8 @@ def main():
     for model, (phase, both, beam_only) in paths.items():
         log('%s: full-width %s through Captioner' % (phase, model))
         rates[model], counts, agree[model] = phase_decode(
-            torch, model, wrappers,
-            {'beam5': both + beam_only, 'greedy': both},
-            tables=tables if model == 'updown' else None)
+            torch, model, [('beam5', both + beam_only), ('greedy', both)],
+            wrappers, tables=tables if model == 'updown' else None)
         for name, n in counts.items():
             launches[name] += n
         if tables:
@@ -1317,6 +1370,32 @@ def main():
     for name, n in phase_train(torch, wrappers).items():
         launches[name] += n
 
+    log('phase 10: the general and diverse beam, the sampling methods, the '
+        'replay and diverse greedy through Captioner')
+    t = time.time()
+    for model, modes in PHASE10.items():
+        tables = [] if model == 'transformer' else None
+        mode_rates, counts, mode_agree = phase_decode(
+            torch, model, modes, wrappers, tables=tables,
+            table_mode='general5')
+        rates.setdefault(model, {}).update(mode_rates)
+        agree.setdefault(model, {}).update(mode_agree)
+        for name, n in counts.items():
+            launches[name] += n
+        if tables:
+            x = tables.pop()
+            if not bool(torch.isinf(x).any()):
+                raise AssertionError('the constrained general body\'s '
+                                     'table holds no -inf')
+            bt.check(tk, x, 5, 'constrained general-body table')
+            log('  topk_lastdim on the transformer\'s constrained general-'
+                'body table of step %d %s (%d entries -inf), k 5: identical '
+                'to the twin, %.4f ms by graph replay'
+                % (bt.CAPTURE_STEP, list(x.shape), int(torch.isinf(x).sum()),
+                   graph_ms(torch, lambda: tk.topk_lastdim(x, 5), 20)))
+            del x
+    log('phase 10: %.1f s' % (time.time() - t))
+
     bad = [m for m in sys.modules
            if m.split('.')[0] in ('jax', 'flax', 'optax', 'captioning_tpu')]
     if bad:
@@ -1348,6 +1427,7 @@ def main():
                 'bound_by': times[name][2][1],
                 'library_ms': library.get(name)}
                for name, (src, rep) in replaces.items()]
+    log('wall %.1f s' % (time.time() - wall))
     log('cap/s: %s' % json.dumps(rates))
     log('f32 caption agreement, kernels vs twins: %s' % json.dumps(agree))
     log(gpu_line())

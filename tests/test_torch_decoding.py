@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from captioning_tpu_torch.engine import decoding
-from tests.torch_port_util import inputs, jax_and_port
+from tests.torch_port_util import inputs, jax_and_port, jax_draws, tiny_opt
 
 ATOL = 1e-4
 
@@ -108,18 +108,51 @@ def test_greedy_matches_jax(models):
     ({'beam_size': 1, 'block_trigrams': 1}, 'block_trigrams'),
     ({'beam_size': 1, 'sample_method': 'sample'}, 'sample_method'),
 ])
-def test_off_slice_options_raise(models, opt, what):
+def test_landed_options_match_jax(models, opt, what):
+    """The options that raised before the general beam body, the replay and
+    the sampling routes were ported now decode as the JAX package does:
+    tokens identical, the replayed or sampled tables within 1e-5 (the
+    sampling noise is JAX's, handed to the port)."""
+    jcap, variables, pcap, _ = models
+    fc, att, am = inputs(B=2, seed=9)
+    opt = dict(opt, sample_n=1)
+    jargs = [jnp.asarray(a) for a in (fc, att, am)]
+    if opt['beam_size'] > 1:
+        js, jlp, _ = jcap.sample_beam_jit(variables, *jargs,
+                                          jax.random.PRNGKey(1), opt,
+                                          want_logps=True)
+        ps, plp, _ = pcap.sample_beam(*_torch(fc, att, am), None, opt,
+                                      want_logps=True)
+    else:
+        js, jlp = jcap.sample_jit(variables, *jargs, jax.random.PRNGKey(2),
+                                  opt)
+        ps, plp = pcap.sample(*_torch(fc, att, am),
+                              jax_draws(2, pcap.cfg.seq_length), opt)
+    np.testing.assert_array_equal(ps.numpy(), np.asarray(js))
+    np.testing.assert_allclose(plp.numpy(), np.asarray(jlp), atol=1e-5,
+                               rtol=0)
+
+
+@pytest.mark.parametrize('opt', [
+    {'beam_size': 17, '_beam_general': 1},
+    {'beam_size': 34, 'group_size': 2},
+    {'beam_size': 17, 'decoding_constraint': 1},
+], ids=['general-17', 'groups-2x17', 'constraint-17'])
+def test_off_slice_options_raise(models, opt):
+    """What the port still refuses: the general body selects through the
+    top-k kernel, which takes at most 16 beams a group (it raises rather
+    than go to another selection), and the RL train steps (ROADMAP A5)."""
     pcap = models[2]
     fc, att, am = _torch(*inputs(B=2))
-    with pytest.raises(NotImplementedError, match=what):
-        if opt['beam_size'] > 1:
-            pcap.sample_beam(fc, att, am, None, opt)
-        else:
-            pcap.sample_stats(fc, att, am, None, opt)
-    if opt['beam_size'] > 1 and what == 'group_size':
-        with pytest.raises(NotImplementedError, match='want_logps'):
-            pcap.sample_beam(fc, att, am, None, {'beam_size': 3},
-                             want_logps=True)
+    with pytest.raises(ValueError, match='k <= 16'):
+        pcap.sample_beam(fc, att, am, None, opt)
+    if opt['beam_size'] == 17 and '_beam_general' in opt:
+        from captioning_tpu_torch.modules.trainer import Trainer
+        from tests.torch_port_util import train_opt
+        trainer = Trainer(pcap, train_opt(tiny_opt()))
+        for name in ('sc_decode', 'sc_grad_step', 'struc_decode'):
+            with pytest.raises(NotImplementedError, match='A5'):
+                getattr(trainer, name)()
 
 
 @pytest.mark.parametrize('lp', ['', 'wu_0.9'])

@@ -87,12 +87,37 @@ def test_eval_cli_rnn_zoo_matches_jax_eval_split(zoo_checkpoint, beam,
     _cli_matches_jax(zoo_checkpoint, beam, monkeypatch)
 
 
-def _cli_matches_jax(checkpoint, beam, monkeypatch):
+ROUTES = {
+    # the sample family's carried-stats route (top-1 draws nothing)
+    'stats-top1': (['--sample_method', 'top1'], {'sample_method': 'top1'}),
+    # the per-step tables route: diverse groups, group 0 reported
+    'slow-dgreedy': (['--group_size', '2', '--diversity_lambda', '0.5'],
+                     {'group_size': 2, 'diversity_lambda': 0.5}),
+    # the general beam body with the constraints, and every finished beam
+    # printed
+    'beam-constraints': (['--decoding_constraint', '1', '--verbose_beam',
+                          '1'], {'decoding_constraint': 1,
+                                 'verbose_beam': 1}),
+}
+
+
+@pytest.mark.parametrize('route', sorted(ROUTES))
+def test_eval_cli_routes_match_jax(checkpoint, route, monkeypatch):
+    args, kw = ROUTES[route]
+    out = _cli_matches_jax(checkpoint, 3 if 'beam' in route else 1,
+                           monkeypatch, args, kw, route)
+    if route == 'beam-constraints':
+        # 3 finished beams an image, then the separator
+        assert out.count('-' * 20) == 4
+
+
+def _cli_matches_jax(checkpoint, beam, monkeypatch, extra=(), extra_kw=None,
+                     tag=''):
     from captioning_tpu.data.dataset import DataLoader
     from captioning_tpu.utils import eval_utils
 
     ds, root, ckpt, cap, variables, opt = checkpoint
-    run = root / ('run%d' % beam)
+    run = root / ('run%d%s' % (beam, tag))
     run.mkdir()
     monkeypatch.chdir(run)
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS='1')
@@ -102,18 +127,20 @@ def _cli_matches_jax(checkpoint, beam, monkeypatch):
          '--infos_path', str(ckpt / 'infos_tcli.pkl'), '--split', 'val',
          '--num_images', '4', '--language_eval', '0', '--force', '1',
          '--dump_images', '0', '--max_length', '6', '--beam_size',
-         str(beam), '--verbose_loss', '1', '--id', 'tcli'],
+         str(beam), '--verbose_loss', '1', '--id', 'tcli'] + list(extra),
         capture_output=True, text=True, env=env, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
     with open(run / 'vis' / 'vis.json') as f:
         got = json.load(f)
     with open(run / 'eval_results' / '.saved_pred_tcli_val.pkl', 'rb') as f:
-        assert pickle.load(f)[0] == got
+        # as json: a constrained beam's entropy is NaN (here as in JAX)
+        assert json.dumps(pickle.load(f)[0]) == json.dumps(got)
 
     loader = DataLoader(opt)
     kw = {'split': 'val', 'num_images': 4, 'language_eval': 0,
           'verbose': False, 'id': 'tcli_jax', 'max_length': 6,
           'beam_size': beam, 'suppress_UNK': 1, 'verbose_loss': 1}
+    kw.update(extra_kw or {})
     jloss, want, _ = eval_utils.eval_split(cap, variables, loader, kw)
     assert [p['image_id'] for p in got] == [p['image_id'] for p in want]
     assert [p['caption'] for p in got] == [p['caption'] for p in want]
@@ -124,6 +151,7 @@ def _cli_matches_jax(checkpoint, beam, monkeypatch):
                  if ln.startswith('loss: ')][0]
     np.testing.assert_allclose(float(loss_line.split()[-1]), jloss,
                                rtol=1e-5)
+    return r.stdout
 
 
 def test_eval_cli_cuda_without_gpu_raises(checkpoint):
@@ -203,5 +231,71 @@ def test_language_eval_matches_jax(checkpoint, tmp_path, monkeypatch):
     for key in want:
         np.testing.assert_allclose(got[key], want[key], rtol=1e-12)
     assert os.path.isfile('eval_results/lv_val.json')
-    with pytest.raises(NotImplementedError):
-        port_eval.language_eval(ds.annotations, preds, preds, kw, 'val')
+    # the multi-sample branch: the diversity suite of eval_multi (mutual
+    # BLEU, Div-n, self-CIDEr, the oracle scores) over preds_n
+    preds_n = [{'image_id': i, 'caption': c} for i, caps in (
+        (1012, ('w1 w2 w3', 'w1 w2 w4', 'w5 w6')),
+        (1013, ('w4 w5', 'w4 w5 w6 w7', 'w2 w2 w3')))
+        for c in caps]
+    kw = {'id': 'lvn', 'eval_oracle': 1}
+    want = jax_eval.language_eval(ds.annotations, preds, preds_n, kw, 'val')
+    got = port_eval.language_eval(ds.annotations, preds, preds_n, kw, 'val')
+    assert set(got) == set(want) and 'self_cider' in got and 'Div2' in got
+    for key in want:
+        if isinstance(want[key], (list, str)) or want[key] is None:
+            assert got[key] == want[key], key
+        else:
+            np.testing.assert_allclose(got[key], want[key], rtol=1e-12,
+                                       err_msg=key)
+    with open('eval_results/.cache_lvn_val_n.json') as f:
+        assert set(json.load(f)) == {'allspice', 'div_stats', 'oracle',
+                                     'self_cider'}
+
+
+@pytest.mark.parametrize('method', ['bs', 'dbs', 'dgreedy', 'top1'])
+def test_eval_split_n_cli_matches_jax(checkpoint, method, monkeypatch):
+    """--sample_n 3 through tools/eval_torch.py against the JAX
+    ``eval_split``: the multi-sample predictions of ``eval_split_n`` in
+    the saved pickle, identical captions for the deterministic methods
+    (beams, diverse beams, diverse greedy, top-1 sampling), top-1's
+    perplexities within 1e-4; the split's own predictions too."""
+    from captioning_tpu.data.dataset import DataLoader
+    from captioning_tpu.utils import eval_utils
+
+    ds, root, ckpt, cap, variables, opt = checkpoint
+    run = root / ('run_n_' + method)
+    run.mkdir()
+    monkeypatch.chdir(run)
+    beam = 2 if method == 'dbs' else 1
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS='1')
+    r = subprocess.run(
+        [sys.executable, os.path.join(REPO, 'tools', 'eval_torch.py'),
+         '--device', 'cpu', '--model', str(ckpt / 'model.npz'),
+         '--infos_path', str(ckpt / 'infos_tcli.pkl'), '--split', 'val',
+         '--num_images', '4', '--language_eval', '0', '--force', '1',
+         '--dump_images', '0', '--max_length', '6', '--beam_size',
+         str(beam), '--verbose_loss', '0', '--id', 'tcli',
+         '--sample_n', '3', '--sample_n_method', method],
+        capture_output=True, text=True, env=env, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    with open(run / 'eval_results' / '.saved_pred_tcli_val.pkl', 'rb') as f:
+        got, got_n = pickle.load(f)
+
+    kw = {'split': 'val', 'num_images': 4, 'language_eval': 0,
+          'verbose': False, 'id': 'tcli_jax', 'max_length': 6,
+          'beam_size': beam, 'suppress_UNK': 1, 'verbose_loss': 0,
+          'sample_n': 3, 'sample_n_method': method}
+    _, want, _ = eval_utils.eval_split(cap, variables, DataLoader(opt), kw)
+    with open('eval_results/.saved_pred_tcli_jax_val.pkl', 'rb') as f:
+        want_n = pickle.load(f)[1]
+    assert [p['caption'] for p in got] == [p['caption'] for p in want]
+    assert len(got_n) == len(want_n) == 4 * 3
+    if method != 'top1':
+        assert got_n == want_n
+        return
+    # sorted by perplexity: compare per (image, caption)
+    key = lambda p: (p['image_id'], p['caption'])
+    got_n, want_n = sorted(got_n, key=key), sorted(want_n, key=key)
+    assert [key(p) for p in got_n] == [key(p) for p in want_n]
+    np.testing.assert_allclose([p['perplexity'] for p in got_n],
+                               [p['perplexity'] for p in want_n], atol=1e-4)

@@ -1,9 +1,10 @@
 """The port imports no JAX and nothing of the JAX package: in a fresh
 interpreter where importing jax, flax, optax or ``captioning_tpu`` fails,
 every module of the port, ``tools/eval_torch.py`` and
-``tools/train_torch.py`` import, and a tiny CPU beam and greedy decode and
-an XE train step run, for the transformer and for RNN captioners of each
-family (UpDown, StackAtt, NewFC, LM, AdaAttMO).  An AST scan of the port's
+``tools/train_torch.py`` import, and a tiny CPU beam, diverse beam, greedy
+and ``sample_n`` top-3 decode and an XE train step run, for the
+transformer and for RNN captioners of each family (UpDown, StackAtt,
+NewFC, LM, AdaAttMO).  An AST scan of the port's
 sources, ``chip_smoke.py``, ``tools/eval_torch.py`` and
 ``tools/train_torch.py`` finds no such import either, lazy ones included.
 The entry points default to the GPU."""
@@ -55,6 +56,14 @@ assert seq.shape == (3, 5) and done['seq'].shape == (3, 1, 3, 5)
 assert torch.isfinite(stats['ent_sum']).all()
 seq, stats = cap.sample_stats(fc, att, am, None, {'beam_size': 1})
 assert seq.shape == (3, 5) and torch.isfinite(stats['lp_sum']).all()
+seq, lps, done = cap.sample_beam(fc, att, am, None,
+                                 {'beam_size': 4, 'group_size': 2,
+                                  'diversity_lambda': 0.5}, want_logps=True)
+assert done['seq'].shape == (3, 2, 2, 5) and lps.shape == (3, 5, 21)
+seq, lps = cap.sample(fc, att, am, torch.Generator().manual_seed(3),
+                      {'sample_method': 'top3', 'sample_n': 2,
+                       'beam_size': 1})
+assert seq.shape == (6, 5) and lps.shape == (6, 5, 21)
 from captioning_tpu_torch.modules.trainer import Trainer
 for k, v in dict(optim='adam', learning_rate=1e-3, optim_alpha=0.9,
                  optim_beta=0.999, optim_epsilon=1e-8, weight_decay=0,

@@ -172,3 +172,64 @@ def test_language_eval_scores_as_jax_coco_eval(tmp_path, monkeypatch):
     assert 'CIDEr' in want and 'Bleu_4' in want
     assert got['perplexity'] == pytest.approx(4.0)
     assert os.path.isfile(tmp_path / 'eval_results' / 'x_test.json')
+
+
+def _same_tree(got, want, key=''):
+    """Equal nested results: numbers within 1e-12, NaN where NaN."""
+    if isinstance(want, dict):
+        assert set(got) == set(want), key
+        for k in want:
+            _same_tree(got[k], want[k], '%s/%s' % (key, k))
+    elif isinstance(want, (list, tuple)):
+        assert len(got) == len(want), key
+        for i, (g, w) in enumerate(zip(got, want)):
+            _same_tree(g, w, '%s/%d' % (key, i))
+    elif isinstance(want, (float, np.floating, np.ndarray)):
+        np.testing.assert_allclose(got, want, rtol=1e-12, err_msg=key)
+    else:
+        assert got == want, key
+
+
+def test_diversity_suite_matches_jax_package(tmp_path, monkeypatch):
+    """``utils/eval_multi.py`` and ``utils/div_utils.py``, the port's
+    copies, score multi-sample predictions as the originals do: Div-n and
+    its pooled form, mutual BLEU, the oracle / average best-of-n and
+    self-CIDEr (AllSPICE is gated on the SPICE jar in both)."""
+    from captioning_tpu.utils import div_utils as jdiv
+    from captioning_tpu.utils import eval_multi as jmulti
+    from captioning_tpu_torch.utils import div_utils as pdiv
+    from captioning_tpu_torch.utils import eval_multi as pmulti
+    gts = {1: ['a man riding a horse on a beach', 'a person on a horse'],
+           2: ['two dogs play in the snow', 'dogs running in snow']}
+    ann = tmp_path / 'ann.json'
+    ann.write_text(json.dumps({'annotations': [
+        {'image_id': i, 'caption': c} for i, cs in gts.items() for c in cs]}))
+    monkeypatch.chdir(tmp_path)
+    preds_n = [{'image_id': i, 'caption': c} for i, caps in (
+        (1, ('a man on a horse', 'a man riding a horse', 'a horse')),
+        (2, ('dogs in the snow', 'two dogs in snow', 'a dog plays')))
+        for c in caps]
+    for name in ('eval_div_stats', 'eval_oracle', 'eval_self_cider',
+                 'eval_allspice'):
+        want = getattr(jmulti, name)(str(ann), preds_n, 'm', 'test')
+        got = getattr(pmulti, name)(str(ann), preds_n, 'm', 'test')
+        _same_tree(got, want, name)
+    caps = {1: ['a b c a', 'a b'], 2: ['c d', 'c d e f', 'e']}
+    for n in (1, 2, 3):
+        for fn in ('compute_div_n', 'compute_global_div_n'):
+            _same_tree(getattr(pdiv, fn)(caps, n), getattr(jdiv, fn)(caps, n),
+                       '%s %d' % (fn, n))
+
+
+def test_bad_endings_match_jax_package():
+    """The words ``remove_bad_endings`` bans before EOS, and the ids that
+    ``Captioner`` takes from a vocab, as the JAX package's."""
+    from captioning_tpu.models import api as japi
+    from captioning_tpu.models import harness as jharness
+    from captioning_tpu_torch.models import api as papi
+    from captioning_tpu_torch.models import harness as pharness
+    assert pharness.BAD_ENDINGS == jharness.BAD_ENDINGS
+    vocab = {str(i): w for i, w in enumerate(
+        ['x', 'a', 'dog', 'the', 'on', 'of', 'this', 'that', 'UNK'], 1)}
+    for v in (vocab, None):
+        assert papi._vocab_indices(v, 9) == japi._vocab_indices(v, 9)

@@ -1,8 +1,9 @@
 """The port's TransformerCaptioner against the JAX module on the same
 weights and inputs (2 layers, d_model 32, 4 heads, vocab 30, 5 regions,
 float32 on the CPU): prepare_feature, per-step log-probs and caches over
-several uniform-t steps with and without beam ancestry, the return_hidden
-state, and eval forward_tf.  atol 1e-5 (float32, summation order only)."""
+several uniform-t steps and several per-row-t steps, with and without
+beam ancestry, the return_hidden state, and eval forward_tf.  atol 1e-5
+(float32, summation order only)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -102,15 +103,53 @@ def test_steps_logprobs_caches_hidden_match_jax(bw):
                                           np.asarray(st_j['anc']))
 
 
-def test_per_row_t_is_not_ported():
-    _, _, pcap = jax_and_port()
-    fc, att, am = inputs(B=2)
-    pm = pcap.module
-    feats = pm.prepare_feature(torch.from_numpy(fc), torch.from_numpy(att),
-                               torch.from_numpy(am))
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        pm.step(torch.zeros(2, dtype=torch.long), feats, pm.init_state(2),
-                uniform_t=False)
+@pytest.mark.parametrize('bw', [0, 2])
+def test_per_row_t_steps_match_jax(bw):
+    """Rows at their own positions (the staggered groups of diverse
+    decoding; ``uniform_t=False``): each row's positional row, its K/V
+    written at its own slot, the (ancestry) attend masked per row; a row
+    at t = Tp - 1 writes the last slot.  Log-probs, caches, ``t`` and
+    ``anc`` as the JAX step's over 3 steps with reorders between them."""
+    jcap, variables, pcap = jax_and_port()
+    jm, pm = jcap.module, pcap.module
+    B = 2
+    fc, att, am = inputs(B=B)
+    feats_j = _jax_prepare(jcap, variables, fc, att, am)
+    feats_p = pm.prepare_feature(torch.from_numpy(fc), torch.from_numpy(att),
+                                 torch.from_numpy(am))
+    N = B * max(bw, 1)
+    st_j = jm.init_state(N, beam=False)
+    st_p = pm.init_state(N)
+    Tp = st_p['k0'].shape[1]
+    t0 = np.array([0, 3, 1, Tp - 3][:N], 'int32')
+    st_j = dict(st_j, t=jnp.asarray(t0))
+    rng = np.random.RandomState(4)
+    if bw:
+        anc = np.broadcast_to((np.arange(N) % bw)[:, None],
+                              (N, Tp)).astype('int32')
+        st_j = dict(st_j, anc=jnp.asarray(anc))
+        st_p = dict(st_p, anc=torch.from_numpy(anc.copy()))
+    for t in range(3):
+        if bw and t:
+            parent = (np.arange(N) // bw) * bw + rng.randint(0, bw, N)
+            st_j = dict(st_j, anc=st_j['anc'][parent])
+            st_p = dict(st_p, anc=st_p['anc'][torch.from_numpy(parent)])
+        it = rng.randint(1, 30, N).astype('int32')
+        out_j, st_j = jm.apply(variables, jnp.asarray(it), feats_j, st_j,
+                               False, True, False, bw,
+                               method=type(jm).step)
+        out_p, st_p = pm.step(torch.from_numpy(it).long(), feats_p,
+                              dict(st_p, t=torch.from_numpy(t0 + t).long())
+                              if t == 0 else st_p, True, False, bw)
+        _close(out_p, out_j)
+        np.testing.assert_array_equal(st_p['t'].numpy(), np.asarray(
+            st_j['t']))
+        for i in range(2):
+            _close(st_p['k%d' % i], st_j['k%d' % i])
+            _close(st_p['v%d' % i], st_j['v%d' % i])
+        if bw:
+            np.testing.assert_array_equal(st_p['anc'].numpy(),
+                                          np.asarray(st_j['anc']))
 
 
 @pytest.mark.parametrize('seq_per_img', [1, 2])

@@ -47,9 +47,17 @@ def tiny_vocab():
     return vocab
 
 
-def jax_and_port(seed=0, eos_boost=0.0, opt=None, **kw):
+def bad_endings_vocab():
+    """``tiny_vocab`` with bad-ending words (the ones ``remove_bad_endings``
+    bans before EOS) at ids 2, 5 and 9."""
+    vocab = tiny_vocab()
+    vocab.update({'2': 'a', '5': 'the', '9': 'of'})
+    return vocab
+
+
+def jax_and_port(seed=0, eos_boost=0.0, opt=None, vocab=None, **kw):
     """(JAX Captioner, its variables as numpy, port Captioner) for ``opt``
-    (default ``tiny_opt(**kw)``).
+    (default ``tiny_opt(**kw)``) and ``vocab`` (default ``tiny_vocab()``).
 
     ``eos_boost`` raises the vocab projection's EOS bias so captions end
     early (the early exits then fire)."""
@@ -60,7 +68,8 @@ def jax_and_port(seed=0, eos_boost=0.0, opt=None, **kw):
     from captioning_tpu_torch.models.api import setup as port_setup
 
     opt = opt or tiny_opt(**kw)
-    jcap = jax_setup(opt, tiny_vocab())
+    vocab = vocab or tiny_vocab()
+    jcap = jax_setup(opt, vocab)
     variables = jax.device_get(jcap.init_params(jax.random.PRNGKey(seed),
                                                 att_len=M))
     variables = jax.tree.map(np.asarray, variables)
@@ -69,7 +78,7 @@ def jax_and_port(seed=0, eos_boost=0.0, opt=None, **kw):
             'generator' if 'generator' in variables['params'] else 'logit']
         out['bias'] = out['bias'].copy()
         out['bias'][0] += eos_boost
-    pcap = port_setup(opt, tiny_vocab(), device='cpu').load_jax_variables(
+    pcap = port_setup(opt, vocab, device='cpu').load_jax_variables(
         variables)
     torch.manual_seed(0)
     return jcap, variables, pcap
@@ -112,3 +121,21 @@ def train_batch(B=4, spi=5, L=6, seed=0):
     labels[..., 1:L + 1] = np.where(pos < lengths[..., None], tok, 0)
     masks = (np.arange(L + 2) <= lengths[..., None] + 1).astype('float32')
     return labels, masks
+
+
+def jax_draws(seed, steps):
+    """The port's ``draw(kind, t, shape)`` returning the JAX engine's noise
+    for ``jax.random.PRNGKey(seed)``: ``sample`` and ``diverse_sample``
+    split off the prepare key, split the rest into ``steps`` x 2 step keys
+    and sample step t with key [t, 1] (a uniform for gumbel sampling, the
+    gumbel of ``jax.random.categorical`` otherwise)."""
+    import jax
+    import torch
+
+    rng, _ = jax.random.split(jax.random.PRNGKey(seed))
+    keys = jax.random.split(rng, steps * 2).reshape(steps, 2, -1)
+
+    def draw(kind, t, shape):
+        fn = jax.random.uniform if kind == 'uniform' else jax.random.gumbel
+        return torch.from_numpy(np.array(fn(keys[t, 1], tuple(shape))))
+    return draw

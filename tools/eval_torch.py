@@ -8,12 +8,20 @@ evaluates with ``captioning_tpu_torch.utils.eval_utils.eval_split`` on
 and no GPU it raises: it never carries on on the CPU.  The ported models
 are the transformer, updown / topdown, att2in2, att2all2, stackatt,
 denseatt, adaatt, adaattmo, newfc, fc and language_model; the others
-raise ``NotImplementedError``.  The options, the data loader and the
+raise ``NotImplementedError``.  Every decode option of tools/eval.py
+reaches the decode: beam search with diverse groups (``--group_size``,
+``--diversity_lambda``), the constraints, the sample methods, and
+``--sample_n`` captions an image by ``--sample_n_method`` (``bs``,
+``sample``, ``gumbel``, ``top<k>``, ``top<p>``, ``dbs``, ``d<method>``)
+scored with the diversity metrics.  The options, the data loader and the
 metrics are the port's own copies of the JAX package's host-only modules
 (``captioning_tpu_torch/utils``, ``captioning_tpu_torch/data``).
 
     python tools/eval_torch.py --model log/model-best.npz \\
         --infos_path log/infos_<id>-best.pkl --beam_size 5 --split test
+    python tools/eval_torch.py --model log/model-best.npz \\
+        --infos_path log/infos_<id>-best.pkl --beam_size 1 --sample_n 5 \\
+        --sample_n_method top0.9 --language_eval 1 --split test
 """
 
 from __future__ import annotations
