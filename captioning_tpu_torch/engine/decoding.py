@@ -11,7 +11,8 @@ Port of ``captioning_tpu/engine/decoding.py``:
   exact early exit once every row has finished.  Greedy stats go through
   the fused ``k = 1`` vocab epilogue when the model has ``step_topk``.
   Beam options route to ``sample_beam``, ``group_size > 1`` to
-  ``diverse_sample``;
+  ``diverse_sample``.  Given a dropout ``generator`` it samples in train
+  mode, as the RL steps do;
 * ``sample_beam`` -> ``_beam_search_fast`` (one group without the scatter
   constraints: the finished-beam pool merge and the exact early exit;
   fused per-row top-``bdash`` survivors when the model has ``step_topk``,
@@ -38,7 +39,8 @@ shape)`` with ``kind`` 'uniform' (gumbel sampling) or 'gumbel' (the
 categorical, ``argmax(logits + gumbel)`` as ``jax.random.categorical``).
 The ``rng`` of a decode is a ``torch.Generator`` on the decode's device
 (``generator_draw``), such a ``draw`` callable, or None (a generator seeded
-0).  Eval model steps draw nothing: the engine hands them no rng.
+0).  Eval model steps draw nothing: the engine hands them no rng; train
+steps draw dropout from their own generator, never from the noise's.
 """
 
 from __future__ import annotations
@@ -287,16 +289,29 @@ def sample_next_word(logprobs, sample_method: str, temperature: float,
 # ---------------------------------------------------------------------------
 
 def sample(dm: DecodeModel, fc_feats, att_feats, att_masks, rng,
-           opt: Dict[str, Any], return_stats: bool = True):
+           opt: Dict[str, Any], return_stats: bool = True,
+           generator: Optional[torch.Generator] = None):
     """Returns (seq [B*n, L] int64, {'ent_sum', 'lp_sum'} [B*n]): the
     entropy and chosen-logprob sums of the step distributions, carried,
     stopping once every row has finished; or with ``return_stats=False``
     (the JAX engine's default) (seq, seqLogprobs [B*n, L, V+1] float32, the
-    constrained step distributions, zeroed after each row's finish).  Beam
-    options route to ``sample_beam``, ``group_size > 1`` to
-    ``diverse_sample``.  ``rng``: the sampling noise (module doc)."""
+    constrained step distributions, zeroed after each row's finish; the
+    caller's autograd graph runs through them).  Beam options route to
+    ``sample_beam``, ``group_size > 1`` to ``diverse_sample``.  ``rng``:
+    the sampling noise (module doc).  ``generator`` is the model's train
+    switch, as in ``scan_logprobs``: given, prepare and then each step draw
+    dropout from it, in the order and shapes ``scan_logprobs`` draws them,
+    so a recompute from the generator's earlier state gives the same
+    activations.  The train mode samples one sequence a row (no beam, no
+    diverse groups)."""
     sample_method = opt.get('sample_method', 'greedy') or 'greedy'
     beam_size = _flag(opt, 'beam_size', 1)
+    if generator is not None and (
+            (beam_size > 1 and sample_method in ('greedy', 'beam_search'))
+            or _flag(opt, 'group_size', 1) > 1):
+        raise NotImplementedError(
+            'train-mode sampling by beam search or diverse groups is not '
+            'ported (train_beam_size 1 samples, as the configs train)')
     if beam_size > 1 and sample_method in ('greedy', 'beam_search'):
         seq, out, _ = sample_beam(dm, fc_feats, att_feats, att_masks, rng,
                                   opt, want_logps=not return_stats)
@@ -310,7 +325,7 @@ def sample(dm: DecodeModel, fc_feats, att_feats, att_masks, rng,
     block_trigrams = _flag(opt, 'block_trigrams')
     remove_bad_endings = _flag(opt, 'remove_bad_endings')
     L = dm.seq_length
-    feats = dm.prepare(fc_feats, att_feats, att_masks, None)
+    feats = dm.prepare(fc_feats, att_feats, att_masks, generator)
     if not dm.shared_beam_feats:
         feats = repeat_tree(sample_n, feats)
     N = fc_feats.shape[0] * sample_n
@@ -319,7 +334,8 @@ def sample(dm: DecodeModel, fc_feats, att_feats, att_masks, rng,
     draw = _draw_fn(rng, dev)
     # greedy stats need only argmax + two scalars per row: with no
     # constraint in the way, the fused k = 1 epilogue gives exactly those
-    fused_greedy = (return_stats and dm.step_topk is not None
+    fused_greedy = (return_stats and generator is None
+                    and dm.step_topk is not None
                     and sample_method == 'greedy' and output_logsoftmax
                     and not decoding_constraint and not block_trigrams
                     and not remove_bad_endings)
@@ -337,7 +353,7 @@ def sample(dm: DecodeModel, fc_feats, att_feats, att_masks, rng,
                                                 1.0, 0.0, -1, 0)
             nxt, chosen = ti[:, 0], tv[:, 0]
         else:
-            logprobs, state = dm.step(it, feats, state, None,
+            logprobs, state = dm.step(it, feats, state, generator,
                                       bool(output_logsoftmax),
                                       uniform_t=True)
             # it == seq[:, t-1] for t >= 1
@@ -346,8 +362,8 @@ def sample(dm: DecodeModel, fc_feats, att_feats, att_masks, rng,
                 remove_bad_endings)
             if block_trigrams:
                 logprobs = logprobs + _trigram_penalty(logprobs, seq, t)
-            nxt, _ = sample_next_word(logprobs, sample_method, temperature,
-                                      draw, t)
+            nxt, _ = sample_next_word(logprobs.detach(), sample_method,
+                                      temperature, draw, t)
             if return_stats:
                 en = -(logprobs.exp() * logprobs).sum(-1)
                 chosen = logprobs.gather(1, nxt[:, None])[:, 0]

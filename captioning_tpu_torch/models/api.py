@@ -6,14 +6,15 @@ model keys raise), ``bind`` returns the ``DecodeModel`` the engine drives,
 ``sample_beam`` / ``sample_stats`` / ``sample`` / ``forward_tf`` are the
 entry points ``eval_split`` and ``eval_split_n`` call, ``forward_tf(train=
 True)`` is the teacher-forced pass the XE trainer differentiates
-(``modules.trainer``) and ``scan_logprobs`` the recompute over a sampled
-sequence.  Parameters live
-in ``self.module`` on ``self.device``; there is no jit cache, PyTorch runs
-eagerly.
+(``modules.trainer``), ``sample_train`` the train-mode sampling of the RL
+steps and ``scan_logprobs`` the recompute over a sampled sequence.
+Parameters live in ``self.module`` on ``self.device``; there is no jit
+cache, PyTorch runs eagerly.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, Optional
 
 import torch
@@ -24,6 +25,7 @@ from ..ops.logit_topk import logit_topk
 from . import harness
 from .config import ModelConfig, config_from_opt
 from .harness import AttCaptioner
+from .layers import MaskedBatchNorm
 from .transformer import TransformerCaptioner
 
 
@@ -223,6 +225,37 @@ class Captioner:
         return decoding.sample(self.bind(), fc_feats, att_feats, att_masks,
                                rng, opt, return_stats=False)
 
+    def sample_train(self, fc_feats, att_feats, att_masks, rng,
+                     opt: Dict[str, Any], generator: torch.Generator,
+                     return_stats: bool = False):
+        """The train-mode ``sample``: dropout drawn from ``generator`` (on
+        ``self.device``), the BatchNorms' batch statistics folded into
+        their running ones once, by prepare.  ``rng`` draws the sampling
+        noise, as in ``sample``.  Without ``return_stats`` the per-step
+        tables [N, L, V+1] carry the autograd graph (the fused RL steps
+        differentiate them); with it nothing is recorded and the sampling
+        stops once every row has finished."""
+        dm = self.bind()
+        with (torch.no_grad() if return_stats else torch.enable_grad()):
+            return decoding.sample(dm, fc_feats, att_feats, att_masks, rng,
+                                   opt, return_stats=return_stats,
+                                   generator=generator)
+
+    @contextlib.contextmanager
+    def bn_frozen(self):
+        """Train-mode passes inside leave the BatchNorms' running
+        statistics as they were on entry: an RL step updates them once,
+        from its sampling pass's prepare, and its recomputes and XE term
+        leave them alone."""
+        saved = [(b, b.clone()) for m in self.module.modules()
+                 if isinstance(m, MaskedBatchNorm) for b in m.buffers()]
+        try:
+            yield
+        finally:
+            with torch.no_grad():
+                for b, v in saved:
+                    b.copy_(v)
+
     @torch.inference_mode()
     def sample_stats(self, fc_feats, att_feats, att_masks, rng,
                      opt: Dict[str, Any]):
@@ -234,24 +267,25 @@ class Captioner:
 
     def scan_logprobs(self, fc_feats, att_feats, att_masks, gen_seq,
                       generator: Optional[torch.Generator] = None,
-                      sample_n: int = 1):
+                      sample_n: int = 1, output_logsoftmax: int = 1):
         """The per-step distributions [N, L, V+1] of ``gen_seq`` [N, L]
-        recomputed (decoding.scan_logprobs).  The generator is the train
-        switch, as in ``forward_tf``: None runs under inference mode; a
-        generator (on ``self.device``) builds the autograd graph with
-        dropout drawn from it."""
+        recomputed (decoding.scan_logprobs; logits with
+        ``output_logsoftmax=0``).  The generator is the train switch, as
+        in ``forward_tf``: None runs under inference mode; a generator (on
+        ``self.device``) builds the autograd graph with dropout drawn from
+        it."""
         dm = self.bind()
         if generator is None:
             with torch.inference_mode():
                 return decoding.scan_logprobs(dm, fc_feats, att_feats,
                                               att_masks, gen_seq, None,
-                                              sample_n)
+                                              sample_n, output_logsoftmax)
         with torch.enable_grad():
             # a sequence sampled under inference mode is copied into a
             # tensor that autograd may save
             return decoding.scan_logprobs(dm, fc_feats, att_feats, att_masks,
                                           gen_seq.clone(), generator,
-                                          sample_n)
+                                          sample_n, output_logsoftmax)
 
 
 def setup(opt, vocab: Optional[Dict[str, str]] = None,

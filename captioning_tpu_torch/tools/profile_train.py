@@ -1,9 +1,9 @@
-"""Profile XE train steps of a full-width captioner on the GPU with
+"""Profile train steps of a full-width captioner on the GPU with
 ``torch.profiler``: the step's wall, device busy, idle share and the
 kernels that take the device time.
 
     python -m captioning_tpu_torch.tools.profile_train \\
-        [--model updown|stackatt|transformer]
+        [--model updown|stackatt|transformer] [--mode xe|scst|struc]
 
 The model is built at the flagship widths of ``profile_decode.MODELS`` in
 float32 from the port's seeded init, and trained with its config's
@@ -12,7 +12,17 @@ at adam 5e-4, the scheduled-sampling ramp's maximum 0.25 and the
 ``opts.py`` dropout 0.5; the transformer of
 ``configs/transformer/transformer.yml`` with noam, warmup 20000, dropout
 0.1; clip by value 0.1) on one seeded batch of 10 images x 5 captions of
-label length 16, as ``chip_smoke.py`` phase 9 trains them.  3 warm-up
+label length 16, as ``chip_smoke.py`` phase 9 trains them.  ``--mode
+scst`` takes the fused SCST step instead (``Trainer.sc_fused_step``), and
+``--mode struc`` the fused structure step (``struc_fused_step``,
+new_self_critical), with the SCST stages' options (``RL``: UpDown of
+``configs/updown/updown_sc.yml`` and the transformer of
+``configs/transformer/transformer_sc.yml``, adam at their rates,
+``train_sample_n`` 5 sampled against a greedy baseline, max length 20):
+their rewards against 5 references of label length 16 an image, scored on
+the card with a df table built as ``scripts/prepro_ngrams.py`` builds it
+over a seeded random corpus of 5000 images x 5 references (``corpus_df``),
+as ``chip_smoke.py`` phase 11 times them.  3 warm-up
 steps, 5 unprofiled steps (host clock ending in a synchronize), then 3
 profiled steps.  Device busy is the sum of the self device time of the
 profiler's device events, user annotations (the optimizer's step range)
@@ -46,6 +56,17 @@ TRAIN = {
 }
 
 
+# per model: the captioner's option overrides and the trainer's, of the
+# SCST stage (configs/updown/updown_sc.yml, configs/transformer/
+# transformer_sc.yml: adam, no noam)
+RL = {
+    'updown': ({'drop_prob_lm': 0.5}, {'learning_rate': 5e-5}),
+    'transformer': ({'drop_prob_lm': 0.5, 'dropout': 0.1},
+                    {'learning_rate': 1e-5}),
+}
+CORPUS_IMAGES, CORPUS_REFS = 5000, 5
+
+
 def train_captioner(model: str, device: str, **kw):
     """A float32 ``Captioner`` at the flagship widths, with ``kw``
     overriding its options, from the port's init with a seeded
@@ -68,6 +89,40 @@ def train_opt(**kw):
         optim_epsilon=1e-8, weight_decay=0.0, grad_clip_mode='value',
         grad_clip_value=0.1, noamopt=False, label_smoothing=0.0,
         drop_worst_rate=0.0), **kw))
+
+
+def rl_opt(**kw):
+    """The RL steps' options: ``train_opt``'s, ``train_sample_n`` 5 by
+    sampling against the greedy baseline, the CIDEr-D reward, and the
+    structure stage's new_self_critical at weight 1."""
+    return train_opt(**dict(dict(
+        train_sample_n=5, train_sample_method='sample', train_beam_size=1,
+        sc_sample_method='greedy', sc_beam_size=1, cider_reward_weight=1.0,
+        bleu_reward_weight=0.0, structure_loss_weight=1.0,
+        structure_loss_type='new_self_critical', entropy_reward_weight=0.0,
+        self_cider_reward_weight=0.0, use_ppo=0), **kw))
+
+
+def corpus_df(images: int = CORPUS_IMAGES, refs: int = CORPUS_REFS,
+              seed: int = 0):
+    """(document frequencies, ref_len) as ``scripts/prepro_ngrams.py``
+    builds them (each image's set of the 1- to 4-grams of its references
+    with the end token '0' appended) over a seeded random corpus in the
+    COCO vocabulary, captions of 8..16 words."""
+    g = torch.Generator().manual_seed(seed)
+    lengths = torch.randint(8, L + 1, (images, refs), generator=g).tolist()
+    words = torch.randint(1, pd.V + 1, (images, refs, L), generator=g)
+    df = {}
+    for img, caps in enumerate(words.tolist()):
+        grams = set()
+        for cap, n_words in zip(caps, lengths[img]):
+            toks = [str(w) for w in cap[:n_words]] + ['0']
+            for n in range(1, 5):
+                grams.update(tuple(toks[k:k + n])
+                             for k in range(len(toks) - n + 1))
+        for gram in grams:
+            df[gram] = df.get(gram, 0.0) + 1.0
+    return df, images
 
 
 def train_batch(B: int, seed: int):
@@ -102,14 +157,72 @@ def make_step(model: str, device: str = 'cuda', B: int = 10):
     return tr, step, gen
 
 
+def rl_batch(captioner, B: int, seed: int):
+    """``train_batch`` on the captioner's device and its references
+    (refs [B, 5, L], ref_mask [B, 5]): the 5 labels of an image, the first
+    of them replaced by the captioner's own greedy caption (cut to L - 1
+    words and an end), so that a random model's samples share n-grams with
+    a reference and the rewards are not all 0."""
+    from ..ops.cider_device import pad_gts
+    device = captioner.device
+    fc, att, am, labels, masks = (x.to(device)
+                                  for x in train_batch(B, seed))
+    greedy, _ = captioner.sample_stats(fc, att, am, None, {
+        'sample_method': 'greedy', 'beam_size': 1})
+    gts = labels[:, :, 1:L + 1].cpu().clone()
+    gts[:, 0, :L - 1] = greedy[:, :L - 1].cpu()
+    gts[:, 0, L - 1] = 0
+    refs, ref_mask = (torch.from_numpy(x).to(device)
+                      for x in pad_gts(gts.numpy(), pad_to_multiple=5))
+    return fc, att, am, labels, masks, refs, ref_mask
+
+
+def make_rl_step(model: str, mode: str = 'scst', device: str = 'cuda',
+                 B: int = 10, scorer=None):
+    """(trainer, step(it) -> its output dict, (dropout generator, noise
+    generator), the batch (fc, att, am, refs, ref_mask)) for ``model``'s
+    fused SCST (``mode`` 'scst') or structure ('struc') step with its
+    ``RL`` options, on one seeded batch of B images (``rl_batch``);
+    ``scorer`` a ``DeviceCiderD`` on ``device`` (default: over
+    ``corpus_df``)."""
+    from ..modules.trainer import Trainer
+    from ..ops.cider_device import DeviceCiderD
+    model_kw, opt_kw = RL[model]
+    opt = rl_opt(**opt_kw)
+    tr = Trainer(train_captioner(model, device, **model_kw), opt)
+    fc, att, am, labels, masks, refs, ref_mask = rl_batch(tr.captioner, B, 4)
+    if scorer is None:
+        scorer = DeviceCiderD(*corpus_df(), device=device)
+    gen, gen_lm, noise = (torch.Generator(device).manual_seed(k)
+                          for k in (6, 7, 8))
+
+    def step(it):
+        if mode == 'scst':
+            return tr.sc_fused_step(fc, att, am, refs, ref_mask,
+                                    opt.learning_rate, noise, noise, gen,
+                                    scorer)
+        return tr.struc_fused_step(fc, att, labels, masks, am, refs,
+                                   ref_mask, opt.learning_rate, noise, gen,
+                                   gen_lm, scorer)
+
+    return tr, step, (gen, noise), (fc, att, am, refs, ref_mask)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     p.add_argument('--model', default='updown', choices=sorted(TRAIN))
+    p.add_argument('--mode', default='xe', choices=('xe', 'scst', 'struc'))
     a = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit('profile_train: needs a CUDA device')
+    if a.mode != 'xe' and a.model not in RL:
+        raise SystemExit('profile_train: --mode %s takes --model %s'
+                         % (a.mode, '|'.join(sorted(RL))))
     from torch.profiler import ProfilerActivity, profile
-    _, step, _ = make_step(a.model)
+    if a.mode == 'xe':
+        _, step, _ = make_step(a.model)
+    else:
+        _, step, _, _ = make_rl_step(a.model, a.mode)
     it = 0
     for _ in range(WARM):
         it += 1
@@ -137,7 +250,8 @@ def main(argv=None):
               and not getattr(e, 'is_user_annotation', False)]
     busy = sum(e.self_device_time_total for e in events) / 1000 / PROFILED
     events.sort(key=lambda e: -e.self_device_time_total)
-    out = {'model': a.model, 'batch': '10 x 5', 'label_length': L,
+    out = {'model': a.model, 'mode': a.mode, 'batch': '10 x 5',
+           'label_length': L,
            'device': torch.cuda.get_device_name(0),
            'step_wall_ms_unprofiled': walls,
            'step_wall_ms_profiled': wall, 'device_busy_ms': busy,

@@ -347,7 +347,9 @@ def eval_split_n(captioner, n_predictions, input_data, vocab, rng,
     diverse groups of ``beam_size`` beams) or 'd<method>' (diverse sampling
     by <method> in sample_n groups).  ``rng`` draws the samples; the
     decoding options of ``eval_kwargs`` (the constraints, temperature,
-    length penalty, ``diversity_lambda``) apply."""
+    length penalty) apply.  ``diversity_lambda`` does not: the diverse
+    methods decode at the engine's default, as the JAX package's
+    ``eval_split_n`` does (the reference passes it through)."""
     eval_kwargs = eval_kwargs or {}
     verbose = eval_kwargs.get('verbose', True)
     beam_size = eval_kwargs.get('beam_size', 1)
@@ -357,8 +359,7 @@ def eval_split_n(captioner, n_predictions, input_data, vocab, rng,
     B = len(data['infos'])
     base = {k: eval_kwargs.get(k) for k in
             ('temperature', 'decoding_constraint', 'block_trigrams',
-             'remove_bad_endings', 'suppress_UNK', 'length_penalty',
-             'diversity_lambda')
+             'remove_bad_endings', 'suppress_UNK', 'length_penalty')
             if eval_kwargs.get(k) is not None}
 
     def add(sents, per_image, extra=None):

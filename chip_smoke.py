@@ -100,7 +100,28 @@ Phases, in order; any failure raises and exits non-zero:
    kernels (CUDA) against twins (CPU), the sampling noise drawn once on
    the CPU and fed to both; and the top-k held bit for bit against its
    twin on a candidate table of the constrained general body, which holds
-   -inf.
+   -inf;
+11. SCST and structure training through the port's ``Trainer``: (a)
+   float32 agreement: one ``sc_fused_step`` and one ``struc_fused_step``
+   (new_self_critical) of UpDown and of the transformer at full width, 2
+   images x 5 samples, dropout 0, TF32 off, learning rate 0, on the card
+   (kernels) and on the CPU (twins), the sampling noise drawn once on the
+   CPU and fed to both: ``sc_decode``'s greedy and sampled sequences
+   identical, the rewards within 1e-5, each step's loss and gradients as
+   phase 9 holds them; (b) the fused SCST step of
+   ``configs/updown/updown_sc.yml`` and ``configs/transformer/
+   transformer_sc.yml`` (``profile_train.RL``) at batch 10 x 5 (the
+   transformer also at 50 x 5, the reference bench's SCST shape), decode
+   length 20, float32, 5 references of label length 16 an image, the
+   CIDEr-D df table built as ``scripts/prepro_ngrams.py`` builds it over a
+   seeded random corpus of 5000 images x 5 references in the COCO
+   vocabulary: 3 warm-up steps, then 20 with the launch counters reset
+   just before, B3 required on the UpDown baseline and sample (at least
+   21 launches a step, no other kernel), B1 and B2 on the transformer's
+   greedy baseline (B1 six times B2's count, no other kernel); each run
+   prints its median s/iter and spread (CUDA events and host wall), its
+   peak memory, and an ``sc_decode`` scored on the card and by the python
+   CiderD on the CPU (within 1e-4).
 
 Each decode mode requires the kernels its path runs: the top-k only in
 beam (the RNN plain-step route; the transformer's fused route selects in
@@ -1018,11 +1039,22 @@ def train_agreement(torch, model):
                                      for n, p in tr.named_params.items()})
         del cap, tr
     (lg, gg), (lc, gc) = got['cuda'], got['cpu']
-    loss_err = abs(lg - lc) / abs(lc)
+    return step_agreement(model, 'xe_step', lg, lc, gg, gc)
+
+
+def step_agreement(model, what, lg, lc, gg, gc):
+    """A train step's loss on the card (lg) against the CPU's (lc) within
+    1e-5 relative, and each gradient of ``gg`` against ``gc`` within 1e-4
+    of its tensor's largest magnitude: (loss rel err, worst gradient
+    err)."""
+    loss_err = abs(lg - lc) / max(abs(lc), 1e-30)
     # a bias added to every score of a softmax row (alpha_net's, the
     # attention K projections') has an exact gradient of 0: on both
     # devices it is rounding, held to 1e-6 of the model's largest gradient
     scale = max(float(g.abs().max()) for g in gc.values())
+    if not scale > 0:
+        raise AssertionError('%s %s: every gradient is 0 on the CPU'
+                             % (model, what))
     zero = sorted(n for n in gc if float(gc[n].abs().max()) <= 1e-6 * scale)
     zero_err = max([float(gg[n].abs().max()) / scale for n in zero],
                    default=0.0)
@@ -1030,17 +1062,18 @@ def train_agreement(torch, model):
             for n in gc if n not in zero}
     worst = max(errs, key=errs.get)
     grad_err = errs[worst]
-    log('  %s f32 xe_step, kernels (card) vs twins (CPU): loss %.6f vs '
+    log('  %s f32 %s, kernels (card) vs twins (CPU): loss %.6f vs '
         '%.6f (rel %.2e); worst gradient err / its tensor max %.2e (%s) over '
         '%d tensors; %d zero up to rounding (%s) at most %.2e of the '
         'largest gradient on the card'
-        % (model, lg, lc, loss_err, grad_err, worst, len(errs), len(zero),
-           ', '.join(zero), zero_err))
+        % (model, what, lg, lc, loss_err, grad_err, worst, len(errs),
+           len(zero), ', '.join(zero), zero_err))
     if not (loss_err <= 1e-5 and grad_err <= 1e-4 and zero_err <= 1e-6):
-        raise AssertionError('%s f32 train step: loss rel err %.2e (max '
+        raise AssertionError('%s f32 %s: loss rel err %.2e (max '
                              '1e-5), gradient err %.2e (max 1e-4, %s), zero '
                              'gradients %.2e (max 1e-6)'
-                             % (model, loss_err, grad_err, worst, zero_err))
+                             % (model, what, loss_err, grad_err, worst,
+                                zero_err))
     return loss_err, grad_err
 
 
@@ -1130,6 +1163,207 @@ def phase_train(torch, wrappers):
         for name, n in counts.items():
             launches[name] += n
     log('  training record: %s' % json.dumps(records))
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 11: SCST and structure training through the port's Trainer
+# ---------------------------------------------------------------------------
+
+def rl_agreement(torch, model, scorers):
+    """One sc_fused_step and one struc_fused_step (new_self_critical) of
+    ``model`` at full width, 2 images x 5 samples, dropout 0, on the card
+    (kernels) and on the CPU (twins), the sampling noise drawn once on the
+    CPU and fed to both, at learning rate 0 so both steps read the init:
+    the greedy and sampled sequences of ``sc_decode`` identical, the
+    rewards within 1e-5, each step's loss and gradients as
+    ``step_agreement`` holds them."""
+    from captioning_tpu_torch.modules.trainer import Trainer
+    from captioning_tpu_torch.tools import profile_train as pt
+    got = {}
+    for device in ('cuda', 'cpu'):
+        cap = pt.train_captioner(model, device, drop_prob_lm=0.0,
+                                 dropout=0.0)
+        tr = Trainer(cap, pt.rl_opt(grad_clip_value=0.0))
+        fc, att, am, labels, masks, refs, ref_mask = pt.rl_batch(cap, 2, 3)
+        scorer, gen = scorers[device], torch.Generator(device).manual_seed(0)
+        greedy, sampled = tr.sc_decode(fc, att, am, None,
+                                       cpu_draws(torch, 200), gen)
+        # the second reference of each image is its first sample, which
+        # both steps below draw again: a random model's samples share no
+        # n-gram with other references, and all-equal scores would leave
+        # the structure loss's leave-one-out advantage at 0
+        refs[:, 1, :-1] = sampled[::5, :refs.shape[2] - 1]
+        refs[:, 1, -1] = 0
+        rec = {'greedy': greedy.cpu(), 'sampled': sampled.cpu(),
+               'reward': scorer.self_critical_reward(
+                   greedy, sampled, refs, ref_mask).cpu()}
+        out = tr.sc_fused_step(fc, att, am, refs, ref_mask, 0.0, None,
+                               cpu_draws(torch, 200), gen, scorer)
+        rec['scst'] = (float(out['loss']), {
+            n: p.grad.detach().cpu() for n, p in tr.named_params.items()})
+        rec['scst_reward'] = float(out['reward'])
+        out = tr.struc_fused_step(fc, att, labels, masks, am, refs,
+                                  ref_mask, 0.0, cpu_draws(torch, 200), gen,
+                                  gen, scorer)
+        rec['struc'] = (float(out['loss']), {
+            n: p.grad.detach().cpu() for n, p in tr.named_params.items()})
+        rec['struc_reward'] = out['reward'].cpu()
+        got[device] = rec
+        del cap, tr
+    g, c = got['cuda'], got['cpu']
+    for key in ('greedy', 'sampled'):
+        if not torch.equal(g[key], c[key]):
+            raise AssertionError('%s f32 sc_decode: the %s sequences differ '
+                                 'on %d of %d rows' % (
+                                     model, key,
+                                     int((g[key] != c[key]).any(1).sum()),
+                                     g[key].shape[0]))
+    reward_err = max(float((g['reward'] - c['reward']).abs().max()),
+                     abs(g['scst_reward'] - c['scst_reward']),
+                     float((g['struc_reward'] - c['struc_reward'])
+                           .abs().max()))
+    log('  %s f32 sc_decode: greedy and sampled sequences identical '
+        '(%d + %d rows, longest %d tokens); rewards card vs CPU max diff '
+        '%.2e (mean advantage %.6f vs %.6f)'
+        % (model, g['greedy'].shape[0], g['sampled'].shape[0],
+           int((g['sampled'] > 0).sum(1).max()), reward_err,
+           g['scst_reward'], c['scst_reward']))
+    if not reward_err <= 1e-5:
+        raise AssertionError('%s f32 rewards: card vs CPU %.2e (max 1e-5)'
+                             % (model, reward_err))
+    return {what: step_agreement(model, name, g[what][0], c[what][0],
+                                 g[what][1], c[what][1])
+            for what, name in (('scst', 'sc_fused_step'),
+                               ('struc', 'struc_fused_step'))}
+
+
+def rl_run(torch, model, B, scorer, df_path, wrappers, check_launches,
+           warm=3, steps=20):
+    """``warm`` + ``steps`` fused SCST steps of ``model`` with its SCST
+    stage's options (``profile_train.RL``) at B images x 5 samples, decode
+    length 20, on one seeded batch; the launch counters are set to 0 after
+    the warm-up and ``check_launches(counts a step)`` holds them.  Then one
+    ``sc_decode`` is scored on the card and by the python CiderD on the
+    CPU (``utils/rewards.py``), within 1e-4.  Returns the run's record and
+    its launch counts."""
+    from captioning_tpu_torch.tools import profile_train as pt
+    from captioning_tpu_torch.utils import rewards
+    torch.cuda.empty_cache()
+    tr, step, (gen, noise), (fc, att, am, refs, ref_mask) = pt.make_rl_step(
+        model, 'scst', 'cuda', B, scorer=scorer)
+    for it in range(warm):
+        step(it)
+    torch.cuda.synchronize()
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    dev_ms, wall_ms, losses, rewards_run = [], [], [], []
+    for it in range(steps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t = time.time()
+        start.record()
+        out = step(it)
+        end.record()
+        torch.cuda.synchronize()
+        wall_ms.append(1000 * (time.time() - t))
+        dev_ms.append(start.elapsed_time(end))
+        losses.append(float(out['loss']))
+        rewards_run.append(float(out['reward']))
+    counts = {name: fn.launches for name, fn in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    per_step = {n: c / steps for n, c in counts.items() if c}
+    check_launches(per_step)
+    if not all(v == v and abs(v) != float('inf')
+               for v in losses + rewards_run):
+        raise AssertionError('%s SCST: a loss or reward is not finite'
+                             % model)
+
+    rewards.init_scorer(df_path)
+    greedy, sampled = tr.sc_decode(fc, att, am, noise, noise, gen)
+    card = scorer.self_critical_reward(greedy, sampled, refs, ref_mask).cpu()
+    n_refs = ref_mask.sum(1).long().tolist()
+    gts = [r[:k] for r, k in zip(refs.cpu().numpy(), n_refs)]
+    host = torch.from_numpy(rewards.get_self_critical_reward(
+        greedy.cpu().numpy(), gts, sampled.cpu().numpy(), tr.opt))
+    reward_err = float((card - host).abs().max())
+    if not reward_err <= 1e-4:
+        raise AssertionError('%s SCST reward: card vs the python CiderD on '
+                             'the CPU %.2e (max 1e-4)' % (model, reward_err))
+
+    def spread(v):
+        v = sorted(v)
+        return v[len(v) // 2] / 1000, v[0] / 1000, v[-1] / 1000
+
+    rec = {'model': model, 'batch': '%d x 5' % B, 'steps': steps,
+           's_iter_events': spread(dev_ms), 's_iter_wall': spread(wall_ms),
+           'peak_gib': peak, 'reward_mean_run': sum(rewards_run) / steps,
+           'reward_card': float(card[:, 0].mean()),
+           'reward_host': float(host[:, 0].mean()),
+           'reward_max_diff': reward_err, 'launches_per_step': per_step}
+    log('  %s SCST fused step (batch %d x 5, decode length 20): median '
+        '%.4f s/iter by CUDA events (min %.4f, max %.4f), host wall median '
+        '%.4f s (min %.4f, max %.4f); peak memory %.3f GiB; mean reward '
+        '%.6f over the run; an sc_decode scored on the card %.6f and by the '
+        'python CiderD on the CPU %.6f (max diff %.2e); launches a step %s'
+        % ((model, B) + rec['s_iter_events'] + rec['s_iter_wall']
+           + (peak, rec['reward_mean_run'], rec['reward_card'],
+              rec['reward_host'], reward_err, per_step)))
+    del tr
+    return rec, counts
+
+
+def phase_rl(torch, wrappers):
+    """Phase 11; returns the launch counts of the timed SCST runs."""
+    import pickle
+
+    from captioning_tpu_torch.ops.cider_device import DeviceCiderD
+    from captioning_tpu_torch.tools import profile_train as pt
+    torch.set_num_threads(min(8, os.cpu_count() or 1))
+    t = time.time()
+    df, ref_len = pt.corpus_df()
+    df_path = os.path.join(HERE, 'build', 'phase11-idxs.p')
+    os.makedirs(os.path.dirname(df_path), exist_ok=True)
+    with open(df_path, 'wb') as f:
+        pickle.dump({'document_frequency': df, 'ref_len': ref_len}, f)
+    scorers = {d: DeviceCiderD(df, ref_len, device=d)
+               for d in ('cuda', 'cpu')}
+    log('  df table: %d n-grams over %d images x %d references (%.1f s)'
+        % (len(df), ref_len, pt.CORPUS_REFS, time.time() - t))
+    for model in ('updown', 'transformer'):
+        rl_agreement(torch, model, scorers)
+
+    def updown(per_step):
+        # B3 on each baseline step (at least one) and on each of the
+        # sampling pass's 20
+        if per_step.get('additive_attention', 0) < 21 or set(per_step) != {
+                'additive_attention'}:
+            raise AssertionError('UpDown SCST launches a step %s: B3 at '
+                                 'least 21, no other kernel' % per_step)
+
+    def transformer(per_step):
+        # the greedy baseline's uniform steps: B2's k = 1 epilogue once and
+        # B1 once a layer a step; the train-mode sampling runs the plain
+        # per-row step
+        b2 = per_step.get('logit_topk', 0)
+        if b2 < 1 or per_step.get('attend_write_merged') != 6 * b2 or set(
+                per_step) != {'logit_topk', 'attend_write_merged'}:
+            raise AssertionError('transformer SCST launches a step %s: B2 at '
+                                 'least once, B1 six times as often, no '
+                                 'other kernel' % per_step)
+
+    launches = dict.fromkeys(wrappers, 0)
+    records = []
+    for model, B, check in (('updown', 10, updown),
+                            ('transformer', 10, transformer),
+                            ('transformer', 50, transformer)):
+        rec, counts = rl_run(torch, model, B, scorers['cuda'], df_path,
+                             wrappers, check)
+        records.append(rec)
+        for name, n in counts.items():
+            launches[name] += n
+    log('  SCST record: %s' % json.dumps(records))
     return launches
 
 
@@ -1395,6 +1629,13 @@ def main():
                    graph_ms(torch, lambda: tk.topk_lastdim(x, 5), 20)))
             del x
     log('phase 10: %.1f s' % (time.time() - t))
+
+    log('phase 11: SCST and structure training through the port\'s '
+        'Trainer')
+    t = time.time()
+    for name, n in phase_rl(torch, wrappers).items():
+        launches[name] += n
+    log('phase 11: %.1f s' % (time.time() - t))
 
     bad = [m for m in sys.modules
            if m.split('.')[0] in ('jax', 'flax', 'optax', 'captioning_tpu')]

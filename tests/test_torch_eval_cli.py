@@ -252,13 +252,17 @@ def test_language_eval_matches_jax(checkpoint, tmp_path, monkeypatch):
                                      'self_cider'}
 
 
-@pytest.mark.parametrize('method', ['bs', 'dbs', 'dgreedy', 'top1'])
+@pytest.mark.parametrize('method', ['bs', 'dbs', 'dgreedy', 'top1',
+                                    'dbs@0.3', 'dgreedy@0.3'])
 def test_eval_split_n_cli_matches_jax(checkpoint, method, monkeypatch):
     """--sample_n 3 through tools/eval_torch.py against the JAX
     ``eval_split``: the multi-sample predictions of ``eval_split_n`` in
     the saved pickle, identical captions for the deterministic methods
     (beams, diverse beams, diverse greedy, top-1 sampling), top-1's
-    perplexities within 1e-4; the split's own predictions too."""
+    perplexities within 1e-4; the split's own predictions too.  With
+    ``--diversity_lambda`` 0.3 (``<method>@0.3``) the diverse methods
+    still decode at the engine's default, as the JAX ``eval_split_n``
+    does."""
     from captioning_tpu.data.dataset import DataLoader
     from captioning_tpu.utils import eval_utils
 
@@ -266,6 +270,8 @@ def test_eval_split_n_cli_matches_jax(checkpoint, method, monkeypatch):
     run = root / ('run_n_' + method)
     run.mkdir()
     monkeypatch.chdir(run)
+    method, _, lam = method.partition('@')
+    lam_args = ['--diversity_lambda', lam] if lam else []
     beam = 2 if method == 'dbs' else 1
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS='1')
     r = subprocess.run(
@@ -275,7 +281,7 @@ def test_eval_split_n_cli_matches_jax(checkpoint, method, monkeypatch):
          '--num_images', '4', '--language_eval', '0', '--force', '1',
          '--dump_images', '0', '--max_length', '6', '--beam_size',
          str(beam), '--verbose_loss', '0', '--id', 'tcli',
-         '--sample_n', '3', '--sample_n_method', method],
+         '--sample_n', '3', '--sample_n_method', method] + lam_args,
         capture_output=True, text=True, env=env, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
     with open(run / 'eval_results' / '.saved_pred_tcli_val.pkl', 'rb') as f:
@@ -285,6 +291,8 @@ def test_eval_split_n_cli_matches_jax(checkpoint, method, monkeypatch):
           'verbose': False, 'id': 'tcli_jax', 'max_length': 6,
           'beam_size': beam, 'suppress_UNK': 1, 'verbose_loss': 0,
           'sample_n': 3, 'sample_n_method': method}
+    if lam:
+        kw['diversity_lambda'] = float(lam)
     _, want, _ = eval_utils.eval_split(cap, variables, DataLoader(opt), kw)
     with open('eval_results/.saved_pred_tcli_jax_val.pkl', 'rb') as f:
         want_n = pickle.load(f)[1]

@@ -2,7 +2,8 @@
 interpreter where importing jax, flax, optax or ``captioning_tpu`` fails,
 every module of the port, ``tools/eval_torch.py`` and
 ``tools/train_torch.py`` import, and a tiny CPU beam, diverse beam, greedy
-and ``sample_n`` top-3 decode and an XE train step run, for the
+and ``sample_n`` top-3 decode, an XE train step and a fused SCST step (its
+reward on ``ops/cider_device.py``) run, for the
 transformer and for RNN captioners of each family (UpDown, StackAtt,
 NewFC, LM, AdaAttMO).  An AST scan of the port's
 sources, ``chip_smoke.py``, ``tools/eval_torch.py`` and
@@ -70,9 +71,21 @@ for k, v in dict(optim='adam', learning_rate=1e-3, optim_alpha=0.9,
                  grad_clip_mode='value', grad_clip_value=0.1).items():
     setattr(opt, k, v)
 labels = torch.randint(1, 20, (3, 2, 7), generator=g)
-out = Trainer(cap, opt).xe_step(fc, att, labels, torch.ones(3, 2, 7), am,
-                                1e-3, 0.25, torch.Generator().manual_seed(2))
+trainer = Trainer(cap, opt)
+out = trainer.xe_step(fc, att, labels, torch.ones(3, 2, 7), am, 1e-3, 0.25,
+                      torch.Generator().manual_seed(2))
 assert torch.isfinite(out['loss'])
+from captioning_tpu_torch.ops.cider_device import DeviceCiderD
+for k, v in dict(train_sample_n=2, train_sample_method='sample',
+                 train_beam_size=1, sc_sample_method='greedy',
+                 sc_beam_size=1, cider_reward_weight=1.0).items():
+    setattr(opt, k, v)
+scorer = DeviceCiderD({(str(i),): 1.0 for i in range(20)}, ref_len=4.0,
+                      device='cpu')
+out = trainer.sc_fused_step(fc, att, am, labels[:, :, 1:], torch.ones(3, 2),
+                            1e-3, None, torch.Generator().manual_seed(4),
+                            torch.Generator().manual_seed(5), scorer)
+assert torch.isfinite(out['loss']) and torch.isfinite(out['reward'])
 bad = [m for m in sys.modules
        if m.split('.')[0] in ('jax', 'flax', 'optax', 'captioning_tpu')
        and sys.modules[m] is not None]

@@ -1,8 +1,9 @@
 """The port's copies of the JAX package's host-only modules behave as the
 originals: the npz tree I/O and the checkpoint writer, the options, the
 learning-rate schedules of ``utils/optimizers.py``, the data loader's
-batches on the synthetic dataset, and the caption metrics through
-``language_eval``."""
+batches on the synthetic dataset, the caption metrics through
+``language_eval``, and the RL rewards of ``utils/rewards.py`` and
+``utils/cider_native.py``."""
 
 import json
 import os
@@ -233,3 +234,67 @@ def test_bad_endings_match_jax_package():
         ['x', 'a', 'dog', 'the', 'on', 'of', 'this', 'that', 'UNK'], 1)}
     for v in (vocab, None):
         assert papi._vocab_indices(v, 9) == japi._vocab_indices(v, 9)
+
+
+@pytest.mark.parametrize('cider_w,bleu_w', [(1.0, 0.0), (0.5, 1.0)],
+                         ids=['cider', 'mixed'])
+def test_rewards_match_jax_package(ds, cider_w, bleu_w):
+    """``utils/rewards.py``, the port's copy: the self-critical reward, the
+    structure scores and the self-CIDEr scores of the same sequences equal
+    the original's."""
+    from types import SimpleNamespace
+
+    from captioning_tpu.utils import rewards as jrewards
+    from captioning_tpu_torch.utils import rewards as prewards
+    rng = np.random.RandomState(0)
+    B, n = 3, 3
+    gen = rng.randint(0, ds.vocab_size + 1, (B * n, 7))
+    greedy = rng.randint(0, ds.vocab_size + 1, (B, 7))
+    gts = [rng.randint(1, ds.vocab_size + 1, (rng.randint(2, 5), 6))
+           for _ in range(B)]
+    opt = SimpleNamespace(cider_reward_weight=cider_w,
+                          bleu_reward_weight=bleu_w)
+    for mod in (jrewards, prewards):
+        mod.CiderD_scorer = mod.Cider_scorer = mod.Bleu_scorer = None
+        mod.init_scorer(ds.cached_tokens)
+    assert prewards.array_to_str(gen[0]) == jrewards.array_to_str(gen[0])
+    for name, args in (('get_self_critical_reward', (greedy, gts, gen, opt)),
+                       ('get_scores', (gts, gen, opt)),
+                       ('get_self_cider_scores', (gts, gen, opt))):
+        want = getattr(jrewards, name)(*args)
+        got = getattr(prewards, name)(*args)
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want, err_msg=name)
+    for mod in (jrewards, prewards):
+        mod.CiderD_scorer = mod.Cider_scorer = mod.Bleu_scorer = None
+
+
+def test_native_scorer_matches_jax_package(ds):
+    """``utils/cider_native.py``, the port's copy, built from the shared
+    ``native/cider_d.cpp``: the structure scores and the self-critical
+    reward equal the original's, and the python CiderD's within 1e-4."""
+    from types import SimpleNamespace
+
+    from captioning_tpu.utils import cider_native as jnative
+    from captioning_tpu_torch.utils import cider_native as pnative
+    from captioning_tpu_torch.utils import rewards
+    rng = np.random.RandomState(1)
+    B, n = 4, 2
+    gen = rng.randint(0, ds.vocab_size + 1, (B * n, 7))
+    greedy = rng.randint(0, ds.vocab_size + 1, (B, 7))
+    gts = [rng.randint(1, ds.vocab_size + 1, (rng.randint(2, 5), 6))
+           for _ in range(B)]
+    jsc = jnative.NativeCiderD(ds.cached_tokens)
+    psc = pnative.NativeCiderD(ds.cached_tokens)
+    np.testing.assert_array_equal(
+        pnative.native_get_scores(psc, gts, gen, 0.5),
+        jnative.native_get_scores(jsc, gts, gen, 0.5))
+    got = pnative.native_self_critical_reward(psc, greedy, gts, gen)
+    np.testing.assert_array_equal(
+        got, jnative.native_self_critical_reward(jsc, greedy, gts, gen))
+    rewards.CiderD_scorer = None
+    rewards.init_scorer(ds.cached_tokens)
+    py = rewards.get_self_critical_reward(greedy, gts, gen, SimpleNamespace(
+        cider_reward_weight=1.0, bleu_reward_weight=0.0))
+    rewards.CiderD_scorer = rewards.Cider_scorer = rewards.Bleu_scorer = None
+    np.testing.assert_allclose(got, py, atol=1e-4, rtol=0)

@@ -264,16 +264,60 @@ def test_profile_train_steps_on_the_cpu(model, monkeypatch):
         pt.main(['--model', model])
 
 
+@pytest.mark.parametrize('model,mode', [('updown', 'scst'),
+                                        ('transformer', 'scst'),
+                                        ('updown', 'struc')])
+def test_profile_rl_steps_on_the_cpu(model, mode, monkeypatch):
+    """``tools/profile_train.py``'s RL set-up (the one ``chip_smoke.py``
+    phase 11 times) at tiny widths on the CPU: the SCST stage's options,
+    references holding the model's greedy caption (so the rewards differ
+    between samples), a df table built as prepro_ngrams builds it, and
+    fused steps with finite losses; its entry point refuses to run
+    without a GPU."""
+    import torch
+
+    from captioning_tpu_torch.ops.cider_device import DeviceCiderD
+    from captioning_tpu_torch.tools import profile_decode as pd
+    from captioning_tpu_torch.tools import profile_train as pt
+    monkeypatch.setattr(pd, 'V', 40)
+    monkeypatch.setattr(pd, 'FEAT', 12)
+    monkeypatch.setattr(pd, 'REGIONS', 5)
+    monkeypatch.setattr(pd, 'MODELS', {
+        'transformer': dict(input_encoding_size=16, rnn_size=32,
+                            num_layers=2, att_hid_size=8, N_enc=1, N_dec=1,
+                            d_model=16, d_ff=32, num_att_heads=4),
+        'updown': dict(input_encoding_size=24, rnn_size=24, num_layers=2,
+                       att_hid_size=8)})
+    df, ref_len = pt.corpus_df(images=50)
+    assert ref_len == 50 and ('0',) in df
+    assert max(len(g) for g in df) == 4
+    scorer = DeviceCiderD(df, ref_len, device='cpu')
+    tr, step, _, (fc, att, am, refs, ref_mask) = pt.make_rl_step(
+        model, mode, 'cpu', B=2, scorer=scorer)
+    assert tr.opt.train_sample_n == 5 and refs.shape == (2, 5, pt.L)
+    assert tr.captioner.module.cfg.drop_prob_lm == 0.5
+    rewards = []
+    for it in range(2):
+        out = step(it)
+        assert torch.isfinite(out['loss'])
+        rewards.append(out['reward'])
+    if mode == 'struc':
+        assert rewards[0].shape == (2, 5)
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(SystemExit, match='CUDA'):
+        pt.main(['--model', model, '--mode', mode])
+
+
 @pytest.mark.parametrize('flag,value,match', [
     ('mesh_shape', 'data:2', 'A7'), ('dist_auto', 1, 'A7'),
-    ('use_ppo', 1, 'A5'), ('compute_dtype', 'bfloat16', 'float32 master'),
-    ('self_critical_after', 0, 'A5'), ('structure_after', 0, 'A5')])
+    ('compute_dtype', 'bfloat16', 'float32 master'),
+    ('train_beam_size', 2, 'train-mode sampling by beam')])
 def test_unported_training_raises(ds, tmp_path, monkeypatch, flag, value,
                                   match):
-    """What the XE loop does not port raises NotImplementedError naming its
-    ROADMAP item (an SCST or structure stage once it is reached, after the
-    exception checkpoint of the JAX loop), and ``--device cuda`` without a
-    GPU raises."""
+    """What the loop does not port raises NotImplementedError naming its
+    ROADMAP item or what is left out (an SCST stage that samples by beam
+    search once it is reached, after the exception checkpoint of the JAX
+    loop), and ``--device cuda`` without a GPU raises."""
     import importlib.util
 
     import torch
@@ -285,12 +329,108 @@ def test_unported_training_raises(ds, tmp_path, monkeypatch, flag, value,
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     ckpt = str(tmp_path / 'ckpt')
-    opt = popts.parse_opt(_args(ds, ckpt, 1))
+    opt = popts.parse_opt(_args(ds, ckpt, 1, self_critical_after=0,
+                                cached_tokens=ds.cached_tokens))
     setattr(opt, flag, value)
+    opt.train_sample_method = 'greedy'     # with train_beam_size: beam
     with pytest.raises(NotImplementedError, match=match):
         mod.train(opt, device='cpu')
-    if flag == 'self_critical_after':
+    if flag == 'train_beam_size':
         assert os.path.isfile(os.path.join(ckpt, 'model.npz'))
+    if flag == 'mesh_shape':
         monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
         with pytest.raises(RuntimeError, match='CUDA'):
             mod.main(_args(ds, ckpt, 1))
+
+
+def _rl_args(ds, ckpt, epochs, **kw):
+    """2 XE steps (epoch 0), then the SCST or structure stage: 2 samples
+    an image, the CIDEr-D reward over the dataset's df pickle."""
+    return _args(ds, ckpt, epochs, **dict(dict(
+        cached_tokens=ds.cached_tokens, train_sample_n=2), **kw))
+
+
+def _histories(ckpt):
+    return _load(os.path.join(ckpt, 'histories_tr.pkl'))
+
+
+@pytest.mark.parametrize('stage', ['scst', 'struc'])
+def test_rl_stage_rewards_agree_across_scorers(ds, tmp_path, monkeypatch,
+                                               stage):
+    """2 XE steps, then 2 SCST (or structure, new_self_critical at weight
+    0.5) steps through tools/train_torch.py: with the fused step on the
+    on-device CIDEr-D (the default), with ``--on_device_cider 0`` and the
+    native C++ scorer, and with the python scorer (the native library made
+    unavailable), the loss history (the mean reward on SCST iterations)
+    agrees within 1e-5: the three draw the same dropout and sampling
+    noise, and the unfused grad step recomputes the decode's pass.  The
+    checkpoint keeps the contract; the scorer in use is printed."""
+    from captioning_tpu_torch.utils import cider_native, rewards
+    monkeypatch.chdir(tmp_path)
+    kw = ({'self_critical_after': 1} if stage == 'scst' else
+          {'structure_after': 1, 'structure_loss_weight': 0.5,
+           'structure_loss_type': 'new_self_critical'})
+    runs = {}
+    for scorer in ('device', 'native', 'python'):
+        monkeypatch.setattr(rewards, 'CiderD_scorer', None)
+        if scorer == 'python':
+            monkeypatch.setattr(cider_native, 'NativeCiderD', None)
+        ckpt = str(tmp_path / scorer)
+        _train_port(_rl_args(ds, ckpt, 2, on_device_cider=(
+            -1 if scorer == 'device' else 0), **kw))
+        runs[scorer] = _histories(ckpt)['loss_history']
+    assert sorted(runs['device']) == [1, 2, 3, 4]
+    for scorer in ('native', 'python'):
+        assert sorted(runs[scorer]) == [1, 2, 3, 4]
+        np.testing.assert_allclose(
+            [runs[scorer][i] for i in range(1, 5)],
+            [runs['device'][i] for i in range(1, 5)], atol=1e-5, rtol=0,
+            err_msg=scorer)
+    infos = _load(os.path.join(str(tmp_path / 'device'), 'infos_tr.pkl'))
+    assert (infos['iter'], infos['epoch']) == (4, 2)
+    with np.load(os.path.join(str(tmp_path / 'device'),
+                              'optimizer.npz')) as f:
+        assert int(f['#1/#0/#0']) == 4
+    # XE losses, then SCST's rewards (which can be negative)
+    assert all(runs['device'][i] > 0 for i in (1, 2))
+
+
+def test_ppo_stage_runs(ds, tmp_path, monkeypatch):
+    """PPO through the loop: the old policy loaded from
+    ``--ppo_old_model_path`` (an XE checkpoint), the structure stage's
+    fused steps; the old model's file is left as it was."""
+    monkeypatch.chdir(tmp_path)
+    xe = str(tmp_path / 'xe')
+    _train_port(_rl_args(ds, xe, 1))
+    before = open(os.path.join(xe, 'model.npz'), 'rb').read()
+    ckpt = str(tmp_path / 'ppo')
+    _train_port(_rl_args(ds, ckpt, 2, structure_after=1, use_ppo=1,
+                         ppo_old_model_path=os.path.join(xe, 'model.npz')))
+    hist = _histories(ckpt)['loss_history']
+    assert sorted(hist) == [1, 2, 3, 4]
+    assert all(np.isfinite(v) for v in hist.values())
+    assert open(os.path.join(xe, 'model.npz'), 'rb').read() == before
+
+
+def test_rl_stage_resumes_across_packages(ds, tmp_path, monkeypatch):
+    """tools/train.py trains the XE epoch; tools/train_torch.py resumes its
+    checkpoint into the SCST stage; tools/train.py resumes the port's SCST
+    checkpoint and goes on with SCST.  Each resume continues the iteration
+    count, the optimizer's step and the loss history (a checkpoint every
+    iteration)."""
+    monkeypatch.chdir(tmp_path)
+    ckpt = str(tmp_path / 'ckpt')
+    iters = []
+    for run, epochs in ((_train_jax, 1), (_train_port, 2), (_train_jax, 3)):
+        run(_rl_args(ds, ckpt, epochs, self_critical_after=1,
+                     save_checkpoint_every=1,
+                     start_from=ckpt if iters else None))
+        infos = _load(os.path.join(ckpt, 'infos_tr.pkl'))
+        assert infos['epoch'] == epochs
+        iters.append(infos['iter'])
+        with np.load(os.path.join(ckpt, 'optimizer.npz')) as f:
+            assert int(f['#1/#0/#0']) == infos['iter']
+    assert iters[0] < iters[1] < iters[2]
+    hist = _histories(ckpt)['loss_history']
+    assert sorted(hist) == list(range(1, iters[2] + 1))
+    assert all(np.isfinite(v) for v in hist.values())

@@ -1,8 +1,16 @@
-"""XE training entry point of the PyTorch port (counterpart of tools/train.py).
+"""Training entry point of the PyTorch port (counterpart of tools/train.py).
 
-The XE loop of tools/train.py on one device: the epoch-wise learning-rate
+The loop of tools/train.py on one device: XE, then the SCST stage from
+``self_critical_after`` and the structure-loss stage (PPO with
+``use_ppo``) from ``structure_after``; the epoch-wise learning-rate
 decay, warmup, noam and plateau schedules, the scheduled-sampling ramp and
-drop-worst; every ``save_checkpoint_every`` iterations (or epoch) the val
+drop-worst.  An RL iteration is one fused step on the card (the reward
+from ``ops/cider_device.py``) when the reward has a CIDEr or BLEU weight
+(``--on_device_cider`` -1, the default, or 1) and drop-worst is off;
+otherwise it decodes, scores on the host (the native C++ CIDEr-D scorer
+where the reward is CIDEr alone and the library builds, else the python
+scorers) and takes the grad step.  Every ``save_checkpoint_every``
+iterations (or epoch) the val
 ``eval_split``, the ``-best`` selection and the checkpoint; ``--start_from``
 resume (infos, histories, model, optimizer and loader state); a checkpoint
 on an exception; the optional tensorboard and wandb writers.  It runs on
@@ -13,9 +21,8 @@ contract (``model[-best|-<iter>].npz``, ``optimizer*.npz`` in the optax
 layout, ``infos_<id>*.pkl``, ``histories_<id>*.pkl``): tools/eval.py and
 tools/train.py read them, and this script resumes theirs.
 
-SCST and structure training (``self_critical_after`` / ``structure_after``
-reached), PPO, bf16 training, a mesh and multi-host runs raise and name
-their ROADMAP.md item.
+bf16 training, a mesh and multi-host runs raise and name their ROADMAP.md
+item.
 
     python tools/train_torch.py --cfg configs/updown/updown.yml \\
         --id updown --checkpoint_path log_updown [--device cpu]
@@ -42,6 +49,8 @@ from captioning_tpu_torch.models.api import setup  # noqa: E402
 from captioning_tpu_torch.modules.trainer import Trainer  # noqa: E402
 from captioning_tpu_torch.utils import eval_utils  # noqa: E402
 from captioning_tpu_torch.utils import optimizers as optim_utils  # noqa: E402
+from captioning_tpu_torch.utils.rewards import (  # noqa: E402
+    get_scores, get_self_cider_scores, get_self_critical_reward, init_scorer)
 
 
 def _summary_writer(path):
@@ -60,8 +69,6 @@ def _refuse_unported(opt):
             getattr(opt, 'dist_nproc', -1) not in (None, -1, 1):
         raise NotImplementedError('a mesh and multi-host training are not '
                                   'ported yet; see ROADMAP.md A7')
-    if getattr(opt, 'use_ppo', 0):
-        raise NotImplementedError('PPO is not ported yet; see ROADMAP.md A5')
     if getattr(opt, 'compute_dtype', 'float32') != 'float32':
         raise NotImplementedError('training in %s needs float32 master '
                                   'weights, not ported yet; see ROADMAP.md '
@@ -144,8 +151,19 @@ def train(opt, device='cuda'):
         print('loaded model from', opt.start_from)
     else:
         captioner.init_params(torch.Generator().manual_seed(seed))
-    # dropout and scheduled sampling draw from this stream
-    gen = torch.Generator(captioner.device).manual_seed(seed + 1)
+    # dropout and scheduled sampling draw from gen; the structure steps'
+    # XE term from gen_lm, the RL sampling noise from noise
+    gen, gen_lm, noise = (torch.Generator(captioner.device).manual_seed(
+        seed + k) for k in (1, 2, 3))
+
+    # PPO old model
+    old_captioner = None
+    if getattr(opt, 'use_ppo', 0):
+        if opt.ppo_old_model_path is None:
+            raise ValueError('Must provide old model path for PPO')
+        old_captioner = setup(opt, loader.get_vocab(),
+                              device=device).load_params(
+                                  opt.ppo_old_model_path)
 
     ##########################
     # Build optimizer
@@ -153,7 +171,7 @@ def train(opt, device='cuda'):
     if opt.noamopt and opt.caption_model not in ('transformer', 'bert',
                                                  'm2transformer'):
         raise ValueError('noamopt can only work with transformer')
-    trainer = Trainer(captioner, opt)
+    trainer = Trainer(captioner, opt, old_captioner=old_captioner)
     if opt.start_from is not None and os.path.isfile(
             os.path.join(opt.start_from, 'optimizer.npz')):
         trainer.load_opt_state_jax(utils.load_flat(
@@ -182,32 +200,86 @@ def train(opt, device='cuda'):
         best_val_score = infos.get('best_val_score', None)
 
     epoch_done = True
-    drop_worst_flag = False
+    sc_flag = struc_flag = drop_worst_flag = False
     opt.current_lr = opt.learning_rate
     ss_prob = 0.0
     d_model = getattr(opt, 'd_model', opt.input_encoding_size)
+    native_scorer = None
+    device_scorer = None
+
+    def get_native_scorer():
+        """The C++ CIDEr-D scorer, where the reward is CIDEr alone (a BLEU
+        weight takes the python scorers), or None where it does not
+        build."""
+        nonlocal native_scorer
+        if native_scorer is None and opt.cider_reward_weight > 0 and \
+                opt.bleu_reward_weight == 0:
+            try:
+                from captioning_tpu_torch.utils.cider_native import \
+                    NativeCiderD
+                native_scorer = NativeCiderD(opt.cached_tokens)
+                print('using native C++ CIDEr-D scorer')
+            except Exception as e:
+                print('native CIDEr-D unavailable (%s); python fallback' % e)
+                native_scorer = False
+        return native_scorer or None
+
+    def get_device_scorer(what):
+        nonlocal device_scorer
+        if device_scorer is None:
+            from captioning_tpu_torch.ops.cider_device import DeviceCiderD
+            device_scorer = DeviceCiderD(opt.cached_tokens,
+                                         device=captioner.device)
+            print('using on-device CIDEr-D (fused %s step)' % what)
+        return device_scorer
 
     def dev(x, dtype):
         return None if x is None else torch.as_tensor(
             np.asarray(x), dtype=dtype).to(captioner.device)
 
+    def device_refs(gts):
+        from captioning_tpu_torch.ops.cider_device import pad_gts
+        refs, ref_mask = pad_gts(gts, pad_to_multiple=5)
+        return dev(refs, torch.long), dev(ref_mask, torch.float32)
+
     pending = None  # the last step's record, its loss read one step later
 
     def flush_metrics(p):
-        """Print and log a completed step's loss, read after the next step
-        has been queued, so the host waits on the device no more than the
-        JAX loop does."""
-        train_loss = float(p['out']['loss'])
-        print("iter {} (epoch {}), train_loss = {:.3f}, time/batch = "
-              "{:.3f}".format(p['it'], p['epoch'], train_loss,
-                              time.time() - p['start']))
+        """Print and log a completed step's metrics, read after the next
+        step has been queued, so the host waits on the device no more than
+        the JAX loop does."""
+        out = p['out']
+        train_loss = float(out['loss'])
+        took = time.time() - p['start']
+        if p['struc_flag']:
+            print("iter {} (epoch {}), train_loss = {:.3f}, lm_loss = "
+                  "{:.3f}, struc_loss = {:.3f}, time/batch = {:.3f}"
+                  .format(p['it'], p['epoch'], train_loss,
+                          float(out['lm_loss']), float(out['struc_loss']),
+                          took))
+        elif not p['sc_flag']:
+            print("iter {} (epoch {}), train_loss = {:.3f}, time/batch = "
+                  "{:.3f}".format(p['it'], p['epoch'], train_loss, took))
+        else:
+            print("iter {} (epoch {}), avg_reward = {:.3f}, time/batch = "
+                  "{:.3f}".format(p['it'], p['epoch'], float(out['reward']),
+                                  took))
         it1 = p['it'] + 1
         # Write the training loss summary (train.py:216-235)
         if it1 % opt.losses_log_every == 0:
             tb_add('train_loss', train_loss, it1)
             tb_add('learning_rate', p['lr'], it1)
             tb_add('scheduled_sampling_prob', p['ss_prob'], it1)
-            histories['loss_history'][it1] = train_loss
+            if p['sc_flag']:
+                tb_add('avg_reward', float(out['reward']), it1)
+            elif p['struc_flag']:
+                reward = out['reward'].cpu().numpy()
+                tb_add('lm_loss', float(out['lm_loss']), it1)
+                tb_add('struc_loss', float(out['struc_loss']), it1)
+                tb_add('reward', float(reward.mean()), it1)
+                tb_add('reward_var', float(reward.var(1).mean()), it1)
+            histories['loss_history'][it1] = (
+                train_loss if not p['sc_flag'] else float(out['reward']))
             histories['lr_history'][it1] = p['lr']
             histories['ss_prob_history'][it1] = p['ss_prob']
 
@@ -227,14 +299,19 @@ def train(opt, device='cuda'):
                     ss_prob = min(opt.scheduled_sampling_increase_prob * frac,
                                   opt.scheduled_sampling_max_prob)
                 opt.ss_prob = ss_prob
-                # self-critical / structure stages (train.py:149-165)
-                for flag in ('self_critical_after', 'structure_after'):
-                    after = getattr(opt, flag)
-                    if after != -1 and epoch >= after:
-                        raise NotImplementedError(
-                            '%s %d reached at epoch %d: SCST and structure '
-                            'training are not ported yet; see ROADMAP.md A5'
-                            % (flag, after, epoch))
+                # self-critical / structure flags (train.py:149-165)
+                if (opt.self_critical_after != -1 and
+                        epoch >= opt.self_critical_after):
+                    sc_flag = True
+                    init_scorer(opt.cached_tokens)
+                else:
+                    sc_flag = False
+                if (opt.structure_after != -1 and
+                        epoch >= opt.structure_after):
+                    struc_flag = True
+                    init_scorer(opt.cached_tokens)
+                else:
+                    struc_flag = False
                 drop_worst_flag = (opt.drop_worst_after != -1 and
                                    epoch >= opt.drop_worst_after)
                 epoch_done = False
@@ -258,17 +335,80 @@ def train(opt, device='cuda'):
             print('Read data:', time.time() - start)
 
             start = time.time()
-            out = trainer.xe_step(
-                dev(data['fc_feats'], torch.float32),
-                dev(data['att_feats'], torch.float32),
-                dev(data['labels'], torch.long),
-                dev(data['masks'], torch.float32),
-                dev(data['att_masks'], torch.float32),
-                opt.current_lr, ss_prob, gen,
-                drop_worst_flag=drop_worst_flag)
+            fc = dev(data['fc_feats'], torch.float32)
+            att = dev(data['att_feats'], torch.float32)
+            am = dev(data['att_masks'], torch.float32)
+            labels = dev(data['labels'], torch.long)
+            masks = dev(data['masks'], torch.float32)
+            # --on_device_cider: -1 auto / 1 on / 0 off.  Auto takes the
+            # fused step whenever the reward has a CIDEr or BLEU weight
+            # (the self-CIDEr reward runs on the card too); drop-worst
+            # keeps the host path (its per-sample loss sort needs the
+            # unfused step)
+            fused = (getattr(opt, 'on_device_cider', -1) != 0 and
+                     (opt.cider_reward_weight > 0 or
+                      opt.bleu_reward_weight > 0) and not drop_worst_flag)
+            if struc_flag and fused:
+                refs, ref_mask = device_refs(data['gts'])
+                out = trainer.struc_fused_step(
+                    fc, att, labels, masks, am, refs, ref_mask,
+                    opt.current_lr, noise, gen, gen_lm,
+                    get_device_scorer('structure'))
+            elif struc_flag:
+                gen_seq = trainer.struc_decode(fc, att, am, noise, gen)
+                gen_np = gen_seq.cpu().numpy()
+                if opt.structure_loss_weight > 0:
+                    nat = get_native_scorer()
+                    if nat is not None:
+                        from captioning_tpu_torch.utils.cider_native \
+                            import native_get_scores
+                        scores = native_get_scores(nat, data['gts'], gen_np,
+                                                   opt.cider_reward_weight)
+                    else:
+                        scores = get_scores(data['gts'], gen_np, opt)
+                else:
+                    scores = np.zeros((gen_np.shape[0],), np.float32)
+                if getattr(opt, 'self_cider_reward_weight', 0) > 0:
+                    sc_scores = get_self_cider_scores(data['gts'], gen_np,
+                                                      opt)
+                else:
+                    sc_scores = np.zeros((len(data['gts']),), np.float32)
+                out = trainer.struc_grad_step(
+                    fc, att, labels, masks, am, gen_seq,
+                    dev(scores, torch.float32), dev(sc_scores, torch.float32),
+                    opt.current_lr, gen, gen_lm,
+                    drop_worst_flag=drop_worst_flag)
+            elif not sc_flag:
+                out = trainer.xe_step(fc, att, labels, masks, am,
+                                      opt.current_lr, ss_prob, gen,
+                                      drop_worst_flag=drop_worst_flag)
+            elif fused:
+                refs, ref_mask = device_refs(data['gts'])
+                out = trainer.sc_fused_step(
+                    fc, att, am, refs, ref_mask, opt.current_lr, noise,
+                    noise, gen, get_device_scorer('SCST'))
+            else:
+                greedy_seq, gen_seq = trainer.sc_decode(fc, att, am, noise,
+                                                        noise, gen)
+                nat = get_native_scorer()
+                if nat is not None:
+                    from captioning_tpu_torch.utils.cider_native import \
+                        native_self_critical_reward
+                    reward = native_self_critical_reward(
+                        nat, greedy_seq.cpu().numpy(), data['gts'],
+                        gen_seq.cpu().numpy(), opt.cider_reward_weight)
+                else:
+                    reward = get_self_critical_reward(
+                        greedy_seq.cpu().numpy(), data['gts'],
+                        gen_seq.cpu().numpy(), opt)
+                out = trainer.sc_grad_step(
+                    fc, att, am, gen_seq, dev(reward, torch.float32),
+                    opt.current_lr, gen, drop_worst_flag=drop_worst_flag)
+                out['reward'] = float(reward[:, 0].mean())
 
             new_pending = {'out': out, 'it': iteration, 'epoch': epoch,
-                           'start': start, 'lr': opt.current_lr,
+                           'start': start, 'sc_flag': sc_flag,
+                           'struc_flag': struc_flag, 'lr': opt.current_lr,
                            'ss_prob': ss_prob}
             if pending is not None:
                 flush_metrics(pending)
