@@ -13,7 +13,7 @@ Port of ``captioning_tpu/engine/decoding.py``:
   Beam options route to ``sample_beam``, ``group_size > 1`` to
   ``diverse_sample``.  Given a dropout ``generator`` it samples in train
   mode, as the RL steps do;
-* ``sample_beam`` -> ``_beam_search_fast`` (one group without the scatter
+* ``sample_beam`` -> ``beam_program`` (one group without the scatter
   constraints: the finished-beam pool merge and the exact early exit;
   fused per-row top-``bdash`` survivors when the model has ``step_topk``,
   else the full candidate table) or ``beam_search`` (the general body:
@@ -27,11 +27,15 @@ Port of ``captioning_tpu/engine/decoding.py``:
   (an autograd graph, dropout drawn from a generator) when given one.
 
 The JAX scans become host loops over host-int steps; an early exit costs
-one host sync per step.  Every top-k resolves a tie to the lowest index, as
-``lax.top_k``.  The selections over a full ``[B, bdash*(V+1)]`` table go
-through ``ops.topk.topk_lastdim`` (a CUDA kernel on the card, ``bdash <=
-16``); the small merges over [B, bdash²] and [B, 2·bdash] use the
-stable-sort ``top_k``.  The JAX gates ``NBG % 8 == 0`` / ``N % 8 == 0`` in
+one host sync per step.  The single-group beam and ``sample``'s loop are
+``StepProgram``s: a setup and a per-step body over a ``Carry`` whose
+tensors keep their addresses, so ``engine.graphs`` can capture each step
+as a CUDA graph (the counterpart of the JAX package's jitted decodes); the
+eager loop runs the same body.  Every top-k resolves a tie to the lowest
+index, as ``lax.top_k``.  The selections over a full ``[B,
+bdash*(V+1)]`` table go through ``ops.topk.topk_lastdim`` (a CUDA kernel
+on the card, ``bdash <= 16``); the small merges over [B, bdash²] and [B,
+2·bdash] use the stable-sort ``top_k``.  The JAX gates ``NBG % 8 == 0`` / ``N % 8 == 0`` in
 front of the fused branches are TPU tiling rules and are dropped.
 
 Randomness: every sampled step takes its noise from ``draw(kind, t,
@@ -146,26 +150,32 @@ def _draw_fn(rng, device):
     return lambda kind, t, shape: rng(kind, t, shape).to(device)
 
 
-def penalty_fn(length_penalty: str):
-    """Beam length penalty from its '<type>_<alpha>' spec."""
+def penalty_fn(length_penalty: str, max_length: int):
+    """Beam length penalty from its '<type>_<alpha>' spec, for lengths up
+    to ``max_length``."""
     if not length_penalty:
-        return penalty_fn_dynamic('', 0.0)
+        return penalty_fn_dynamic('', 0.0, max_length)
     pen_type, alpha = length_penalty.split('_')
-    return penalty_fn_dynamic(pen_type, float(alpha))
+    return penalty_fn_dynamic(pen_type, float(alpha), max_length)
 
 
-def penalty_fn_dynamic(pen_type: str, alpha: float):
+def penalty_fn_dynamic(pen_type: str, alpha: float, max_length: int):
     """``(length, logprobs) -> penalized``, computed in float32 as the JAX
-    engine computes it with a traced float32 alpha."""
+    engine computes it with a traced float32 alpha.  The 'wu' divisor of
+    each length up to ``max_length`` is made here, on the host, so a
+    decode step reads nothing back from the device."""
     if not pen_type:
         return lambda length, logprobs: logprobs
     if pen_type == 'wu':
         a = torch.tensor(alpha, dtype=torch.float32)
+        mods = [float(((5.0 + torch.tensor(float(n))) ** a)
+                      / (torch.tensor(6.0) ** a))
+                for n in range(max_length + 1)]
 
         def wu(length, logprobs):
-            mod = ((5.0 + torch.tensor(float(length))) ** a) / (
-                torch.tensor(6.0) ** a)
-            return logprobs / mod.to(logprobs.device)
+            return logprobs / torch.full((), mods[length],
+                                         dtype=torch.float32,
+                                         device=logprobs.device)
         return wu
     if pen_type == 'avg':
         return lambda length, logprobs: logprobs / max(float(length), 1.0)
@@ -177,7 +187,9 @@ def _beam_dynamic_setup(dm: DecodeModel, opt: Dict[str, Any]):
     epilogue: UNK suppression adds -1000 at ``unk_idx`` after the
     log-softmax."""
     temperature = float(opt.get('temperature', 1.0) or 1.0)
-    length_penalty = penalty_fn(opt.get('length_penalty', '') or '')
+    # lengths up to L + 2: the fast body's exit bound looks two steps on
+    length_penalty = penalty_fn(opt.get('length_penalty', '') or '',
+                                dm.seq_length + 2)
     suppress = int(opt.get('suppress_UNK', 0) or 0)
     if suppress and dm.unk_idx is not None:
         return temperature, length_penalty, -1000.0, int(dm.unk_idx)
@@ -186,6 +198,81 @@ def _beam_dynamic_setup(dm: DecodeModel, opt: Dict[str, Any]):
 
 def _flag(opt, name, default=0):
     return int(opt.get(name, default) or default)
+
+
+# ---------------------------------------------------------------------------
+# step programs: a decode as a setup and a per-step body over one carry
+# ---------------------------------------------------------------------------
+
+def write_back(dst: Dict, src: Dict) -> None:
+    """``dst[k] = src[k]`` for every key of ``src``: a tensor into
+    ``dst[k]``'s own buffer (``copy_``; the same tensor is left alone), so
+    its address stays; a nested dict (the model state) key by key; any
+    other value rebound.  A tensor where ``dst`` holds no tensor of its
+    shape and dtype raises: its buffer would be a new one."""
+    for k, v in src.items():
+        old = dst.get(k)
+        if isinstance(v, dict):
+            write_back(old, v)
+        elif torch.is_tensor(v):
+            if (not torch.is_tensor(old) or old.shape != v.shape
+                    or old.dtype != v.dtype):
+                raise ValueError(
+                    'decode carry %r: a %s %s tensor where the carry holds '
+                    '%s' % (k, v.dtype, tuple(v.shape),
+                            'a %s %s tensor' % (old.dtype, tuple(old.shape))
+                            if torch.is_tensor(old) else type(old).__name__))
+            if v is not old:
+                old.copy_(v)
+        else:
+            dst[k] = v
+
+
+class Carry(dict):
+    """What a decode loop carries from one step to the next: tensors, the
+    model state (a dict), the static feats, and the exit flag ``go`` (a 0-d
+    bool tensor).  ``fixed``: ``put`` writes every tensor back into its own
+    buffer (``write_back``), so the addresses stay those of the first step,
+    which a CUDA graph of the step reads and writes; else ``put`` rebinds
+    (train mode, whose autograd graph keeps every step's tensors)."""
+
+    def __init__(self, fixed: bool, **items):
+        super().__init__(items)
+        self.fixed = fixed
+
+    def put(self, **items):
+        if self.fixed:
+            write_back(self, items)
+        else:
+            self.update(items)
+
+
+@dataclasses.dataclass(frozen=True)
+class StepProgram:
+    """A decode split for the eager loop and for ``engine.graphs``, which
+    captures the setup as one CUDA graph and each step as another.
+
+    ``setup(fc, att, att_masks) -> Carry``: prepare, the bos step and the
+    carry's first values; ``body(carry, t)``: step t, which reads no
+    tensor on the host, writes the carry back in place and leaves its
+    exit test in ``carry['go']``; ``result(carry)``: the outputs (views of
+    the carry); ``steps``: the most bodies a decode runs."""
+    setup: Callable
+    body: Callable
+    result: Callable
+    steps: int
+
+
+def run_eager(prog: StepProgram, fc_feats, att_feats, att_masks) -> Carry:
+    """Run ``prog`` step by step: after each body the host reads the exit
+    flag, the decode's one sync a step (none after the last body).
+    Returns the final carry."""
+    carry = prog.setup(fc_feats, att_feats, att_masks)
+    for t in range(prog.steps):
+        prog.body(carry, t)
+        if t + 1 < prog.steps and not bool(carry['go']):
+            break
+    return carry
 
 
 # ---------------------------------------------------------------------------
@@ -318,6 +405,26 @@ def sample(dm: DecodeModel, fc_feats, att_feats, att_masks, rng,
         return seq, out
     if _flag(opt, 'group_size', 1) > 1:
         return diverse_sample(dm, fc_feats, att_feats, att_masks, rng, opt)
+    prog = sample_program(dm, opt, rng, return_stats, generator)
+    if return_stats:
+        return prog.result(run_eager(prog, fc_feats, att_feats, att_masks))
+    carry = prog.setup(fc_feats, att_feats, att_masks)
+    tables = [prog.body(carry, t) for t in range(prog.steps)]
+    return carry['seq'], torch.stack(tables, 1)
+
+
+def sample_program(dm: DecodeModel, opt: Dict[str, Any], rng=None,
+                   return_stats: bool = True,
+                   generator: Optional[torch.Generator] = None
+                   ) -> StepProgram:
+    """``sample``'s loop at one group, as a ``StepProgram``: the carry
+    holds the last token, the unfinished rows, the sequence buffer and the
+    two sums; with ``return_stats`` the body leaves ``go`` = some row is
+    unfinished (the exact early exit), without it the body returns the
+    step's kept table.  Greedy stats with no constraint take the fused
+    ``k = 1`` vocab epilogue when the model has ``step_topk``.  The carry
+    is fixed unless ``generator`` (train mode) is given."""
+    sample_method = opt.get('sample_method', 'greedy') or 'greedy'
     temperature = float(opt.get('temperature', 1.0) or 1.0)
     sample_n = _flag(opt, 'sample_n', 1)
     output_logsoftmax = _flag(opt, 'output_logsoftmax', 1)
@@ -325,13 +432,6 @@ def sample(dm: DecodeModel, fc_feats, att_feats, att_masks, rng,
     block_trigrams = _flag(opt, 'block_trigrams')
     remove_bad_endings = _flag(opt, 'remove_bad_endings')
     L = dm.seq_length
-    feats = dm.prepare(fc_feats, att_feats, att_masks, generator)
-    if not dm.shared_beam_feats:
-        feats = repeat_tree(sample_n, feats)
-    N = fc_feats.shape[0] * sample_n
-    state = dm.init_state(N)
-    dev = att_feats.device if att_feats is not None else fc_feats.device
-    draw = _draw_fn(rng, dev)
     # greedy stats need only argmax + two scalars per row: with no
     # constraint in the way, the fused k = 1 epilogue gives exactly those
     fused_greedy = (return_stats and generator is None
@@ -339,21 +439,35 @@ def sample(dm: DecodeModel, fc_feats, att_feats, att_masks, rng,
                     and sample_method == 'greedy' and output_logsoftmax
                     and not decoding_constraint and not block_trigrams
                     and not remove_bad_endings)
-    it = torch.full((N,), dm.bos_idx, dtype=torch.long, device=dev)
-    unfinished = torch.ones(N, dtype=torch.bool, device=dev)
-    seq = torch.zeros(N, L, dtype=torch.long, device=dev)
-    ent_sum = torch.zeros(N, dtype=torch.float32, device=dev)
-    lp_sum = torch.zeros(N, dtype=torch.float32, device=dev)
-    tables = []
-    for t in range(L):
+
+    def setup(fc_feats, att_feats, att_masks):
+        feats = dm.prepare(fc_feats, att_feats, att_masks, generator)
+        if not dm.shared_beam_feats:
+            feats = repeat_tree(sample_n, feats)
+        N = fc_feats.shape[0] * sample_n
+        dev = att_feats.device if att_feats is not None else fc_feats.device
+        # greedy draws nothing
+        draw = None if sample_method == 'greedy' else _draw_fn(rng, dev)
+        return Carry(generator is None, feats=feats, draw=draw,
+                     state=dm.init_state(N),
+                     it=torch.full((N,), dm.bos_idx, dtype=torch.long,
+                                   device=dev),
+                     unfinished=torch.ones(N, dtype=torch.bool, device=dev),
+                     seq=torch.zeros(N, L, dtype=torch.long, device=dev),
+                     ent_sum=torch.zeros(N, dtype=torch.float32, device=dev),
+                     lp_sum=torch.zeros(N, dtype=torch.float32, device=dev),
+                     go=torch.ones((), dtype=torch.bool, device=dev))
+
+    def body(c: Carry, t: int):
+        it = c['it']
         if fused_greedy:
             # eval stats and the argmax are taken on the untempered
             # log-softmax
-            tv, ti, _, en, state = dm.step_topk(it, feats, state, None, 1,
-                                                1.0, 0.0, -1, 0)
+            tv, ti, _, en, state = dm.step_topk(it, c['feats'], c['state'],
+                                                None, 1, 1.0, 0.0, -1, 0)
             nxt, chosen = ti[:, 0], tv[:, 0]
         else:
-            logprobs, state = dm.step(it, feats, state, generator,
+            logprobs, state = dm.step(it, c['feats'], c['state'], generator,
                                       bool(output_logsoftmax),
                                       uniform_t=True)
             # it == seq[:, t-1] for t >= 1
@@ -361,29 +475,35 @@ def sample(dm: DecodeModel, fc_feats, att_feats, att_masks, rng,
                 logprobs, it, t > 0, dm, decoding_constraint,
                 remove_bad_endings)
             if block_trigrams:
-                logprobs = logprobs + _trigram_penalty(logprobs, seq, t)
+                logprobs = logprobs + _trigram_penalty(logprobs, c['seq'], t)
             nxt, _ = sample_next_word(logprobs.detach(), sample_method,
-                                      temperature, draw, t)
+                                      temperature, c['draw'], t)
             if return_stats:
                 en = -(logprobs.exp() * logprobs).sum(-1)
                 chosen = logprobs.gather(1, nxt[:, None])[:, 0]
-        keep = unfinished if t else torch.ones_like(unfinished)
+        # every row is unfinished at t = 0
+        keep = c['unfinished']
         nxt = torch.where(keep, nxt, dm.pad_idx)
-        unfinished = keep & (nxt != dm.eos_idx)
-        seq[:, t] = nxt
-        it = nxt
-        if not return_stats:
-            tables.append(torch.where(keep[:, None], logprobs, 0.0))
-            continue
-        ent_sum += torch.where(keep, en, 0.0)
-        lp_sum += torch.where(keep, chosen, 0.0)
-        # EXACT early exit: once every row has finished, the remaining
-        # steps only write pads and gated-off stats (one host sync)
-        if not bool(unfinished.any()):
-            break
-    if return_stats:
-        return seq, {'ent_sum': ent_sum, 'lp_sum': lp_sum}
-    return seq, torch.stack(tables, 1)
+        # all new values first: ``keep`` is the carry's own buffer
+        new = dict(state=state, it=nxt,
+                   unfinished=keep & (nxt != dm.eos_idx))
+        table = None
+        if return_stats:
+            new.update(ent_sum=c['ent_sum'] + torch.where(keep, en, 0.0),
+                       lp_sum=c['lp_sum'] + torch.where(keep, chosen, 0.0),
+                       # EXACT early exit: once every row has finished, the
+                       # remaining steps only write pads and gated-off stats
+                       go=new['unfinished'].any())
+        else:
+            table = torch.where(keep[:, None], logprobs, 0.0)
+        c['seq'][:, t] = nxt
+        c.put(**new)
+        return table
+
+    def result(c: Carry):
+        return c['seq'], {'ent_sum': c['ent_sum'], 'lp_sum': c['lp_sum']}
+
+    return StepProgram(setup, body, result, L)
 
 
 def scan_logprobs(dm: DecodeModel, fc_feats, att_feats, att_masks, gen_seq,
@@ -430,157 +550,207 @@ def _gather(x, ix):
     return torch.gather(x, 1, ix[..., None].expand(-1, -1, x.shape[2]))
 
 
-def _beam_search_fast(dm: DecodeModel, init, init_state, feats_per_beam,
-                      opt: Dict[str, Any]):
-    """Single-group beam search without the scatter constraints.
+def beam_program(dm: DecodeModel, opt: Dict[str, Any]) -> StepProgram:
+    """Single-group beam search without the scatter constraints, with its
+    prepare and bos step, as a ``StepProgram`` over a fixed carry.
 
-    With ``dm.step_topk`` (fused): ``init`` = (tv0 [B, bdash], ti0,
-    row_sum0 [B], ent0 [B]), the vocab epilogue of the bos step
-    (UNK-adjusted, temperature 1), and each step carries per-row
-    top-``bdash`` survivors.  Without it: ``init`` is the bos step's
-    float32 log-softmax [B, V+1], and each step carries the full candidate
-    table ``lsm' + beam sum`` [B*bdash, V+1] (``_finish_table``).  Returns
-    the finished-beam pool as {'seq' [B, 1, bdash, L], 'p', 'unaug_p',
-    'ent_sum', 'lp_sum' [B, 1, bdash]}, sorted descending by ``p``."""
+    With ``dm.step_topk`` (fused): the bos step gives the vocab epilogue's
+    top-``bdash`` (UNK-adjusted, temperature 1), and each step carries
+    per-row top-``bdash`` survivors ``tv_c`` / ``ti_c``.  Without it: the
+    bos step gives the float32 log-softmax [B, V+1], and each step carries
+    the full candidate table ``cand`` = ``lsm' + beam sum`` [B*bdash, V+1]
+    (``_finish_table``).  Body t runs the model step of the lanes chosen at
+    t - 1 (none at t = 0), then the selection, the finished-beam pool merge
+    and the exit test.  ``result`` gives (seq, {'ent_sum', 'lp_sum'}, done)
+    as ``sample_beam`` returns them, ``done`` the finished-beam pool as
+    {'seq' [B, 1, bdash, L], 'p', 'unaug_p', 'ent_sum', 'lp_sum' [B, 1,
+    bdash]}, sorted descending by ``p``."""
     temperature, length_penalty, unk_bias, unk_idx = _beam_dynamic_setup(
         dm, opt)
     bdash = _flag(opt, 'beam_size', 10)
+    sample_n = _flag(opt, 'sample_n', 1)
     fused = dm.step_topk is not None
     use_anc = dm.beam_init is not None and dm.beam_reorder is not None
     step_bw = bdash if use_anc else 0
-    B = init[0].shape[0] if fused else init.shape[0]
     L = dm.seq_length
-    NBG = B * bdash
-    if fused:
-        tv0, ti0, rs0, en0 = init
-    else:
-        V1 = dm.vocab_plus
-        lsm0 = _unk_adjust(init, unk_bias, unk_idx)         # [B, V1]
-        rs0 = lsm0.sum(-1)
-        en0 = -(lsm0.exp() * lsm0).sum(-1)
-    dev = rs0.device
-    f32 = dict(dtype=torch.float32, device=dev)
 
-    state = repeat_tree(bdash, init_state)
-    if use_anc:
-        state = dm.beam_init(state, bdash)
+    def setup(fc_feats, att_feats, att_masks):
+        B = fc_feats.shape[0]
+        NBG = B * bdash
+        feats = dm.prepare(fc_feats, att_feats, att_masks, None)
+        state = dm.init_state(B, beam=True)
+        it = torch.full((B,), dm.bos_idx, dtype=torch.long,
+                        device=fc_feats.device)
+        # the bos step's distribution is untempered (the reference applies
+        # the temperature from the second step on)
+        if fused:
+            tv0, ti0, rs0, en0, state = dm.step_topk(
+                it, feats, state, None, bdash, 1.0, unk_bias, unk_idx, 0)
+        else:
+            lsm0, state = dm.step(it, feats, state, None, True,
+                                  uniform_t=True)
+            lsm0 = _unk_adjust(lsm0, unk_bias, unk_idx)         # [B, V1]
+            rs0 = lsm0.sum(-1)
+            en0 = -(lsm0.exp() * lsm0).sum(-1)
+        dev = rs0.device
+        f32 = dict(dtype=torch.float32, device=dev)
+        state = repeat_tree(bdash, state)
+        if use_anc:
+            state = dm.beam_init(state, bdash)
+        # the beam lanes of one image share its feats row
+        # (shared_beam_feats); one row a lane otherwise
+        c = Carry(True, feats=feats, state=state, feats_per_beam=(
+            feats if dm.shared_beam_feats else repeat_tree(bdash, feats)))
+        # t = 0: every lane holds the bos distribution; lane 0's candidates
+        # are the bos ones, the other lanes are masked off
+        lane0 = (torch.arange(bdash, device=dev) == 0).view(1, bdash, 1)
+        if fused:
+            # lane 0's top-bdash is the global top-bdash
+            c['tv_c'] = torch.where(lane0, tv0[:, None, :], NEG).reshape(
+                NBG, bdash)
+            c['ti_c'] = ti0[:, None, :].expand(B, bdash, bdash).reshape(
+                NBG, bdash)
+        else:
+            c['cand'] = (lsm0[:, None, :] + torch.where(lane0, 0.0, NEG)
+                         ).reshape(NBG, lsm0.shape[1])
+        c.update(
+            row_sum=rs0[:, None].expand(B, bdash).contiguous(),
+            ent_row=en0[:, None].expand(B, bdash).contiguous(),
+            beam_seq=torch.zeros(B, bdash, L, dtype=torch.long, device=dev),
+            beam_ucum=torch.zeros(B, bdash, **f32),
+            beam_sums=torch.zeros(B, bdash, **f32),
+            beam_ent=torch.zeros(B, bdash, **f32),
+            beam_lpc=torch.zeros(B, bdash, **f32),
+            pool_seq=torch.zeros(B, bdash, L, dtype=torch.long, device=dev),
+            pool_p=torch.full((B, bdash), NEG, **f32),
+            pool_unaug=torch.full((B, bdash), NEG, **f32),
+            pool_ent=torch.zeros(B, bdash, **f32),
+            pool_lpc=torch.zeros(B, bdash, **f32),
+            sel_ix=torch.zeros(B, bdash, dtype=torch.long, device=dev),
+            beam_ix=torch.zeros(B, bdash, dtype=torch.long, device=dev),
+            base=torch.arange(B, device=dev)[:, None] * bdash,
+            go=torch.ones((), dtype=torch.bool, device=dev))
+        return c
 
-    # t = 0: every lane holds the bos distribution; lane 0's candidates
-    # are the bos ones, the other lanes are masked off
-    lane0 = (torch.arange(bdash, device=dev) == 0).view(1, bdash, 1)
-    if fused:
-        # lane 0's top-bdash is the global top-bdash
-        tv_c = torch.where(lane0, tv0[:, None, :], NEG).reshape(NBG, bdash)
-        ti_c = ti0[:, None, :].expand(B, bdash, bdash).reshape(NBG, bdash)
-    else:
-        cand = (lsm0[:, None, :] + torch.where(lane0, 0.0, NEG)
-                ).reshape(NBG, V1)
-    row_sum = rs0[:, None].expand(B, bdash)
-    ent_row = en0[:, None].expand(B, bdash)
+    def body(c: Carry, t: int):
+        B = c['beam_sums'].shape[0]
+        if t:
+            # ---- model step + vocab epilogue of the lanes chosen at t-1;
+            # the reordered state is the step's input, and only the
+            # step's output is written back into the carry ----
+            flat_idx = (c['base'] + c['beam_ix']).view(-1)
+            state = (dm.beam_reorder(c['state'], flat_idx) if use_anc
+                     else reorder_state(c['state'], flat_idx))
+            it = c['sel_ix'].view(B * bdash)
+            if fused:
+                tv, ti, rs, en, state = dm.step_topk(
+                    it, c['feats_per_beam'], state, None, bdash,
+                    temperature, unk_bias, unk_idx, step_bw)
+                c.put(state=state, tv_c=tv, ti_c=ti,
+                      row_sum=rs.view(B, bdash), ent_row=en.view(B, bdash))
+            else:
+                logits, state = dm.step(it, c['feats_per_beam'], state,
+                                        None, False, uniform_t=True,
+                                        beam_width=step_bw)
+                # the last selection has read the old table
+                cand, rs, en = _finish_table(
+                    torch.log_softmax(logits / temperature, dim=-1),
+                    c['beam_sums'], unk_bias, unk_idx, c['cand'])
+                c.put(state=state, cand=cand, row_sum=rs, ent_row=en)
 
-    beam_seq = torch.zeros(B, bdash, L, dtype=torch.long, device=dev)
-    beam_ucum = torch.zeros(B, bdash, **f32)
-    beam_sums = torch.zeros(B, bdash, **f32)
-    beam_ent = torch.zeros(B, bdash, **f32)
-    beam_lpc = torch.zeros(B, bdash, **f32)
-    pool_seq = torch.zeros(B, bdash, L, dtype=torch.long, device=dev)
-    pool_p = torch.full((B, bdash), NEG, **f32)
-    pool_unaug = torch.full((B, bdash), NEG, **f32)
-    pool_ent = torch.zeros(B, bdash, **f32)
-    pool_lpc = torch.zeros(B, bdash, **f32)
-    base = torch.arange(B, device=dev)[:, None] * bdash
-
-    for t in range(L):
+        beam_sums = c['beam_sums']
         if fused:
             # ---- selection over the per-row survivors + the beam-sum
             # shift; entries are (beam, rank)-ordered, so flat ties resolve
             # to the lowest beam, then the lowest vocab index ----
-            cand_s = (tv_c.view(B, bdash, bdash) + beam_sums[:, :, None]
+            cand_s = (c['tv_c'].view(B, bdash, bdash) + beam_sums[:, :, None]
                       ).view(B, bdash * bdash)
             ys, jx = top_k(cand_s, bdash)
             beam_ix = jx // bdash
-            sel_ix = torch.gather(ti_c.reshape(B, bdash * bdash), 1, jx)
+            sel_ix = torch.gather(c['ti_c'].reshape(B, bdash * bdash), 1, jx)
         else:
             # ---- selection over the full candidate table (the beam sums
             # are already in it); flat ties go to the lowest beam, then
             # the lowest vocab index ----
-            ys, ix = topk_lastdim(cand.view(B, bdash * V1), bdash)
+            V1 = c['cand'].shape[1]
+            ys, ix = topk_lastdim(c['cand'].view(B, bdash * V1), bdash)
             beam_ix = ix // V1
             sel_ix = ix % V1
 
-        new_seq = _gather(beam_seq, beam_ix)
+        new_seq = _gather(c['beam_seq'], beam_ix)
         new_seq[:, :, t] = sel_ix
-        new_ucum = _gather(beam_ucum, beam_ix) + _gather(row_sum, beam_ix)
-        new_ent = _gather(beam_ent, beam_ix) + _gather(ent_row, beam_ix)
+        new_ucum = (_gather(c['beam_ucum'], beam_ix)
+                    + _gather(c['row_sum'], beam_ix))
+        new_ent = (_gather(c['beam_ent'], beam_ix)
+                   + _gather(c['ent_row'], beam_ix))
         # chosen-token logprob: the candidate minus the parent's sum
-        new_lpc = _gather(beam_lpc, beam_ix) + (ys - _gather(beam_sums,
-                                                             beam_ix))
-        new_sums = ys
+        new_lpc = _gather(c['beam_lpc'], beam_ix) + (
+            ys - _gather(beam_sums, beam_ix))
 
         # ---- finished-beam pool merge; pool entries precede candidates,
         # so ties keep the pool entry ----
         just_ended = (sel_ix == dm.eos_idx) | (t == L - 1)
-        cand_p = torch.where(just_ended, length_penalty(t + 1, new_sums),
-                             NEG)
-        top_p, top_i = top_k(torch.cat([pool_p, cand_p], 1), bdash)
-        pool_p = top_p
-        pool_unaug = _gather(torch.cat([pool_unaug, new_ucum], 1), top_i)
-        pool_seq = _gather(torch.cat([pool_seq, new_seq], 1), top_i)
-        pool_ent = _gather(torch.cat([pool_ent, new_ent], 1), top_i)
-        pool_lpc = _gather(torch.cat([pool_lpc, new_lpc], 1), top_i)
-        beam_sums = new_sums - 1000.0 * just_ended
-        beam_seq, beam_ucum, beam_ent, beam_lpc = (new_seq, new_ucum,
-                                                   new_ent, new_lpc)
+        cand_p = torch.where(just_ended, length_penalty(t + 1, ys), NEG)
+        top_p, top_i = top_k(torch.cat([c['pool_p'], cand_p], 1), bdash)
+        c.put(pool_p=top_p,
+              pool_unaug=_gather(torch.cat([c['pool_unaug'], new_ucum], 1),
+                                 top_i),
+              pool_seq=_gather(torch.cat([c['pool_seq'], new_seq], 1), top_i),
+              pool_ent=_gather(torch.cat([c['pool_ent'], new_ent], 1), top_i),
+              pool_lpc=_gather(torch.cat([c['pool_lpc'], new_lpc], 1), top_i),
+              beam_sums=ys - 1000.0 * just_ended, beam_seq=new_seq,
+              beam_ucum=new_ucum, beam_ent=new_ent, beam_lpc=new_lpc,
+              sel_ix=sel_ix, beam_ix=beam_ix)
 
         # ---- EXACT early exit: stop once no image's pool can change.
         # A future candidate's raw sum is bounded by the current best lane
         # sum (log-probs <= 0), its penalized score by that sum at the
         # lengths t+2..L (t+1 too, for a length-decreasing penalty); when
         # that cannot strictly beat the worst pool entry, the pool is
-        # final.  Checked before the model step, whose output the exit
-        # would discard (one host sync per step). ----
+        # final.  Tested before the next model step, whose output the exit
+        # would discard. ----
         if t + 1 >= L:
-            break
-        max_sums = beam_sums.max(1).values
+            c.put(go=torch.zeros((), dtype=torch.bool, device=ys.device))
+            return
+        max_sums = c['beam_sums'].max(1).values
         bound = torch.maximum(
             torch.maximum(length_penalty(L, max_sums),
                           length_penalty(t + 3, max_sums)),
             length_penalty(t + 2, max_sums))
-        if not bool((bound > pool_p.min(1).values).any()):
-            break
+        c.put(go=(bound > c['pool_p'].min(1).values).any())
 
-        # ---- model step + vocab epilogue ----
-        flat_idx = (base + beam_ix).view(-1)
-        state = (dm.beam_reorder(state, flat_idx) if use_anc
-                 else reorder_state(state, flat_idx))
-        it = sel_ix.view(NBG)
-        if fused:
-            tv_c, ti_c, rs, en, state = dm.step_topk(
-                it, feats_per_beam, state, None, bdash, temperature,
-                unk_bias, unk_idx, step_bw)
-            row_sum = rs.view(B, bdash)
-            ent_row = en.view(B, bdash)
-        else:
-            logits, state = dm.step(it, feats_per_beam, state, None, False,
-                                    uniform_t=True, beam_width=step_bw)
-            cand, row_sum, ent_row = _finish_table(
-                torch.log_softmax(logits / temperature, dim=-1), beam_sums,
-                unk_bias, unk_idx)
+    def result(c: Carry):
+        done = {'seq': c['pool_seq'][:, None], 'p': c['pool_p'][:, None],
+                'unaug_p': c['pool_unaug'][:, None],
+                'ent_sum': c['pool_ent'][:, None],
+                'lp_sum': c['pool_lpc'][:, None]}
+        return _pick(done, sample_n) + (done,)
 
-    return {'seq': pool_seq[:, None], 'p': pool_p[:, None],
-            'unaug_p': pool_unaug[:, None], 'ent_sum': pool_ent[:, None],
-            'lp_sum': pool_lpc[:, None]}
+    return StepProgram(setup, body, result, L)
 
 
-def _finish_table(lsm, sums, unk_bias: float, unk_idx: int):
+def _pick(done, sample_n: int):
+    """(seq, {'ent_sum', 'lp_sum'}) of the pools [B, G, bdash, ...]: the
+    best beam of group 0 (``sample_n`` 1) or group 0's bdash beams."""
+    B, _, _, L = done['seq'].shape
+    if sample_n == 1:
+        return (done['seq'][:, 0, 0],
+                {k: done[k][:, 0, 0] for k in ('ent_sum', 'lp_sum')})
+    return (done['seq'][:, 0].reshape(B * sample_n, L),
+            {k: done[k][:, 0].reshape(B * sample_n)
+             for k in ('ent_sum', 'lp_sum')})
+
+
+def _finish_table(lsm, sums, unk_bias: float, unk_idx: int, out):
     """The plain branch's pass over a fresh [B*bdash, V+1] log-softmax
     table: UNK adjust, the two carried-stat reductions and the candidate
-    add for the next selection."""
+    add for the next selection, written into ``out`` (the carry's table:
+    no copy of it a step)."""
     B, bdash = sums.shape
     lsm = _unk_adjust(lsm, unk_bias, unk_idx)
     row_sum = lsm.sum(-1)
     ent_row = -(lsm.exp() * lsm).sum(-1)
-    cand = lsm + sums.reshape(-1, 1)
+    cand = torch.add(lsm, sums.reshape(-1, 1), out=out)
     return cand, row_sum.view(B, bdash), ent_row.view(B, bdash)
 
 
@@ -762,6 +932,15 @@ def replay_beam_logps(dm: DecodeModel, feats, seqs, opt: Dict[str, Any]):
                        0.0)
 
 
+def beam_fast(opt: Dict[str, Any]) -> bool:
+    """Whether a beam decode takes ``beam_program`` (one group without the
+    scatter constraints; ``_beam_general: 1`` forces the general body)."""
+    return (_flag(opt, 'group_size', 1) == 1
+            and not _flag(opt, 'decoding_constraint')
+            and not _flag(opt, 'remove_bad_endings')
+            and not _flag(opt, '_beam_general'))
+
+
 def sample_beam(dm: DecodeModel, fc_feats, att_feats, att_masks, rng,
                 opt: Dict[str, Any], want_logps: bool = False):
     """Beam decode.  Returns (seq [B*sample_n, L], the winners' replayed
@@ -769,56 +948,39 @@ def sample_beam(dm: DecodeModel, fc_feats, att_feats, att_masks, rng,
     carried {'ent_sum', 'lp_sum'} [B*sample_n], done) with ``done`` the
     finished-beam pools [B, G, bdash, ...]; ``sample_n`` is 1 (the best
     beam of group 0) or bdash (group 0's beams).  One group without the
-    scatter constraints takes ``_beam_search_fast`` (``_beam_general: 1``
-    forces the general body), the rest ``beam_search``.  Beam decoding
-    draws nothing: ``rng`` is unused."""
+    scatter constraints takes ``beam_program`` (``beam_fast``), the rest
+    ``beam_search``.  Beam decoding draws nothing: ``rng`` is unused."""
     beam_size = _flag(opt, 'beam_size', 10)
     group_size = _flag(opt, 'group_size', 1)
     sample_n = _flag(opt, 'sample_n', 1)
     bdash = beam_size // group_size
     if sample_n not in (1, bdash):
         raise ValueError('when beam search, sample_n == 1 or beam size')
-    fast = (group_size == 1 and not _flag(opt, 'decoding_constraint')
-            and not _flag(opt, 'remove_bad_endings')
-            and not _flag(opt, '_beam_general'))
-    _, _, unk_bias, unk_idx = _beam_dynamic_setup(dm, opt)
     B = fc_feats.shape[0]
-    L = dm.seq_length
-
-    feats = dm.prepare(fc_feats, att_feats, att_masks, None)
-    # single-group beams only: staggered groups step rows at different t
-    state = dm.init_state(B, beam=(group_size == 1))
-    it = torch.full((B,), dm.bos_idx, dtype=torch.long,
-                    device=fc_feats.device)
-    # the bos step's distribution is untempered (the reference applies the
-    # temperature from the second step on)
-    if fast and dm.step_topk is not None:
-        *init, state = dm.step_topk(it, feats, state, None, bdash, 1.0,
-                                    unk_bias, unk_idx, 0)
+    if beam_fast(opt):
+        prog = beam_program(dm, opt)
+        carry = run_eager(prog, fc_feats, att_feats, att_masks)
+        seq, stats, done = prog.result(carry)
+        feats = carry['feats']
     else:
+        feats = dm.prepare(fc_feats, att_feats, att_masks, None)
+        # staggered groups step rows at different t
+        state = dm.init_state(B, beam=(group_size == 1))
+        it = torch.full((B,), dm.bos_idx, dtype=torch.long,
+                        device=fc_feats.device)
+        # the bos step's distribution is untempered
         init, state = dm.step(it, feats, state, None, True, uniform_t=True)
-    # the beam lanes of one (image, group) share its feats row
-    # (shared_beam_feats); by the effective beam count otherwise
-    feats_per_beam = repeat_tree(
-        group_size if dm.shared_beam_feats else group_size * bdash, feats)
-    if fast:
-        done = _beam_search_fast(dm, init, state, feats_per_beam, opt)
-    else:
+        # the beam lanes of one (image, group) share its feats row
+        # (shared_beam_feats); by the effective beam count otherwise
+        feats_per_beam = repeat_tree(
+            group_size if dm.shared_beam_feats else group_size * bdash,
+            feats)
         done = beam_search(dm, init, state, feats_per_beam, opt)
-
-    if sample_n == 1:
-        seq = done['seq'][:, 0, 0]                       # best of group 0
-        stats = {k: done[k][:, 0, 0] for k in ('ent_sum', 'lp_sum')}
-        replay_feats = feats
-    else:
-        # group 0's bdash beams
-        seq = done['seq'][:, 0].reshape(B * sample_n, L)
-        stats = {k: done[k][:, 0].reshape(B * sample_n)
-                 for k in ('ent_sum', 'lp_sum')}
-        replay_feats = (feats if dm.shared_beam_feats
-                        else repeat_tree(sample_n, feats))
+        seq, stats = _pick(done, sample_n)
     if not want_logps:
         return seq, stats, done
+    replay_feats = (feats if sample_n == 1 or dm.shared_beam_feats
+                    else repeat_tree(sample_n, feats))
     return seq, replay_beam_logps(dm, replay_feats, seq, opt), done
 
 

@@ -4,12 +4,14 @@ Port of ``captioning_tpu/models/api.py``: ``setup`` builds the
 transformer or one of the RNN captioners of ``harness.MODELS`` (other
 model keys raise), ``bind`` returns the ``DecodeModel`` the engine drives,
 ``sample_beam`` / ``sample_stats`` / ``sample`` / ``forward_tf`` are the
-entry points ``eval_split`` and ``eval_split_n`` call, ``forward_tf(train=
-True)`` is the teacher-forced pass the XE trainer differentiates
+eager entry points, ``sample_beam_graphed`` / ``sample_stats_graphed``
+their CUDA-graph counterparts (the JAX ``sample_beam_jit`` /
+``sample_stats_jit``, with ``_graph_cache`` for ``_jit_cache``), which
+``eval_split`` calls where the route allows; ``forward_tf(train=True)`` is
+the teacher-forced pass the XE trainer differentiates
 (``modules.trainer``), ``sample_train`` the train-mode sampling of the RL
 steps and ``scan_logprobs`` the recompute over a sampled sequence.
-Parameters live in ``self.module`` on ``self.device``; there is no jit
-cache, PyTorch runs eagerly.
+Parameters live in ``self.module`` on ``self.device``.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 
 from ..engine import decoding
 from ..engine.decoding import DecodeModel
+from ..engine.graphs import CudaRecorder, GraphDecode
 from ..ops.logit_topk import logit_topk
 from . import harness
 from .config import ModelConfig, config_from_opt
@@ -39,6 +42,13 @@ def _vocab_indices(vocab: Optional[Dict[str, str]], vocab_size: int):
                    if v in harness.BAD_ENDINGS)
     unk_idx = vocab_size if vocab.get(str(vocab_size)) == 'UNK' else None
     return bad_ix, unk_idx
+
+
+def freeze_opt(opt: Dict[str, Any]):
+    """Hashable cache key from a decode-options dict (the JAX package's
+    ``freeze_opt``): dict / list values are left out."""
+    return tuple(sorted((k, v) for k, v in opt.items()
+                        if not isinstance(v, (dict, list))))
 
 
 def _is_cache(name: str) -> bool:
@@ -72,6 +82,12 @@ class Captioner:
             self.unk_idx = cfg.unk_idx
         self.device = torch.device(device)
         self.module = None    # set by init_params / load_params
+        # (kind, options, shapes, dtypes) -> GraphDecode
+        self._graph_cache = {}
+        # the graph decodes' recorder class: None is CudaRecorder on a CUDA
+        # captioner, the eager program on a CPU one (tests set
+        # engine.graphs.EagerRecorder here to run the cache's plumbing)
+        self.graph_recorder = None
 
     # -- params ------------------------------------------------------------
     def init_params(self, generator: torch.Generator):
@@ -98,6 +114,7 @@ class Captioner:
         # frozen until trainable(): decoding needs no autograd graph
         self.module = (module.requires_grad_(False).to(self.device)
                        .to_compute_dtype().eval())
+        self._graph_cache = {}     # its graphs read the old module
         return self
 
     def trainable(self):
@@ -264,6 +281,93 @@ class Captioner:
         early exit.  ``rng`` as in ``sample``."""
         return decoding.sample(self.bind(), fc_feats, att_feats, att_masks,
                                rng, opt, return_stats=True)
+
+    # -- graph decodes ----------------------------------------------------------
+    def graph_route(self, kind: str, opt: Dict[str, Any]) -> str:
+        """'' when ``kind`` ('beam' or 'stats') with ``opt`` takes a graph
+        decode, else what keeps it on the eager entry (``sample_beam`` /
+        ``sample_stats``).  The graphs take the single-group beam
+        (``decoding.beam_program``) without the replay, and greedy stats
+        without the step constraints (``decoding.sample_program``)."""
+        if kind == 'beam':
+            if not decoding.beam_fast(opt):
+                return ('the general beam body (diverse groups, '
+                        'decoding_constraint, remove_bad_endings)')
+            bdash = int(opt.get('beam_size', 10) or 10)
+            if int(opt.get('sample_n', 1) or 1) not in (1, bdash):
+                return 'sample_n other than 1 or the beam size'
+            return ''
+        method = opt.get('sample_method', 'greedy') or 'greedy'
+        if (int(opt.get('beam_size', 1) or 1) > 1
+                and method in ('greedy', 'beam_search')):
+            return 'beam search (sample_beam_graphed)'
+        if int(opt.get('group_size', 1) or 1) > 1:
+            return 'diverse sampling groups'
+        if method != 'greedy':
+            return 'the sampling method %r, which draws noise' % method
+        if any(int(opt.get(k, 0) or 0) for k in (
+                'decoding_constraint', 'block_trigrams',
+                'remove_bad_endings')):
+            return 'the step constraints'
+        return ''
+
+    @torch.inference_mode()
+    def sample_beam_graphed(self, fc_feats, att_feats, att_masks, rng,
+                            opt: Dict[str, Any]):
+        """The counterpart of the JAX ``sample_beam_jit(...,
+        want_logps=False)``: (seq, {'ent_sum', 'lp_sum'}, done) as
+        ``sample_beam`` gives them, from a CUDA-graph decode
+        (``engine.graphs``) cached in ``_graph_cache`` by the options, B,
+        the feature shapes and dtypes, the compute dtype and want_logps
+        False.  Temperature, ``suppress_UNK`` and the length penalty are in
+        the key: they are host arguments of B2 and of the penalty, baked
+        into the graphs (the JAX key leaves them out as traced operands).
+        The outputs are fresh tensors.  Options the graphs do not take
+        (``graph_route``) raise: ``sample_beam`` decodes them.  On a CPU
+        captioner the same program runs eagerly: CUDA graphs do not exist
+        there.  ``rng`` is unused, as in beam decoding."""
+        return self._graphed('beam', decoding.beam_program, fc_feats,
+                             att_feats, att_masks, opt)
+
+    @torch.inference_mode()
+    def sample_stats_graphed(self, fc_feats, att_feats, att_masks, rng,
+                             opt: Dict[str, Any]):
+        """The counterpart of the JAX ``sample_stats_jit`` on its greedy
+        route: (seq, {'ent_sum', 'lp_sum'}) as ``sample_stats`` gives them,
+        from a cached CUDA-graph decode, as ``sample_beam_graphed``.  The
+        sampling methods, diverse groups and the step constraints raise
+        (``graph_route``): ``sample_stats`` decodes them.  Greedy draws
+        nothing: ``rng`` is unused."""
+        return self._graphed('stats', decoding.sample_program, fc_feats,
+                             att_feats, att_masks, opt)
+
+    def _graphed(self, kind, make, fc, att, am, opt):
+        why = self.graph_route(kind, opt)
+        if why:
+            raise ValueError('no graph decode for %s: call %s' % (
+                why, {'beam': 'sample_beam', 'stats': 'sample_stats'}[kind]))
+        if self.graph_recorder is None and self.device.type != 'cuda':
+            prog = make(self.bind(), opt)
+            return prog.result(decoding.run_eager(prog, fc, att, am))
+        key = (kind, freeze_opt(opt), self.cfg.dtype, False) + tuple(
+            None if x is None else (tuple(x.shape), x.dtype)
+            for x in (fc, att, am))
+        entry = self._graph_cache.get(key)
+        if entry is None:
+            recorder = (self.graph_recorder or CudaRecorder)(self.device)
+            entry = GraphDecode(make(self.bind(), opt), fc, att, am,
+                                recorder)
+            self._graph_cache[key] = entry
+        return entry(fc, att, am)
+
+    def graph_launches(self) -> Dict[str, int]:
+        """Kernel wrapper name -> the launches that the replays of every
+        cached graph decode ran."""
+        out: Dict[str, int] = {}
+        for entry in self._graph_cache.values():
+            for name, n in entry.launches().items():
+                out[name] = out.get(name, 0) + n
+        return out
 
     def scan_logprobs(self, fc_feats, att_feats, att_masks, gen_seq,
                       generator: Optional[torch.Generator] = None,

@@ -45,17 +45,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.beam_attend import attend_write_merged
+from ..ops.beam_attend import attend_write_merged, sqrt_in
 from .config import ModelConfig
 from .layers import MaskedBatchNorm, MLPEmbed, dropout, linear, uniform_
 
 _NEG_INF = -1e9
-
-
-def _sqrt_in(n: int, dtype: torch.dtype) -> float:
-    """sqrt(n) rounded to ``dtype``, as the JAX code computes
-    ``jnp.sqrt(jnp.asarray(n, dtype))``."""
-    return float(torch.tensor(float(n), dtype=dtype).sqrt())
 
 
 def _pln(x, a_2, b_2, eps: float = 1e-6):
@@ -98,7 +92,7 @@ def _softmax_f32(scores, dtype):
 def _attend(q, k, v, mask, p: float = 0.0, gen=None):
     """Scaled dot-product attention; mask broadcastable to the scores
     (1 = attend); the probabilities take dropout p in train mode."""
-    scores = q @ k.transpose(-1, -2) / _sqrt_in(q.shape[-1], q.dtype)
+    scores = q @ k.transpose(-1, -2) / sqrt_in(q.shape[-1], q.dtype)
     if mask is not None:
         scores = scores.masked_fill(mask == 0, _NEG_INF)
     return dropout(_softmax_f32(scores, q.dtype), p, gen) @ v
@@ -117,7 +111,7 @@ def _attend_rows(q, k, v, anc, time_mask, bw: int, h: int, p: float = 0.0,
     the probabilities take dropout p in train mode."""
     N, T, D = k.shape
     dk = D // h
-    scale = _sqrt_in(dk, q.dtype)
+    scale = sqrt_in(dk, q.dtype)
     if bw:
         nb = N // bw
         q4 = q.reshape(nb, bw, h, dk)
@@ -201,7 +195,7 @@ class DecoderLayer(nn.Module):
         wk = self.c_wk.weight.to(mem.dtype).view(h, dk, D)
         qt = torch.einsum('bhk,hkd->bhd', q, wk)
         scores = (qt.reshape(nb, bw * h, D) @ mem.transpose(1, 2)
-                  / _sqrt_in(dk, q.dtype))
+                  / sqrt_in(dk, q.dtype))
         if att_masks is not None:
             scores = scores.masked_fill(att_masks[:, None, :] == 0, _NEG_INF)
         pr = dropout(_softmax_f32(scores, q.dtype), p, gen)
@@ -322,7 +316,7 @@ class TransformerCaptioner(nn.Module):
         h, dt, D = cfg.num_att_heads, cfg.dtype, cfg.d_model
         t0 = int(state['t'])
         B = it.shape[0]
-        x = self.tgt_embed[it].to(dt) * _sqrt_in(D, dt)
+        x = self.tgt_embed[it].to(dt) * sqrt_in(D, dt)
         x = x + self.pe[t0].to(dt)
 
         new_state = dict(state, t=t0 + 1)
@@ -369,7 +363,7 @@ class TransformerCaptioner(nn.Module):
         t = state['t']
         t_rows = (t if torch.is_tensor(t) else
                   torch.full((B,), t, dtype=torch.long, device=it.device))
-        x = self.tgt_embed[it].to(dt) * _sqrt_in(D, dt)
+        x = self.tgt_embed[it].to(dt) * sqrt_in(D, dt)
         x = x + self.pe[t_rows.clamp(max=self.pe.shape[0] - 1)].to(dt)
         x = dropout(x, p, gen)
         new_state = dict(state, t=t_rows + 1)
@@ -428,7 +422,7 @@ class TransformerCaptioner(nn.Module):
         src_mask = (None if att_masks is None
                     else att_masks[:, None, None, None, :])
 
-        x = self.tgt_embed[seq].to(dt) * _sqrt_in(cfg.d_model, dt)
+        x = self.tgt_embed[seq].to(dt) * sqrt_in(cfg.d_model, dt)
         x = dropout(x + self.pe[:T][None].to(dt), p, gen)
         for layer in self.dec:
             y = layer.norm1(x)

@@ -144,11 +144,28 @@ def stream_ptr(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+# every kernel wrapper, by name: its counters are ``launches`` and
+# ``captures`` (``counted``)
+COUNTED = {}
+
+
+def counted(fn):
+    """Register a kernel wrapper and give it its two counters: ``launches``
+    (eager launches) and ``captures`` (calls that a CUDA graph recorded)."""
+    fn.launches = 0
+    fn.captures = 0
+    COUNTED[fn.__name__] = fn
+    return fn
+
+
 def count_launch(fn) -> None:
-    """Add one to ``fn.launches`` for a launch of its kernel.  A call that
-    a CUDA graph captures is not counted: it records the launch, and the
-    graph's replays run the kernel without the wrapper."""
-    if not torch.cuda.is_current_stream_capturing():
+    """Add one to ``fn.launches`` for a launch of its kernel, or to
+    ``fn.captures`` for a call that a CUDA graph captures: that call
+    records the launch, and the graph's replays run the kernel without the
+    wrapper (a graph decode counts its replays, ``engine.graphs``)."""
+    if torch.cuda.is_current_stream_capturing():
+        fn.captures += 1
+    else:
         fn.launches += 1
 
 

@@ -235,7 +235,7 @@ def _forward(att_h, att_feats, p_att_feats, att_masks, w_alpha, b_alpha):
     return out
 
 
-additive_attention_fused.launches = 0
+_build.counted(additive_attention_fused)
 
 
 def tanh_table_rule(x):

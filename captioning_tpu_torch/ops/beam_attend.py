@@ -43,6 +43,7 @@ product (``beam_attend.py:146``).
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -50,6 +51,14 @@ import torch
 from . import _build
 
 _NEG_INF = -1e9
+
+
+@functools.lru_cache(maxsize=None)
+def sqrt_in(n: int, dtype: torch.dtype) -> float:
+    """sqrt(n) rounded to ``dtype``, as the JAX code computes
+    ``jnp.sqrt(jnp.asarray(n, dtype))``; made once per (n, dtype), so a
+    decode step reads no tensor on the host."""
+    return float(torch.tensor(float(n), dtype=dtype).sqrt())
 
 
 def attend_merged_ref(q, k, v, anc: Optional[torch.Tensor], t0: int, *,
@@ -63,8 +72,7 @@ def attend_merged_ref(q, k, v, anc: Optional[torch.Tensor], t0: int, *,
     q4 = q.reshape(nb, bw, h, dk)
     k5 = k.reshape(nb, bw, T, h, dk)
     v5 = v.reshape(nb, bw, T, h, dk)
-    scale = float(torch.tensor(float(dk), dtype=q.dtype).sqrt())
-    scores = torch.einsum('bqhd,bsthd->bqhst', q4, k5) / scale
+    scores = torch.einsum('bqhd,bsthd->bqhst', q4, k5) / sqrt_in(dk, q.dtype)
     tmask = torch.arange(T, device=q.device) <= t0
     if bw > 1:
         sel = anc.reshape(nb, bw, 1, T) == torch.arange(
@@ -142,7 +150,7 @@ def attend_write_merged(q, k_cache, v_cache, k_new, v_new,
     return ctx
 
 
-attend_write_merged.launches = 0
+_build.counted(attend_write_merged)
 
 
 def attend_merged(q, k, v, anc: Optional[torch.Tensor], t0: int, *, bw: int,
@@ -191,4 +199,4 @@ def attend_merged(q, k, v, anc: Optional[torch.Tensor], t0: int, *, bw: int,
     return ctx
 
 
-attend_merged.launches = 0
+_build.counted(attend_merged)

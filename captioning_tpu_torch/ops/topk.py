@@ -60,4 +60,4 @@ def topk_lastdim(x, k: int):
     return vals, idx
 
 
-topk_lastdim.launches = 0
+_build.counted(topk_lastdim)

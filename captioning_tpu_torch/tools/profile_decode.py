@@ -12,13 +12,22 @@ of ``configs/fc.yml``; COCO vocab 9487 + 1, 36 x 2048 features, max
 length 20, bf16, B = 1024) with random weights from a seed, as
 ``chip_smoke.py`` builds it, and decodes by one of ``MODES`` (beam 5 and
 greedy, and phase 10's: the constrained general beam body, diverse beam,
-sample_n 5 by four methods, the replay, diverse greedy).  One warm-up
-batch, 3 unprofiled batches (host clock ending in a synchronize), then one
-profiled batch.  Device
-busy is the sum of the self device time of the profiler's device events
-(each kernel once); idle share = 1 - busy / the profiled batch's wall.
-The profiler slows a host-bound decode, so both walls are printed, and
-the 15 kernels that take the most device time.
+sample_n 5 by four methods, the replay, diverse greedy) on a route:
+``eager`` (``sample_beam`` / ``sample_stats`` / ``sample``), ``graph``
+(``sample_beam_graphed`` / ``sample_stats_graphed``: beam 5 and greedy
+only) or ``both``, taken in turns.  One warm-up batch a route (the graph
+route's captures its graphs), 3 unprofiled batches a route (host clock
+ending in a synchronize; with ``both`` in the order eager, graph, graph,
+eager, eager, graph), then one profiled batch a route.  Device busy is the
+sum of the self device time of the profiler's device events (each kernel
+once); idle share = 1 - busy / the profiled batch's wall.  A graph
+replay's kernels reach the profiler as kernels like any other (its
+launch is one host event, ``cudaGraphLaunch``), so the graph route's busy
+and idle share are read the same way: the idle share is then the time
+the card waits between replays (the host's flag read a step and the
+next launch) and on the batch's eager ends (the input copies, the
+outputs' clones).  The profiler slows a host-bound decode, so both walls
+are printed, and the 15 kernels that take the most device time.
 """
 
 from __future__ import annotations
@@ -103,18 +112,23 @@ def features(B: int, device: str, seed: int):
     return att.mean(1), att, torch.ones(B, REGIONS, device=device)
 
 
-def decode(cap, mode: str, fc, att, am, rng=None):
+def decode(cap, mode: str, fc, att, am, rng=None, graphed=False):
     """(seq, {'ent_sum', 'lp_sum'}) of one ``MODES`` decode through the
-    entry point a user calls; the table modes' sums are taken from the
-    tables (a diverse sample's from its sampled logprobs, entropy 0, as
+    entry point a user calls (``graphed``: the CUDA-graph entry, beam and
+    stats modes only); the table modes' sums are taken from the tables (a
+    diverse sample's from its sampled logprobs, entropy 0, as
     ``eval_split`` takes them).  ``rng``: the sampling noise (a generator
     on the device, a ``draw`` callable, or None for seed 0)."""
     kind, opt, _ = MODES[mode]
+    if graphed and kind not in ('beam', 'stats'):
+        raise ValueError('mode %s has no graph route' % mode)
     if kind == 'beam':
-        seq, stats, _ = cap.sample_beam(fc, att, am, rng, opt)
+        entry = cap.sample_beam_graphed if graphed else cap.sample_beam
+        seq, stats, _ = entry(fc, att, am, rng, opt)
         return seq, stats
     if kind == 'stats':
-        return cap.sample_stats(fc, att, am, rng, opt)
+        entry = cap.sample_stats_graphed if graphed else cap.sample_stats
+        return entry(fc, att, am, rng, opt)
     if kind == 'replay':
         seq, lp, _ = cap.sample_beam(fc, att, am, rng, opt, want_logps=True)
     else:
@@ -129,42 +143,64 @@ def decode(cap, mode: str, fc, att, am, rng=None):
                  'lp_sum': torch.where(keep, lp, 0.0).sum(1)}
 
 
-def main(argv=None):
-    p = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-    p.add_argument('--model', default='transformer', choices=sorted(MODELS))
-    p.add_argument('--mode', default='beam5', choices=sorted(MODES))
-    a = p.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit('profile_decode: needs a CUDA device')
+def profiled(cap, mode, fc, att, am, graphed):
+    """One profiled batch: its wall, device busy, idle share and top
+    kernels."""
     from torch.profiler import ProfilerActivity, profile
-    cap = make_captioner(a.model, 'bfloat16', 'cuda')
-    fc, att, am = features(BATCH, 'cuda', seed=1)
-    decode(cap, a.mode, fc, att, am)                       # warm-up
-    torch.cuda.synchronize()
-    walls = []
-    for _ in range(WALLS):
-        t = time.time()
-        decode(cap, a.mode, fc, att, am)
-        torch.cuda.synchronize()
-        walls.append(1000 * (time.time() - t))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.time()
-        decode(cap, a.mode, fc, att, am)
+        decode(cap, mode, fc, att, am, graphed=graphed)
         torch.cuda.synchronize()
         wall = 1000 * (time.time() - t)
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in events) / 1000
     events.sort(key=lambda e: -e.self_device_time_total)
+    return {'wall_ms_profiled': wall, 'device_busy_ms': busy,
+            'idle_share': 1 - busy / wall,
+            'kernels': [{'name': e.key[:90], 'calls': e.count,
+                         'ms': e.self_device_time_total / 1000,
+                         'share': e.self_device_time_total / 1000 / busy}
+                        for e in events[:TOP]]}
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    p.add_argument('--model', default='transformer', choices=sorted(MODELS))
+    p.add_argument('--mode', default='beam5', choices=sorted(MODES))
+    p.add_argument('--route', default='eager',
+                   choices=('eager', 'graph', 'both'))
+    a = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit('profile_decode: needs a CUDA device')
+    routes = {'eager': [False], 'graph': [True],
+              'both': [False, True]}[a.route]
+    cap = make_captioner(a.model, 'bfloat16', 'cuda')
+    fc, att, am = features(BATCH, 'cuda', seed=1)
+    for graphed in routes:                  # warm-up; the graphs' capture
+        decode(cap, a.mode, fc, att, am, graphed=graphed)
+    torch.cuda.synchronize()
+    walls = {g: [] for g in routes}
+    for i in range(WALLS):
+        for graphed in routes if i % 2 == 0 else routes[::-1]:
+            t = time.time()
+            decode(cap, a.mode, fc, att, am, graphed=graphed)
+            torch.cuda.synchronize()
+            walls[graphed].append(1000 * (time.time() - t))
     out = {'model': a.model, 'mode': a.mode, 'batch': BATCH,
-           'device': torch.cuda.get_device_name(0),
-           'wall_ms_unprofiled': walls, 'wall_ms_profiled': wall,
-           'device_busy_ms': busy, 'idle_share': 1 - busy / wall,
-           'kernels': [{'name': e.key[:90], 'calls': e.count,
-                        'ms': e.self_device_time_total / 1000,
-                        'share': e.self_device_time_total / 1000 / busy}
-                       for e in events[:TOP]]}
+           'device': torch.cuda.get_device_name(0), 'routes': {}}
+    for graphed in routes:
+        name = 'graph' if graphed else 'eager'
+        out['routes'][name] = dict(wall_ms_unprofiled=walls[graphed],
+                                   **profiled(cap, a.mode, fc, att, am,
+                                              graphed))
+    if cap._graph_cache:
+        out['graph_cache'] = [{'capture_s': e.capture_s,
+                               'bytes_allocated': e.bytes_allocated,
+                               'bytes_reserved': e.bytes_reserved,
+                               'held': e.held()}
+                              for e in cap._graph_cache.values()]
     print(json.dumps(out, indent=1))
     return out
 

@@ -153,6 +153,17 @@ def _sample_family(method: str) -> bool:
         'top')
 
 
+def decode_entry(captioner, kind: str, opt):
+    """The entry that decodes ``kind`` ('beam' or 'stats') with ``opt``:
+    the graph decode (``sample_beam_graphed`` / ``sample_stats_graphed``,
+    as the JAX ``eval_split`` calls the ``_jit`` ones) where its route
+    takes the options, else the eager ``sample_beam`` / ``sample_stats``."""
+    eager = {'beam': 'sample_beam', 'stats': 'sample_stats'}[kind]
+    if captioner.graph_route(kind, opt):
+        return getattr(captioner, eager)
+    return getattr(captioner, eager + '_graphed')
+
+
 def eval_split(captioner, loader, eval_kwargs=None):
     """reference eval_utils.py:128-226 on ``captioner.device``.
 
@@ -191,6 +202,8 @@ def eval_split(captioner, loader, eval_kwargs=None):
     beam = (int(sample_opt.get('beam_size', 1) or 1) > 1 and
             method in ('greedy', 'beam_search'))
     stats_route = not beam and group_size == 1 and _sample_family(method)
+    sample_beam = decode_entry(captioner, 'beam', sample_opt)
+    sample_stats = decode_entry(captioner, 'stats', sample_opt)
     rng = torch.Generator(device).manual_seed(int(eval_kwargs.get('seed',
                                                                   0)))
 
@@ -299,11 +312,10 @@ def eval_split(captioner, loader, eval_kwargs=None):
         rec = {'data': data, 'loss_dev': loss_dev, 'done': None,
                'inputs': [fc, att, am]}
         if beam:
-            seq, stats, done = captioner.sample_beam(fc, att, am, rng,
-                                                     sample_opt)
+            seq, stats, done = sample_beam(fc, att, am, rng, sample_opt)
             rec.update(kind='beam', seq=seq, stats=stats, done=done)
         elif stats_route:
-            seq, stats = captioner.sample_stats(fc, att, am, rng, sample_opt)
+            seq, stats = sample_stats(fc, att, am, rng, sample_opt)
             rec.update(kind='stats', seq=seq, stats=stats)
         else:
             seq, lp = captioner.sample(fc, att, am, rng, sample_opt)
@@ -372,7 +384,8 @@ def eval_split_n(captioner, n_predictions, input_data, vocab, rng,
 
     if sample_n_method == 'bs':
         opt = dict(base, sample_n=sample_n, beam_size=sample_n, group_size=1)
-        _, _, done = captioner.sample_beam(fc, att, am, rng, opt)
+        _, _, done = decode_entry(captioner, 'beam', opt)(fc, att, am, rng,
+                                                          opt)
         seqs = done['seq'][:, 0].cpu().numpy()[:B]          # [B, bdash, L]
         add(utils.decode_sequence(vocab, seqs[:, :sample_n].reshape(
             -1, seqs.shape[-1])), sample_n)
@@ -389,7 +402,8 @@ def eval_split_n(captioner, n_predictions, input_data, vocab, rng,
     elif sample_n_method == 'dbs':
         opt = dict(base, beam_size=beam_size * sample_n,
                    group_size=sample_n)
-        _, _, done = captioner.sample_beam(fc, att, am, rng, opt)
+        _, _, done = decode_entry(captioner, 'beam', opt)(fc, att, am, rng,
+                                                          opt)
         seqs = done['seq'][:, :, 0].cpu().numpy()[:B]  # best of each group
         add(utils.decode_sequence(vocab, seqs.reshape(-1, seqs.shape[-1])),
             sample_n)

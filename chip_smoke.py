@@ -121,11 +121,27 @@ Phases, in order; any failure raises and exits non-zero:
    greedy baseline (B1 six times B2's count, no other kernel); each run
    prints its median s/iter and spread (CUDA events and host wall), its
    peak memory, and an ``sc_decode`` scored on the card and by the python
-   CiderD on the CPU (within 1e-4).
+   CiderD on the CPU (within 1e-4);
+12. the CUDA-graph decodes (``engine/graphs.py``): the transformer,
+   UpDown, StackAtt and NewFC, beam 5 and greedy at B = 1024, bf16,
+   through ``sample_beam_graphed`` / ``sample_stats_graphed`` and through
+   the eager entries: each entry's capture time and memory, the kernels
+   its graphs captured (B1 and B2 for the transformer, B3 for UpDown and
+   StackAtt, B5 for StackAtt and NewFC, B6 in the RNN beams: required), no
+   wrapper launch on a graph batch, 3 walls a route taken in turns with
+   their CUDA-event time, the launches the replays ran (each graph's
+   captured calls times its replays; required), graph against eager
+   tokens (a bf16 difference reported with its top-2 gap); float32 graph
+   against eager tokens, required identical, at B = 8 for the four models
+   and at B = 1024 for the transformer; then the port's bench
+   (``captioning_tpu_torch/tools/bench.py``) at full size: its headline
+   JSON line and the four suite rows, every row required.
 
 Each decode mode requires the kernels its path runs: the top-k only in
 beam (the RNN plain-step route; the transformer's fused route selects in
-B2's epilogue).
+B2's epilogue).  Phases 5-7 and 10 decode through the eager entries,
+whose wrappers count every launch; phase 12's graphs are counted by
+captures and replays.
 
 The last two lines are the kernels' JSON record (for each of the eight:
 launches on its path, counted by its wrapper, where a call that a CUDA
@@ -1490,6 +1506,159 @@ def phase_decode(torch, model, modes, wrappers, batches=3, tables=None,
     return rates, launches, agree
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the CUDA-graph decodes against the eager ones, and the bench
+# ---------------------------------------------------------------------------
+
+# model -> (kernels its graphs must hold in both modes, in beam only), by
+# the wrappers' names in chip_smoke's ``wrappers``
+PHASE12 = {'transformer': (['attend_write_merged', 'logit_topk'], []),
+           'updown': (['additive_attention'], ['topk_lastdim']),
+           'stackatt': (['additive_attention', 'maxout_lstm_gates'],
+                        ['topk_lastdim']),
+           'newfc': (['maxout_lstm_gates'], ['topk_lastdim'])}
+
+
+def timed(torch, fn):
+    """(fn's result, host wall ms, CUDA-event ms) of one call ending in a
+    synchronize."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t = time.time()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, 1000 * (time.time() - t), start.elapsed_time(end)
+
+
+def first_gaps(torch, cap, fc, att, am, seq_a, seq_b, rows=3):
+    """For up to ``rows`` rows where two decodes' tokens differ: at the
+    first step they differ, the teacher-forced log-probs (over ``seq_a``'s
+    prefix) of both tokens and the gap between the step's two best."""
+    out = []
+    for r in (seq_a != seq_b).any(1).nonzero()[:rows, 0].tolist():
+        t = int((seq_a[r] != seq_b[r]).nonzero()[0, 0])
+        inp = torch.cat([torch.zeros_like(seq_a[r:r + 1, :1]),
+                         seq_a[r:r + 1, :-1]], 1)
+        lp = cap.forward_tf(fc[r:r + 1], att[r:r + 1], inp, am[r:r + 1])
+        top2 = lp[0, t].topk(2).values
+        out.append({'row': r, 'step': t,
+                    'lp_a': float(lp[0, t, seq_a[r, t]]),
+                    'lp_b': float(lp[0, t, seq_b[r, t]]),
+                    'top2_gap': float(top2[0] - top2[1])})
+    return out
+
+
+def phase_graphs(torch, wrappers):
+    """The four models, beam 5 and greedy at B = 1024, bf16, through the
+    graph entries (``sample_beam_graphed`` / ``sample_stats_graphed``) and
+    the eager ones: the capture time and memory, the kernels each entry's
+    graphs hold (PHASE12's required), no wrapper launch on a graph batch
+    (its kernels run in its graphs), 3 walls a route in turns (eager,
+    graph, graph, eager, eager, graph) with their CUDA-event time, the
+    launches the graphs' replays ran (captures x replays), and graph vs
+    eager tokens (a difference reported with its top-2 gap); then float32
+    graph vs eager tokens, required identical, at B = 8 for the four
+    models and at B = 1024 for the transformer.  Returns the record."""
+    from captioning_tpu_torch.tools import profile_decode as pd
+    short = {fn.__name__: name for name, fn in wrappers.items()}
+    record = {}
+    for model, (both, beam_only) in PHASE12.items():
+        torch.cuda.empty_cache()
+        cap = pd.make_captioner(model, 'bfloat16', 'cuda')
+        fc, att, am = pd.features(1024, 'cuda', seed=1)
+        for mode in ('beam5', 'greedy'):
+            required = both + (beam_only if mode == 'beam5' else [])
+            t = time.time()
+            pd.decode(cap, mode, fc, att, am, graphed=True)
+            torch.cuda.synchronize()
+            first_s = time.time() - t
+            entry = list(cap._graph_cache.values())[-1]
+            held = {short.get(k, k): n for k, n in entry.held().items()}
+            for name in required:
+                if held.get(name, 0) <= 0:
+                    raise AssertionError('%s is not among the %s %s graphs\' '
+                                         'captures %s' % (name, model, mode,
+                                                          held))
+            for fn in wrappers.values():
+                fn.launches = 0
+            before = cap.graph_launches()
+            pd.decode(cap, mode, fc, att, am, graphed=True)
+            torch.cuda.synchronize()
+            eager = {n: fn.launches for n, fn in wrappers.items()
+                     if fn.launches}
+            if eager:
+                raise AssertionError('a %s %s graph batch launched kernels '
+                                     'outside its graphs: %s'
+                                     % (model, mode, eager))
+            pd.decode(cap, mode, fc, att, am)              # eager warm-up
+            walls = {False: [], True: []}
+            outs = {}
+            for graphed in (False, True, True, False, False, True):
+                outs[graphed], wall, dev = timed(torch, lambda: pd.decode(
+                    cap, mode, fc, att, am, graphed=graphed))
+                walls[graphed].append([round(wall, 3), round(dev, 3)])
+            replayed = {short.get(k, k): n - before.get(k, 0)
+                        for k, n in cap.graph_launches().items()}
+            for name in required:
+                if replayed.get(name, 0) <= 0:
+                    raise AssertionError('the %s %s graphs never ran %s'
+                                         % (model, mode, name))
+            (sg, stg), (se, ste) = outs[True], outs[False]
+            check_output(torch, sg, stg, 1024, 20, pd.V)
+            same = (sg == se).all(1).float().mean().item()
+            rec = {'capture_s': round(entry.capture_s, 3),
+                   'first_call_s': round(first_s, 3),
+                   'graphs': len(entry.graphs),
+                   'bytes_allocated': entry.bytes_allocated,
+                   'bytes_reserved': entry.bytes_reserved,
+                   'held': held, 'replay_launches': replayed,
+                   'eager_ms_events': walls[False],
+                   'graph_ms_events': walls[True],
+                   'bf16_tokens_identical': same,
+                   'lp_sum_max_diff': (stg['lp_sum'] - ste['lp_sum']).abs()
+                   .max().item()}
+            if same < 1:
+                rec['first_differences'] = first_gaps(torch, cap, fc, att,
+                                                      am, se, sg)
+            record['%s %s' % (model, mode)] = rec
+            log('  %s %s B=1024 bf16: capture %.2f s (%d graphs, %.1f MiB '
+                'allocated, %.1f MiB reserved), walls [host ms, event ms] '
+                'eager %s, graph %s; graph tokens identical to eager %.4f; '
+                'replays ran %s' % (model, mode, entry.capture_s,
+                                    len(entry.graphs),
+                                    entry.bytes_allocated / 2 ** 20,
+                                    entry.bytes_reserved / 2 ** 20,
+                                    walls[False], walls[True], same,
+                                    replayed))
+            if same < 1:
+                log('  %s %s bf16 differences: %s'
+                    % (model, mode, json.dumps(rec['first_differences'])))
+        del cap
+    torch.cuda.empty_cache()
+    for model in PHASE12:
+        capf = pd.make_captioner(model, 'float32', 'cuda')
+        for B in (8, 1024) if model == 'transformer' else (8,):
+            fc, att, am = pd.features(B, 'cuda', seed=2)
+            for mode in ('beam5', 'greedy'):
+                sg, stg = pd.decode(capf, mode, fc, att, am, graphed=True)
+                se, ste = pd.decode(capf, mode, fc, att, am)
+                same = (sg == se).all(1).float().mean().item()
+                err = (stg['lp_sum'] - ste['lp_sum']).abs().max().item()
+                record['%s %s f32 B=%d' % (model, mode, B)] = {
+                    'tokens_identical': same, 'lp_sum_max_diff': err}
+                log('  %s %s f32 B=%d: graph tokens identical to eager %.4f, '
+                    'max lp_sum diff %.2e' % (model, mode, B, same, err))
+                if same < 1:
+                    raise AssertionError('f32 %s %s B=%d: graph and eager '
+                                         'tokens differ (%.4f identical)'
+                                         % (model, mode, B, same))
+        del capf
+        torch.cuda.empty_cache()
+    return record
+
+
 def main():
     import torch
     wall = time.time()
@@ -1636,6 +1805,17 @@ def main():
     for name, n in phase_rl(torch, wrappers).items():
         launches[name] += n
     log('phase 11: %.1f s' % (time.time() - t))
+
+    log('phase 12: the CUDA-graph decodes against the eager ones, then '
+        'the port\'s bench')
+    t = time.time()
+    log('  graph record: %s' % json.dumps(phase_graphs(torch, wrappers)))
+    from captioning_tpu_torch.tools import bench
+    _, rows, rc = bench.main([])
+    if rc:
+        raise AssertionError('bench: suite rows failed: %s' % json.dumps(
+            {k: r for k, r in rows.items() if 'error' in r}))
+    log('phase 12: %.1f s' % (time.time() - t))
 
     bad = [m for m in sys.modules
            if m.split('.')[0] in ('jax', 'flax', 'optax', 'captioning_tpu')]

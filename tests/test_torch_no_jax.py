@@ -1,9 +1,10 @@
 """The port imports no JAX and nothing of the JAX package: in a fresh
 interpreter where importing jax, flax, optax or ``captioning_tpu`` fails,
-every module of the port, ``tools/eval_torch.py`` and
+every module of the port (the bench too), ``tools/eval_torch.py`` and
 ``tools/train_torch.py`` import, and a tiny CPU beam, diverse beam, greedy
-and ``sample_n`` top-3 decode, an XE train step and a fused SCST step (its
-reward on ``ops/cider_device.py``) run, for the
+and ``sample_n`` top-3 decode, the graph entries' beam and greedy (the
+second through a recorder and the graph cache), an XE train step and a
+fused SCST step (its reward on ``ops/cider_device.py``) run, for the
 transformer and for RNN captioners of each family (UpDown, StackAtt,
 NewFC, LM, AdaAttMO).  An AST scan of the port's
 sources, ``chip_smoke.py``, ``tools/eval_torch.py`` and
@@ -57,6 +58,15 @@ assert seq.shape == (3, 5) and done['seq'].shape == (3, 1, 3, 5)
 assert torch.isfinite(stats['ent_sum']).all()
 seq, stats = cap.sample_stats(fc, att, am, None, {'beam_size': 1})
 assert seq.shape == (3, 5) and torch.isfinite(stats['lp_sum']).all()
+# the graph entries, and through a recorder their cache
+gseq, gstats, gdone = cap.sample_beam_graphed(fc, att, am, None,
+                                              {'beam_size': 3})
+from captioning_tpu_torch.engine.graphs import EagerRecorder
+cap.graph_recorder = EagerRecorder
+gseq2, _ = cap.sample_stats_graphed(fc, att, am, None, {'beam_size': 1})
+assert torch.equal(gseq2, seq) and len(cap._graph_cache) == 1
+from captioning_tpu_torch.tools import bench
+assert bench.decode_step_flops(opt, 4, 6) > 0
 seq, lps, done = cap.sample_beam(fc, att, am, None,
                                  {'beam_size': 4, 'group_size': 2,
                                   'diversity_lambda': 0.5}, want_logps=True)

@@ -2,8 +2,9 @@
 originals: the npz tree I/O and the checkpoint writer, the options, the
 learning-rate schedules of ``utils/optimizers.py``, the data loader's
 batches on the synthetic dataset, the caption metrics through
-``language_eval``, and the RL rewards of ``utils/rewards.py`` and
-``utils/cider_native.py``."""
+``language_eval``, the RL rewards of ``utils/rewards.py`` and
+``utils/cider_native.py``, the graph cache's key (``freeze_opt``) and the
+bench's FLOP model (root ``bench.py``'s ``decode_step_flops``)."""
 
 import json
 import os
@@ -80,6 +81,37 @@ def test_checkpoint_writer_matches_jax_package(tmp_path):
             assert a.read_bytes() == b.read_bytes(), f
     assert sorted(pmisc.load_flat(str(tmp_path / 'jax' / 'optimizer.npz'))
                   ) == sorted(opt_state)
+
+
+@pytest.mark.parametrize('widths', [
+    dict(d_model=512, d_ff=2048, N_dec=6, vocab_size=9487),
+    dict(d_model=32, d_ff=48, N_dec=2, vocab_size=20),
+    dict(d_model=64, d_ff=100, N_dec=3, vocab_size=1000)])
+def test_decode_step_flops_matches_bench_py(widths):
+    """The port's bench counts a decode step's FLOPs as the root bench
+    does (its MFU numerator), at the headline and other widths and cache
+    lengths."""
+    from types import SimpleNamespace
+
+    import bench as jax_bench
+    from captioning_tpu_torch.tools import bench
+    opt = SimpleNamespace(**widths)
+    for n_mem, cache_len in ((36, 21), (5, 9), (50, 1)):
+        assert bench.decode_step_flops(opt, n_mem, cache_len) == \
+            jax_bench.decode_step_flops(opt, n_mem, cache_len)
+
+
+def test_freeze_opt_matches_jax_package():
+    """The graph cache's key from the options, as the JAX ``_jit_cache``
+    keys them (dict / list values left out)."""
+    from captioning_tpu.models.api import freeze_opt as jax_freeze
+    from captioning_tpu_torch.models.api import freeze_opt
+    for opt in ({}, {'beam_size': 5, 'suppress_UNK': 1, 'sample_n': 1},
+                {'sample_method': 'greedy', 'temperature': 0.7,
+                 'length_penalty': 'wu_0.9', 'cfg': {'a': 1},
+                 'ids': [1, 2]}):
+        assert freeze_opt(opt) == jax_freeze(opt)
+        hash(freeze_opt(opt))
 
 
 def test_lr_schedules_match_jax_package():
