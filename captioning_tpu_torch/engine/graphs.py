@@ -28,6 +28,22 @@ Each kernel wrapper counts the calls a capture records
 (``ops._build.count_launch``: ``captures``); a ``GraphDecode`` keeps which
 kernels each of its graphs holds and how often it replayed each, so
 ``launches()`` gives the kernels its replays ran.
+
+A ``GraphTrainStep`` is the counterpart of the JAX package's jitted train
+steps (``Trainer.xe_step`` / ``sc_fused_step`` / ``sc_grad_step`` /
+``struc_*``, one ``jax.jit`` program each): the forward, the backward, the
+clip and the optimizer's update of one step, captured as one graph.  Its
+inputs are copied into static buffers at each call; the scalars the step
+reads (the learning rate in the optimizer's param group, the
+scheduled-sampling probability) are 0-d tensors on the card that the
+trainer fills before the replay, so one capture serves every value.  The
+first call runs the step eagerly on the recorder's side stream (the
+warm-up: the kernels' libraries load, cuBLAS picks its algorithms, the
+optimizer makes its state), then captures it without running it.  The
+generators the step draws from are registered with the graph
+(``register_generator_state``): each replay draws from the generator's
+current state and moves it on, as the eager step does, so a replay draws
+what the eager step would.
 """
 
 from __future__ import annotations
@@ -60,10 +76,17 @@ class CudaRecorder:
             fn()
         current.wait_stream(self.stream)
 
-    def capture(self, fn):
+    # a capture records ``fn``'s kernels without running them
+    runs_captures = False
+
+    def capture(self, fn, generators=()):
         """A graph of ``fn``'s kernels; its ``replay()`` runs them on the
-        current stream."""
+        current stream.  ``generators`` (CUDA ``torch.Generator``s that
+        ``fn`` draws from, besides the default one) are registered with
+        the graph, so each replay draws from their current states."""
         graph = torch.cuda.CUDAGraph()
+        for g in generators:
+            graph.register_generator_state(g)
         with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
             fn()
         return graph
@@ -71,9 +94,12 @@ class CudaRecorder:
 
 class EagerRecorder:
     """A recorder that captures a closure by running it once and replays
-    it by running it again: the graph decode's plumbing (static buffers,
-    the carry written back, fresh outputs, the cache) on any device.  For
+    it by running it again: the graph entries' plumbing (static buffers,
+    the carry written back, fresh outputs, the caches) on any device.  For
     tests; no entry point chooses it."""
+
+    # the capture runs ``fn``: a train step's capture is its first step
+    runs_captures = True
 
     def __init__(self, device=None):
         """Takes a device as ``CudaRecorder`` does; runs on any."""
@@ -81,9 +107,25 @@ class EagerRecorder:
     def warm(self, fn):
         fn()
 
-    def capture(self, fn):
+    def capture(self, fn, generators=()):
         fn()
         return SimpleNamespace(replay=fn)
+
+
+def capture(recorder, fn, what, generators=()):
+    """(``recorder.capture(fn, generators)``, {kernel wrapper name: the
+    calls the capture recorded}); a capture that fails raises, naming
+    ``what``."""
+    before = {n: f.captures for n, f in _build.COUNTED.items()}
+    try:
+        graph = (recorder.capture(fn, generators) if generators
+                 else recorder.capture(fn))
+    except RuntimeError as e:
+        raise RuntimeError('CUDA graph capture of %s failed: %s'
+                           % (what, e)) from e
+    return graph, {n: f.captures - before.get(n, 0)
+                   for n, f in _build.COUNTED.items()
+                   if f.captures > before.get(n, 0)}
 
 
 def clone_tree(tree):
@@ -152,16 +194,8 @@ class GraphDecode:
             write_back(self.carry, carry)
 
     def _capture(self, recorder, fn, what):
-        before = {n: f.captures for n, f in _build.COUNTED.items()}
-        try:
-            graph = recorder.capture(fn)
-        except RuntimeError as e:
-            raise RuntimeError('CUDA graph capture of %s failed: %s'
-                               % (what, e)) from e
-        self.captured.append({
-            n: f.captures - before.get(n, 0)
-            for n, f in _build.COUNTED.items()
-            if f.captures > before.get(n, 0)})
+        graph, held = capture(recorder, fn, what)
+        self.captured.append(held)
         return graph
 
     def __call__(self, fc, att, att_masks):
@@ -183,17 +217,79 @@ class GraphDecode:
     def launches(self) -> Dict[str, int]:
         """Kernel wrapper name -> the launches this entry's replays ran
         (each graph's captured calls times its replays)."""
-        out: Dict[str, int] = {}
-        for held, n in zip(self.captured, self.replays):
-            for name, c in held.items():
-                out[name] = out.get(name, 0) + c * n
-        return out
+        return _weighted(self.captured, self.replays)
 
     def held(self) -> Dict[str, int]:
         """Kernel wrapper name -> the calls all of this entry's graphs
         captured."""
-        out: Dict[str, int] = {}
-        for held in self.captured:
-            for name, c in held.items():
-                out[name] = out.get(name, 0) + c
-        return out
+        return _weighted(self.captured, [1] * len(self.captured))
+
+
+def _weighted(captured, times) -> Dict[str, int]:
+    out: Dict[str, int] = {}
+    for held, n in zip(captured, times):
+        for name, c in held.items():
+            out[name] = out.get(name, 0) + c * n
+    return out
+
+
+class GraphTrainStep:
+    """One train step, ``body(**inputs) -> {name: tensor}``, captured as
+    one graph by ``recorder`` at the shapes of ``inputs`` (a dict of
+    tensors or None).  ``generators``: the CUDA generators ``body`` draws
+    from.  Making it runs the step once on ``inputs``: ``first`` holds that
+    step's outputs.  Calling it with new inputs of those shapes runs the
+    next step by one replay and returns the outputs, cloned.  The caller
+    fills the step's scalar tensors before each call."""
+
+    def __init__(self, body, inputs, generators, recorder):
+        self.body = body
+        self.inputs = {k: None if x is None else x.clone()
+                       for k, x in inputs.items()}
+        self.outputs = None
+        cuda = any(x is not None and x.is_cuda for x in inputs.values())
+        if not recorder.runs_captures:
+            # the first step, eagerly: what loads and allocates lazily
+            # does so here, outside the capture
+            recorder.warm(self._run)
+            first = clone_tree(self.outputs)
+        if cuda:
+            # the pool's size: what the card reserves across the capture,
+            # against an emptied cache
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved()
+        start = time.time()
+        self.graph, self.captured = capture(recorder, self._run,
+                                            'the train step',
+                                            tuple(generators))
+        if recorder.runs_captures:
+            first = clone_tree(self.outputs)
+        self.bytes_reserved = 0
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            self.bytes_reserved = torch.cuda.memory_reserved() - reserved
+        self.capture_s = time.time() - start
+        self.first = first
+        self.replays = 0
+
+    def _run(self):
+        self.outputs = self.body(**self.inputs)
+
+    def __call__(self, inputs):
+        for name, x in inputs.items():
+            buf = self.inputs[name]
+            if buf is not None:
+                buf.copy_(x)
+        self.graph.replay()
+        self.replays += 1
+        return clone_tree(self.outputs)
+
+    def launches(self) -> Dict[str, int]:
+        """Kernel wrapper name -> the launches this step's replays ran."""
+        return _weighted([self.captured], [self.replays])
+
+    def held(self) -> Dict[str, int]:
+        """Kernel wrapper name -> the calls the graph captured."""
+        return dict(self.captured)

@@ -580,12 +580,18 @@ class AttCaptioner(nn.Module):
         return torch.stack(out, 1)
 
 
-def scheduled_sample(it, prev_logprobs, ss_prob: float, gen):
+def scheduled_sample(it, prev_logprobs, ss_prob, gen):
     """Each row's input: ``it`` or, where a uniform draw is below
-    ``ss_prob``, a token drawn from ``prev_logprobs`` [N, V+1] (the coin
-    first, then the draw, both from ``gen``; no gradient)."""
+    ``ss_prob`` (a float or a 0-d tensor), a token drawn from
+    ``prev_logprobs`` [N, V+1] (the coin first, then the draw, both from
+    ``gen``; no gradient).  The draw is ``torch.multinomial``'s one-sample
+    algorithm written out, argmax(p / q) with q ~ Exp(1): the same token
+    from the same generator state, without the host read by which
+    ``multinomial`` checks its input, which a CUDA graph cannot hold."""
     with torch.no_grad():
         coin = torch.rand(it.shape[0], generator=gen,
                           device=it.device) < ss_prob
-        drawn = torch.multinomial(prev_logprobs.exp(), 1, generator=gen)[:, 0]
+        probs = prev_logprobs.exp()
+        q = torch.empty_like(probs).exponential_(1, generator=gen)
+        drawn = (probs / q).argmax(-1)
     return torch.where(coin, drawn.to(it.dtype), it)

@@ -104,8 +104,9 @@ class MaskedBatchNorm(nn.Module):
                 train: bool = False):
         if train:
             if mask is None:
-                n = torch.tensor(float(x.shape[0] * x.shape[1]),
-                                 device=x.device)
+                # a fill, not a copy from the host: a graph holds it
+                n = torch.full((), float(x.shape[0] * x.shape[1]),
+                               device=x.device)
                 mean = x.mean((0, 1))
                 var = x.var((0, 1), unbiased=False)
             else:

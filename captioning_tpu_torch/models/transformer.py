@@ -21,10 +21,13 @@ every decode step goes through ``ops.beam_attend.attend_write_merged`` (a
 CUDA kernel for CUDA tensors, its plain twin for CPU tensors); the vocab
 epilogue on ``step(return_hidden=True)`` is ``models.api``'s
 ``step_topk``.  A step at per-row positions (``uniform_t=False``: the
-staggered groups of diverse decoding) and a step in train mode go the
-plain way, as the JAX module takes them on every backend: each row's
-positional row, its K/V written at its own slot, the ancestry attend masked
-per row (``_attend_rows``).
+staggered groups of diverse decoding) goes the plain way, as the JAX
+module takes it on every backend: each row's positional row, its K/V
+written at its own slot, the ancestry attend masked per row
+(``_attend_rows``).  A train-mode step at a uniform ``t`` (the RL
+sampling pass and its recompute) runs the same layers with the cache
+written at slot t by a select, as the JAX ``uniform_t`` branch writes it
+by a dynamic slice: no host read, so a CUDA graph holds it.
 
 ``forward_tf`` and ``prepare_feature`` also run in train mode, given a
 generator ``gen`` (None is eval): dropout at the JAX sites (the att embed
@@ -306,9 +309,14 @@ class TransformerCaptioner(nn.Module):
         the returned state is a new dict over the same buffers with t + 1.
         ``beam_width > 0`` attends through ``state['anc']`` (rows grouped
         in blocks of ``beam_width`` physical slots); 0 is plain decoding.
-        ``uniform_t=False`` (rows at their own ``t``) and train mode
-        (``gen``, dropout drawn from it) take ``_step_rows``.
+        Train mode (``gen``, dropout drawn from it) at a uniform host-int
+        ``t`` takes ``_step_train``; rows at their own ``t``
+        (``uniform_t=False``, or a [N] ``t``) take ``_step_rows``.
         """
+        if (gen is not None and uniform_t and not beam_width
+                and not torch.is_tensor(state['t'])):
+            return self._step_train(it, feats, state, logsoftmax,
+                                    return_hidden, gen)
         if gen is not None or not uniform_t:
             return self._step_rows(it, feats, state, logsoftmax, beam_width,
                                    return_hidden, gen)
@@ -348,6 +356,58 @@ class TransformerCaptioner(nn.Module):
             return torch.log_softmax(logits, dim=-1), state
         return logits, state
 
+    def _step_train(self, it, feats, state, logsoftmax: bool,
+                    return_hidden: bool, gen):
+        """The train-mode step at the uniform host-int ``state['t']`` (the
+        JAX ``uniform_t`` branch): position t of each layer's cache is
+        written out of place by a select over a one-hot of t, a fixed
+        sequence of kernels that reads nothing on the host.  Its dropout
+        sites and their order are ``_step_rows``'s (``_layer_rows``), so the
+        same generator state draws the same masks and the logprobs are
+        ``_step_rows``'s."""
+        cfg = self.cfg
+        dt, D, p = cfg.dtype, cfg.d_model, cfg.dropout
+        B = it.shape[0]
+        Tp = state['k0'].shape[1]
+        t = int(state['t'])
+        x = self.tgt_embed[it].to(dt) * sqrt_in(D, dt)
+        x = dropout(x + self.pe[min(t, self.pe.shape[0] - 1)].to(dt), p, gen)
+        new_state = dict(state, t=t + 1)
+        pos = torch.arange(Tp, device=it.device)
+        at_t = (pos == t)[None, :, None]
+        time_mask = (pos <= t)[None].expand(B, Tp)
+
+        def write(kc, new):
+            return torch.where(at_t, new[:, None], kc)
+
+        for i, layer in enumerate(self.dec):
+            x, new_state['k%d' % i], new_state['v%d' % i] = self._layer_rows(
+                layer, x, state['k%d' % i], state['v%d' % i], write, None,
+                time_mask, 0, feats, gen)
+        return self._logits(x, new_state, logsoftmax, return_hidden)
+
+    def _layer_rows(self, layer, x, kc, vc, write, anc, time_mask,
+                    beam_width: int, feats, gen):
+        """One decoder layer of the plain step: K/V written by
+        ``write(cache, new)`` (in place or out of place; returns the cache
+        to attend), the self-attention masked per row, the folded
+        cross-attention, the feed-forward.  Returns (x, k cache, v
+        cache)."""
+        cfg = self.cfg
+        h, p = cfg.num_att_heads, cfg.dropout
+        y = layer.norm1(x)
+        kc = write(kc, linear(y, layer.s_wk))
+        vc = write(vc, linear(y, layer.s_wv))
+        ctx = _attend_rows(linear(y, layer.s_wq), kc, vc, anc, time_mask,
+                           beam_width, h, p, gen)
+        x = x + dropout(linear(ctx, layer.s_wo), p, gen)
+        x = x + dropout(layer.lazy_cross(layer.norm2(x), feats['memory'],
+                                         feats['att_masks'], h, p, gen),
+                        p, gen)
+        x = x + dropout(linear(dropout(torch.relu(
+            linear(layer.norm3(x), layer.w1)), p, gen), layer.w2), p, gen)
+        return x, kc, vc
+
     def _step_rows(self, it, feats, state, logsoftmax: bool,
                    beam_width: int, return_hidden: bool, gen=None):
         """The plain step: each row at its own ``state['t']`` (an int or a
@@ -357,7 +417,7 @@ class TransformerCaptioner(nn.Module):
         cache (a diverse group frozen after its finish) writes nothing,
         as the JAX scatter drops an update out of bounds."""
         cfg = self.cfg
-        h, dt, D, p = cfg.num_att_heads, cfg.dtype, cfg.d_model, cfg.dropout
+        dt, D, p = cfg.dtype, cfg.d_model, cfg.dropout
         B = it.shape[0]
         Tp = state['k0'].shape[1]
         t = state['t']
@@ -378,25 +438,18 @@ class TransformerCaptioner(nn.Module):
             anc = state['anc'].index_put(
                 (rows, slots), (rows % beam_width).to(state['anc'].dtype))
             new_state['anc'] = anc
-        mem, am = feats['memory'], feats['att_masks']
-        for i, layer in enumerate(self.dec):
-            y = layer.norm1(x)
-            k_new, v_new = linear(y, layer.s_wk), linear(y, layer.s_wv)
-            kc, vc = state['k%d' % i], state['v%d' % i]
+
+        def write(kc, new):
             if gen is None:
-                kc.index_put_((rows, slots), k_new[ok])
-                vc.index_put_((rows, slots), v_new[ok])
-            else:
-                kc = kc.index_put((rows, slots), k_new[ok])
-                vc = vc.index_put((rows, slots), v_new[ok])
+                return kc.index_put_((rows, slots), new[ok])
+            return kc.index_put((rows, slots), new[ok])
+
+        for i, layer in enumerate(self.dec):
+            x, kc, vc = self._layer_rows(
+                layer, x, state['k%d' % i], state['v%d' % i], write, anc,
+                time_mask, beam_width, feats, gen)
+            if gen is not None:
                 new_state['k%d' % i], new_state['v%d' % i] = kc, vc
-            ctx = _attend_rows(linear(y, layer.s_wq), kc, vc, anc, time_mask,
-                               beam_width, h, p, gen)
-            x = x + dropout(linear(ctx, layer.s_wo), p, gen)
-            x = x + dropout(layer.lazy_cross(layer.norm2(x), mem, am, h, p,
-                                             gen), p, gen)
-            x = x + dropout(linear(dropout(torch.relu(
-                linear(layer.norm3(x), layer.w1)), p, gen), layer.w2), p, gen)
         return self._logits(x, new_state, logsoftmax, return_hidden)
 
     # -- teacher forcing ---------------------------------------------------------

@@ -27,6 +27,19 @@ BatchNorm running statistics change once a step, from the sampling pass's
 train-mode prepare, as the JAX steps thread them: the eval greedy baseline
 reads them, and the XE term and the recompute run under
 ``Captioner.bn_frozen``.
+
+Each step is a body that reads nothing on the host (the forward, the loss,
+the backward into gradients kept from step to step, the clip and the
+optimizer's update) behind the scalars it reads (``_scalars``: the
+learning rate in the optimizer's param group and the scheduled-sampling
+probability, 0-d tensors on the card).  The eager methods run the body;
+the ``*_graphed`` ones (the counterparts of the JAX ``jax.jit`` steps) run
+it as one CUDA graph (``engine.graphs.GraphTrainStep``), cached by the
+step's kind, the options it bakes in, its input shapes and the generators
+and scorer it reads.  ``graph_route`` says why a step stays eager.  The
+fused SCST body runs the greedy baseline for all ``seq_length`` steps:
+a graph cannot read the exit flag, and the steps after every row has
+finished only write pads, so the tokens are the early exit's.
 """
 
 from __future__ import annotations
@@ -36,8 +49,12 @@ from typing import Dict
 import torch
 
 from ..engine import decoding
+from ..engine.graphs import CudaRecorder, GraphTrainStep
 from ..utils import optimizers as optim_utils
 from . import losses
+
+# the graphed steps, by kind
+KINDS = ('xe', 'sc_fused', 'sc_grad', 'struc_fused', 'struc_grad')
 
 
 def _copy(generator: torch.Generator) -> torch.Generator:
@@ -65,11 +82,35 @@ class Trainer:
         self.label_smoothing = float(getattr(opt, 'label_smoothing', 0) or 0)
         self.named_params = dict(captioner.module.named_parameters())
         params = list(self.named_params.values())
+        cuda = self.captioner.device.type == 'cuda'
+        # on the card the optimizer keeps its step count and learning rate
+        # on the device wherever torch.optim can (optimizers.CAPTURABLE)
+        capturable = cuda and not optim_utils.graph_route(opt)
         if getattr(opt, 'noamopt', False):
-            self.optimizer = optim_utils.build_noam_optimizer(opt, params)
+            self.optimizer = optim_utils.build_noam_optimizer(
+                opt, params, capturable)
         else:
-            self.optimizer = optim_utils.build_optimizer(opt, params)
+            self.optimizer = optim_utils.build_optimizer(opt, params,
+                                                         capturable)
         self.clip = optim_utils.clip_transform(opt)
+        # the gradients live from here on and are zeroed in place each
+        # step, so a graph's backward accumulates into the same buffers; a
+        # parameter the pass does not reach (the folded cross-attention's K
+        # bias in the transformer's decode step) keeps a zero gradient, as
+        # jax.grad gives it, and the optimizer steps it as the JAX one
+        for p in params:
+            p.grad = torch.zeros_like(p)
+        # the scheduled-sampling probability the XE body reads: on the
+        # card a 0-d tensor that a graph reads at each replay
+        self._ss = (torch.zeros((), device=self.captioner.device)
+                    if cuda else 0.0)
+        # (kind, baked options, input shapes, generators, scorer) ->
+        # GraphTrainStep
+        self._graphs = {}
+        # the graphed steps' recorder class: None is CudaRecorder on a
+        # CUDA captioner, the eager body on a CPU one (tests set
+        # engine.graphs.EagerRecorder here to run the cache's plumbing)
+        self.graph_recorder = None
 
     # -- optimizer state in the JAX layout ----------------------------------
     def opt_state_jax(self) -> Dict:
@@ -83,17 +124,21 @@ class Trainer:
                                    flat)
 
     # -- plumbing -----------------------------------------------------------
-    def _apply_updates(self, loss, lr):
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        # a parameter the pass does not reach (the folded cross-attention's
-        # K bias in the transformer's decode step) takes a zero gradient,
-        # as jax.grad gives it, so the optimizer steps it as the JAX one
-        for p in self.named_params.values():
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        self.clip(list(self.named_params.values()))
+    def _scalars(self, lr, ss_prob=None):
+        """The scalars a step body reads, set before it runs: the learning
+        rate (into a capturable optimizer's device tensor) and the
+        scheduled-sampling probability."""
         optim_utils.set_lr(self.optimizer, lr)
+        if ss_prob is not None:
+            if torch.is_tensor(self._ss):
+                self._ss.fill_(ss_prob)
+            else:
+                self._ss = float(ss_prob)
+
+    def _apply_updates(self, loss):
+        self.optimizer.zero_grad(set_to_none=False)
+        loss.backward()
+        self.clip(list(self.named_params.values()))
         self.optimizer.step()
 
     def _crit(self, logprobs, target, mask, reduction):
@@ -109,6 +154,82 @@ class Trainer:
         k = int(loss_vec.shape[0] * (1 - drop_worst_rate))
         return torch.topk(loss_vec, k, largest=False).values.mean()
 
+    # -- graphed steps ------------------------------------------------------
+    def graph_route(self, kind: str) -> str:
+        """'' when the step ``kind`` (``KINDS``) with this trainer's
+        options runs as a CUDA graph (``<kind>_step_graphed``), else why
+        it stays on the eager method."""
+        if kind not in KINDS:
+            raise ValueError('unknown train step kind %r' % kind)
+        why = optim_utils.graph_route(self.opt)
+        if why:
+            return why
+        opt = self.opt
+        if kind == 'sc_fused' and int(opt.sc_beam_size or 1) > 1:
+            return 'a beam-search greedy baseline (sc_beam_size > 1)'
+        if kind.startswith('struc') and int(getattr(opt, 'use_ppo', 0)) \
+                and self.old_captioner is not None \
+                and self.old_captioner.device != self.captioner.device:
+            return "PPO's old policy on another device"
+        if kind == 'struc_fused' and float(
+                getattr(opt, 'self_cider_reward_weight', 0)) > 0:
+            return ('the self-CIDEr reward: torch.linalg.eigvalsh checks '
+                    'its result on the host')
+        return ''
+
+    def _baked(self, kind: str):
+        """The options a step's graph bakes in (host values read while it
+        is captured): a change makes a new cache entry."""
+        opt = self.opt
+        names = ['label_smoothing', 'drop_worst_rate', 'grad_clip_mode',
+                 'grad_clip_value']
+        if kind != 'xe':
+            names += ['train_sample_method', 'train_beam_size',
+                      'train_sample_n', 'cider_reward_weight',
+                      'bleu_reward_weight']
+        if kind == 'sc_fused':
+            names += ['sc_sample_method', 'sc_beam_size']
+        if kind.startswith('struc'):
+            names += ['structure_loss_weight', 'structure_loss_type',
+                      'entropy_reward_weight', 'self_cider_reward_weight',
+                      'use_ppo', 'ppo_cliprange', 'ppo_kl_coef',
+                      'struc_use_logsoftmax']
+        return tuple((n, getattr(opt, n, None)) for n in names)
+
+    def _graphed(self, kind, body, inputs, generators, held=(),
+                 flags=()):
+        """``body(**inputs)`` as the cached graph of ``kind``; ``held``:
+        other objects the graph reads (the scorer); ``flags``: the call's
+        switches the body bakes in (drop-worst).  On a CPU trainer with no
+        recorder set, the body runs eagerly: CUDA graphs do not exist
+        there."""
+        why = self.graph_route(kind)
+        if why:
+            raise ValueError('no graphed %s step: %s; call %s_step'
+                             % (kind, why, kind))
+        if self.graph_recorder is None and self.captioner.device.type != \
+                'cuda':
+            return body(**inputs)
+        recorder = self.graph_recorder or CudaRecorder
+        if recorder is CudaRecorder and any(
+                not isinstance(g, torch.Generator) for g in generators):
+            raise ValueError('a graphed %s step draws from torch.Generators '
+                             'on the captioner\'s device, got %s'
+                             % (kind, [type(g).__name__ for g in generators]))
+        gens = tuple({id(g): g for g in generators}.values())
+        # the generators and the scorer by identity: the key holds them
+        # while the graph that reads them lives
+        key = (kind, tuple(flags), self._baked(kind), gens, tuple(held)) + \
+            tuple((name, None if x is None else (tuple(x.shape), x.dtype))
+                  for name, x in inputs.items())
+        entry = self._graphs.get(key)
+        if entry is None:
+            entry = GraphTrainStep(body, inputs, gens,
+                                   recorder(self.captioner.device))
+            self._graphs[key] = entry
+            return entry.first
+        return entry(inputs)
+
     # -- XE -----------------------------------------------------------------
     def xe_step(self, fc, att, labels, masks, am, lr, ss_prob, generator,
                 drop_worst_flag=False):
@@ -116,15 +237,33 @@ class Trainer:
         or [N, L + 2]); dropout and scheduled sampling draw from
         ``generator``.  Returns {'loss': the loss before the update, a 0-d
         tensor on the device}."""
+        self._scalars(lr, ss_prob)
+        return self._xe_body(fc, att, labels, masks, am, generator,
+                             drop_worst_flag)
+
+    def xe_step_graphed(self, fc, att, labels, masks, am, lr, ss_prob,
+                        generator, drop_worst_flag=False):
+        """``xe_step`` as one CUDA graph (the JAX jitted ``xe_step``; one
+        capture serves every ``lr`` and ``ss_prob``)."""
+        self._scalars(lr, ss_prob)
+        return self._graphed(
+            'xe', lambda **kw: self._xe_body(generator=generator,
+                                             drop_worst_flag=drop_worst_flag,
+                                             **kw),
+            dict(fc=fc, att=att, labels=labels, masks=masks, am=am),
+            (generator,), flags=(drop_worst_flag,))
+
+    def _xe_body(self, fc, att, labels, masks, am, generator,
+                 drop_worst_flag):
         logprobs = self.captioner.forward_tf(
-            fc, att, labels[..., :-1], am, train=True, ss_prob=ss_prob,
+            fc, att, labels[..., :-1], am, train=True, ss_prob=self._ss,
             generator=generator)
         loss = self._crit(logprobs, labels[..., 1:], masks[..., 1:],
                           'none' if drop_worst_flag else 'mean')
         if drop_worst_flag:
             loss = self._drop_worst(
                 loss, float(getattr(self.opt, 'drop_worst_rate', 0)))
-        self._apply_updates(loss, lr)
+        self._apply_updates(loss)
         return {'loss': loss.detach()}
 
     # -- options of the RL passes -------------------------------------------
@@ -144,12 +283,22 @@ class Trainer:
         return (float(self.opt.cider_reward_weight),
                 float(getattr(self.opt, 'bleu_reward_weight', 0)))
 
-    def _greedy(self, fc, att, am, rng):
+    def _greedy(self, fc, att, am, rng, exit_early=True):
         """The eval-mode baseline: int tokens, copied out of inference
-        mode."""
+        mode.  Without ``exit_early`` a one-sequence baseline runs all
+        ``seq_length`` steps, reading no exit flag on the host."""
         with torch.inference_mode():
-            seq, _ = decoding.sample(self.captioner.bind(), fc, att, am, rng,
-                                     self._sc_opt(), return_stats=True)
+            if exit_early or int(self.opt.sc_beam_size or 1) > 1:
+                seq, _ = decoding.sample(self.captioner.bind(), fc, att, am,
+                                         rng, self._sc_opt(),
+                                         return_stats=True)
+            else:
+                prog = decoding.sample_program(self.captioner.bind(),
+                                               self._sc_opt(), rng)
+                carry = prog.setup(fc, att, am)
+                for t in range(prog.steps):
+                    prog.body(carry, t)
+                seq = carry['seq']
         return seq.clone()
 
     def _recompute(self, fc, att, am, gen_seq, generator,
@@ -213,24 +362,66 @@ class Trainer:
         """The policy gradient over ``sc_decode``'s samples, their tables
         recomputed with the decode's dropout; ``reward`` [B*n, L].
         Returns {'loss'}."""
+        self._scalars(lr)
+        return self._sc_grad_body(fc, att, am, gen_seq, reward, generator,
+                                  drop_worst_flag)
+
+    def sc_grad_step_graphed(self, fc, att, am, gen_seq, reward, lr,
+                             generator, drop_worst_flag=False):
+        """``sc_grad_step`` as one CUDA graph (the JAX jitted
+        ``sc_grad_step``)."""
+        self._scalars(lr)
+        return self._graphed(
+            'sc_grad', lambda **kw: self._sc_grad_body(
+                generator=generator, drop_worst_flag=drop_worst_flag, **kw),
+            dict(fc=fc, att=att, am=am, gen_seq=gen_seq, reward=reward),
+            (generator,), flags=(drop_worst_flag,))
+
+    def _sc_grad_body(self, fc, att, am, gen_seq, reward, generator,
+                      drop_worst_flag):
         lp = self._recompute(fc, att, am, gen_seq, generator)
         loss = losses.reward_criterion(
             lp, gen_seq, reward, 'none' if drop_worst_flag else 'mean')
         if drop_worst_flag:
             loss = self._drop_worst(
                 loss, float(getattr(self.opt, 'drop_worst_rate', 0)))
-        self._apply_updates(loss, lr)
+        self._apply_updates(loss)
         return {'loss': loss.detach()}
 
     def sc_fused_step(self, fc, att, am, refs, ref_mask, lr, rng_greedy,
                       rng_sample, generator, device_scorer):
-        """One SCST iteration on the card: the greedy baseline, the
-        sampling pass, the mixed reward (cider_reward_weight * CIDEr-D +
-        bleu_reward_weight * BLEU-4 on ``device_scorer``; refs [B, R, Lr],
-        ref_mask [B, R]) and the policy gradient through the sampling
-        pass's own tables.  Returns {'loss', 'reward': the mean
-        advantage}, on the device."""
-        greedy_seq = self._greedy(fc, att, am, rng_greedy)
+        """One SCST iteration on the card: the greedy baseline (all
+        ``seq_length`` steps), the sampling pass, the mixed reward
+        (cider_reward_weight * CIDEr-D + bleu_reward_weight * BLEU-4 on
+        ``device_scorer``; refs [B, R, Lr], ref_mask [B, R]) and the policy
+        gradient through the sampling pass's own tables.  Returns {'loss',
+        'reward': the mean advantage, 'greedy' [B, L] and 'sampled' [B*n,
+        L]: the two passes' tokens}, on the device."""
+        self._scalars(lr)
+        return self._sc_fused_body(fc, att, am, refs, ref_mask, rng_greedy,
+                                   rng_sample, generator, device_scorer)
+
+    def sc_fused_step_graphed(self, fc, att, am, refs, ref_mask, lr,
+                              rng_greedy, rng_sample, generator,
+                              device_scorer):
+        """``sc_fused_step`` as one CUDA graph (the JAX jitted
+        ``sc_fused_step``): the baseline, the sampling pass, the reward and
+        the update with no host read.  The generators are torch
+        Generators on the card; the graph draws from their states."""
+        self._scalars(lr)
+        return self._graphed(
+            'sc_fused', lambda **kw: self._sc_fused_body(
+                rng_greedy=rng_greedy, rng_sample=rng_sample,
+                generator=generator, device_scorer=device_scorer, **kw),
+            dict(fc=fc, att=att, am=am, refs=refs, ref_mask=ref_mask),
+            (generator, rng_sample) + (
+                () if self.opt.sc_sample_method == 'greedy'
+                else (rng_greedy,)),
+            held=(device_scorer,))
+
+    def _sc_fused_body(self, fc, att, am, refs, ref_mask, rng_greedy,
+                       rng_sample, generator, device_scorer):
+        greedy_seq = self._greedy(fc, att, am, rng_greedy, exit_early=False)
         gen_seq, gen_lp = self.captioner.sample_train(
             fc, att, am, rng_sample, self._train_opt(), generator)
         with torch.no_grad():
@@ -238,8 +429,9 @@ class Trainer:
                 greedy_seq, gen_seq, refs, ref_mask,
                 *self._reward_weights())
         loss = losses.reward_criterion(gen_lp, gen_seq, reward)
-        self._apply_updates(loss, lr)
-        return {'loss': loss.detach(), 'reward': reward[:, 0].mean()}
+        self._apply_updates(loss)
+        return {'loss': loss.detach(), 'reward': reward[:, 0].mean(),
+                'greedy': greedy_seq, 'sampled': gen_seq}
 
     # -- structure losses / PPO ----------------------------------------------
     def struc_fused_step(self, fc, att, labels, masks, am, refs, ref_mask,
@@ -249,6 +441,28 @@ class Trainer:
         ``device_scorer`` (the self-CIDEr reward too), w =
         structure_loss_weight.  Returns {'loss', 'lm_loss', 'struc_loss',
         'reward' [B, n]} and PPO's terms."""
+        self._scalars(lr)
+        return self._struc_fused_body(fc, att, labels, masks, am, refs,
+                                      ref_mask, rng, generator, generator_lm,
+                                      device_scorer)
+
+    def struc_fused_step_graphed(self, fc, att, labels, masks, am, refs,
+                                 ref_mask, lr, rng, generator, generator_lm,
+                                 device_scorer):
+        """``struc_fused_step`` as one CUDA graph (the JAX jitted
+        ``struc_fused_step``); the self-CIDEr reward keeps it eager
+        (``graph_route``)."""
+        self._scalars(lr)
+        return self._graphed(
+            'struc_fused', lambda **kw: self._struc_fused_body(
+                rng=rng, generator=generator, generator_lm=generator_lm,
+                device_scorer=device_scorer, **kw),
+            dict(fc=fc, att=att, labels=labels, masks=masks, am=am,
+                 refs=refs, ref_mask=ref_mask),
+            (rng, generator, generator_lm), held=(device_scorer,))
+
+    def _struc_fused_body(self, fc, att, labels, masks, am, refs, ref_mask,
+                          rng, generator, generator_lm, device_scorer):
         opt = self.opt
         w = float(opt.structure_loss_weight)
         sample_n = int(opt.train_sample_n)
@@ -268,7 +482,7 @@ class Trainer:
         struc = self._struc(gen_lp, lp_old, gen_seq, scores, sc_scores,
                             'mean')
         loss = (1 - w) * lm_loss + w * struc['loss']
-        self._apply_updates(loss, lr)
+        self._apply_updates(loss)
         out = {k: v.detach() for k, v in struc.items()}
         out.update(loss=loss.detach(), lm_loss=lm_loss.detach(),
                    struc_loss=struc['loss'].detach())
@@ -290,6 +504,29 @@ class Trainer:
         samples (loss_wrapper.py:26-53), host scores [B*n] and self-CIDEr
         scores [B].  Returns {'loss', 'lm_loss', 'struc_loss', 'reward'}
         and PPO's terms."""
+        self._scalars(lr)
+        return self._struc_grad_body(fc, att, labels, masks, am, gen_seq,
+                                     scores, self_cider_scores, generator,
+                                     generator_lm, drop_worst_flag)
+
+    def struc_grad_step_graphed(self, fc, att, labels, masks, am, gen_seq,
+                                scores, self_cider_scores, lr, generator,
+                                generator_lm, drop_worst_flag=False):
+        """``struc_grad_step`` as one CUDA graph (the JAX jitted
+        ``struc_grad_step``)."""
+        self._scalars(lr)
+        return self._graphed(
+            'struc_grad', lambda **kw: self._struc_grad_body(
+                generator=generator, generator_lm=generator_lm,
+                drop_worst_flag=drop_worst_flag, **kw),
+            dict(fc=fc, att=att, labels=labels, masks=masks, am=am,
+                 gen_seq=gen_seq, scores=scores,
+                 self_cider_scores=self_cider_scores),
+            (generator, generator_lm), flags=(drop_worst_flag,))
+
+    def _struc_grad_body(self, fc, att, labels, masks, am, gen_seq, scores,
+                         self_cider_scores, generator, generator_lm,
+                         drop_worst_flag):
         opt = self.opt
         w = float(opt.structure_loss_weight)
         reduction = 'none' if drop_worst_flag else 'mean'
@@ -315,7 +552,7 @@ class Trainer:
         if drop_worst_flag:
             loss = self._drop_worst(
                 loss, float(getattr(opt, 'drop_worst_rate', 0)))
-        self._apply_updates(loss, lr)
+        self._apply_updates(loss)
         out.update(loss=loss.detach(), lm_loss=lm_loss.detach().mean(),
                    struc_loss=struc_loss.detach().mean())
         return out

@@ -15,7 +15,10 @@ DenseAtt three times a step, FC / NewFC / LM), the AdaAttMO core and the
 Att2in2 / Att2all2 cores.  What bounds it on the H100: bytes (6 elements
 read, 2 written per output element; 42 MB at N = 5120, H = 512, bf16).
 ``csrc/maxout_lstm.cu`` reads each input element once, coalesced, and
-writes only h and c.
+writes only h and c: a thread takes a 16-byte vector of each of the five
+gate slices and of c_prev (8 bf16 or 4 float32 columns), on a grid sized
+to the blocks the card holds at once; an H that is not a multiple of the
+vector width, or a pointer off 16 bytes, takes one element a thread.
 
 Rounding: the twin runs the JAX cell's chain op by op in the compute dtype
 (in bf16 each sigmoid, the two products, their sum, tanh and the last

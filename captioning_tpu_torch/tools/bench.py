@@ -26,11 +26,13 @@ card) and ``compile_cache`` (the JAX package's compile cache).
 Suite rows (``bench.py:221-305``), each on its own line with its spread:
 ``greedy_cap_s`` (the transformer greedy, graphed), ``updown_beam5_cap_s``
 (UpDown at ``bench.py:287-304``'s widths, graphed), ``xe_img_s`` (the
-transformer's ``Trainer.xe_step`` at 128 images x 5, label length 18,
-``bench.py:308``'s options) and ``scst_fused_s_iter`` (its
-``sc_fused_step`` at 50 x 5 with ``bench.py:264-276``'s df table and
-ref_len); the two train rows run float32 (bf16 training is not ported)
-and say so.  A failing row is printed with its error, and the bench then
+transformer's ``Trainer.xe_step_graphed`` at 128 images x 5, label length
+18, ``bench.py:308``'s options) and ``scst_fused_s_iter`` (its
+``sc_fused_step_graphed`` at 50 x 5 with ``bench.py:264-276``'s df table
+and ref_len); the two train rows run float32 (bf16 training is not
+ported) and say so, and each carries the eager step's numbers
+(``xe_step`` / ``sc_fused_step``, timed first on the same trainer) under
+``eager``.  A failing row is printed with its error, and the bench then
 exits non-zero.  ``--suite 0`` is the JAX bench's ``BENCH_SUITE=0``.
 
 ``--small`` builds every model at the widths a CPU run takes (2 + 2
@@ -226,9 +228,22 @@ def _train_opt(opt):
     return t
 
 
+def _eager_beside(row, eager):
+    """``row`` (the graphed step's) with the eager step's numbers; a
+    failure of either step is the row's error."""
+    if 'error' in eager:
+        return {'error': 'eager step: %s' % eager['error']}
+    if 'error' not in row:
+        row['eager'] = {k: eager[k] for k in (
+            'value', 'batch_s_median', 'batch_s_min', 'batch_s_max',
+            'device_ms_median')}
+    return row
+
+
 def train_rows(small, device, seed, iters, B):
     """``xe_img_s`` and ``scst_fused_s_iter``: the float32 transformer's
-    train steps (``bench.py:236-276``)."""
+    train steps (``bench.py:236-276``), graphed, with the eager step's
+    numbers beside."""
     from ..modules.trainer import Trainer
     from ..ops.cider_device import DeviceCiderD, pad_gts
     opt = model_opt('transformer', small, 'float32')
@@ -243,15 +258,18 @@ def train_rows(small, device, seed, iters, B):
     masks = torch.ones(xb, 5, XE_LEN, device=device)
     gen = torch.Generator(device).manual_seed(seed)
 
-    def xe(i):
-        return trainer.xe_step(fc[:xb], att[:xb], labels, masks, am[:xb],
-                               4e-4, 0.0, gen)['loss']
-    try:
-        walls, dev = pipelined(xe, float, iters, device)
-        rows['xe_img_s'] = spread(walls, dev, xb * 5, 'images x captions/s',
-                                  dtype='float32', batch=[xb, 5, XE_LEN])
-    except Exception as e:           # a failing row is reported, not hidden
-        rows['xe_img_s'] = {'error': repr(e)}
+    def xe_row(step):
+        try:
+            walls, dev = pipelined(
+                lambda i: step(fc[:xb], att[:xb], labels, masks, am[:xb],
+                               4e-4, 0.0, gen)['loss'], float, iters, device)
+            return spread(walls, dev, xb * 5, 'images x captions/s',
+                          dtype='float32', batch=[xb, 5, XE_LEN])
+        except Exception as e:       # a failing row is reported, not hidden
+            return {'error': repr(e)}
+
+    eager = xe_row(trainer.xe_step)
+    rows['xe_img_s'] = _eager_beside(xe_row(trainer.xe_step_graphed), eager)
 
     sb = min(SC_IMAGES, B)
     gts = [torch.randint(1, opt.vocab_size, (5, 16), generator=g).numpy()
@@ -262,16 +280,20 @@ def train_rows(small, device, seed, iters, B):
                           device=device)
     noise = torch.Generator(device).manual_seed(seed + 3)
 
-    def sc(i):
-        return trainer.sc_fused_step(fc[:sb], att[:sb], am[:sb], refs,
-                                     ref_mask, 4e-4, noise, noise, gen,
-                                     scorer)['loss']
-    try:
-        walls, dev = pipelined(sc, float, iters, device)
-        rows['scst_fused_s_iter'] = spread(walls, dev, 1, 's/iter',
-                                           dtype='float32', batch=[sb, 5])
-    except Exception as e:           # a failing row is reported, not hidden
-        rows['scst_fused_s_iter'] = {'error': repr(e)}
+    def sc_row(step):
+        try:
+            walls, dev = pipelined(
+                lambda i: step(fc[:sb], att[:sb], am[:sb], refs, ref_mask,
+                               4e-4, noise, noise, gen, scorer)['loss'],
+                float, iters, device)
+            return spread(walls, dev, 1, 's/iter', dtype='float32',
+                          batch=[sb, 5])
+        except Exception as e:       # a failing row is reported, not hidden
+            return {'error': repr(e)}
+
+    eager = sc_row(trainer.sc_fused_step)
+    rows['scst_fused_s_iter'] = _eager_beside(
+        sc_row(trainer.sc_fused_step_graphed), eager)
     return rows
 
 

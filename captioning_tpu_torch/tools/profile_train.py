@@ -3,7 +3,8 @@
 kernels that take the device time.
 
     python -m captioning_tpu_torch.tools.profile_train \\
-        [--model updown|stackatt|transformer] [--mode xe|scst|struc]
+        [--model updown|stackatt|transformer]
+        [--mode xe|scst|scst_grad|struc] [--route eager|graph]
 
 The model is built at the flagship widths of ``profile_decode.MODELS`` in
 float32 from the port's seeded init, and trained with its config's
@@ -22,7 +23,12 @@ new_self_critical), with the SCST stages' options (``RL``: UpDown of
 their rewards against 5 references of label length 16 an image, scored on
 the card with a df table built as ``scripts/prepro_ngrams.py`` builds it
 over a seeded random corpus of 5000 images x 5 references (``corpus_df``),
-as ``chip_smoke.py`` phase 11 times them.  3 warm-up
+as ``chip_smoke.py`` phase 11 times them; ``--mode scst_grad`` the
+host-scorer route's gradient half (``sc_grad_step``) over one
+``sc_decode`` of the batch, its reward from the card's scorer.  ``--route
+graph`` runs the steps as CUDA graphs (``Trainer.*_step_graphed``; the
+first warm-up step captures), as ``chip_smoke.py`` phase 13 times them.
+3 warm-up
 steps, 5 unprofiled steps (host clock ending in a synchronize), then 3
 profiled steps.  Device busy is the sum of the self device time of the
 profiler's device events, user annotations (the optimizer's step range)
@@ -140,19 +146,22 @@ def train_batch(B: int, seed: int):
     return fc, att, am, labels, masks
 
 
-def make_step(model: str, device: str = 'cuda', B: int = 10):
+def make_step(model: str, device: str = 'cuda', B: int = 10,
+              graphed: bool = False):
     """(trainer, step(it) -> loss tensor, the dropout generator) for
-    ``model`` trained with its ``TRAIN`` options on one seeded batch."""
+    ``model`` trained with its ``TRAIN`` options on one seeded batch;
+    ``graphed``: through ``xe_step_graphed``."""
     from ..modules.trainer import Trainer
     model_kw, opt_kw, ss_prob, lr_fn = TRAIN[model]
     tr = Trainer(train_captioner(model, device, **model_kw),
                  train_opt(**opt_kw))
     fc, att, am, labels, masks = (x.to(device) for x in train_batch(B, 4))
     gen = torch.Generator(device).manual_seed(6)
+    xe = tr.xe_step_graphed if graphed else tr.xe_step
 
     def step(it):
-        return tr.xe_step(fc, att, labels, masks, am, lr_fn(it), ss_prob,
-                          gen)['loss']
+        return xe(fc, att, labels, masks, am, lr_fn(it), ss_prob,
+                  gen)['loss']
 
     return tr, step, gen
 
@@ -178,13 +187,15 @@ def rl_batch(captioner, B: int, seed: int):
 
 
 def make_rl_step(model: str, mode: str = 'scst', device: str = 'cuda',
-                 B: int = 10, scorer=None):
+                 B: int = 10, scorer=None, graphed: bool = False):
     """(trainer, step(it) -> its output dict, (dropout generator, noise
     generator), the batch (fc, att, am, refs, ref_mask)) for ``model``'s
     fused SCST (``mode`` 'scst') or structure ('struc') step with its
     ``RL`` options, on one seeded batch of B images (``rl_batch``);
     ``scorer`` a ``DeviceCiderD`` on ``device`` (default: over
-    ``corpus_df``)."""
+    ``corpus_df``).  ``mode`` 'scst_grad' takes ``sc_grad_step`` over one
+    ``sc_decode`` of the batch made here, its reward from ``scorer``.
+    ``graphed``: through the ``*_step_graphed`` entries."""
     from ..modules.trainer import Trainer
     from ..ops.cider_device import DeviceCiderD
     model_kw, opt_kw = RL[model]
@@ -195,15 +206,24 @@ def make_rl_step(model: str, mode: str = 'scst', device: str = 'cuda',
         scorer = DeviceCiderD(*corpus_df(), device=device)
     gen, gen_lm, noise = (torch.Generator(device).manual_seed(k)
                           for k in (6, 7, 8))
+    lr = opt.learning_rate
+    if mode == 'scst_grad':
+        greedy, sampled = tr.sc_decode(
+            fc, att, am, None, torch.Generator(device).manual_seed(9), gen)
+        reward = scorer.self_critical_reward(greedy, sampled, refs,
+                                             ref_mask)
+    fused = tr.sc_fused_step_graphed if graphed else tr.sc_fused_step
+    grad = tr.sc_grad_step_graphed if graphed else tr.sc_grad_step
+    struc = tr.struc_fused_step_graphed if graphed else tr.struc_fused_step
 
     def step(it):
         if mode == 'scst':
-            return tr.sc_fused_step(fc, att, am, refs, ref_mask,
-                                    opt.learning_rate, noise, noise, gen,
-                                    scorer)
-        return tr.struc_fused_step(fc, att, labels, masks, am, refs,
-                                   ref_mask, opt.learning_rate, noise, gen,
-                                   gen_lm, scorer)
+            return fused(fc, att, am, refs, ref_mask, lr, noise, noise, gen,
+                         scorer)
+        if mode == 'scst_grad':
+            return grad(fc, att, am, sampled, reward, lr, gen)
+        return struc(fc, att, labels, masks, am, refs, ref_mask, lr, noise,
+                     gen, gen_lm, scorer)
 
     return tr, step, (gen, noise), (fc, att, am, refs, ref_mask)
 
@@ -211,7 +231,9 @@ def make_rl_step(model: str, mode: str = 'scst', device: str = 'cuda',
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     p.add_argument('--model', default='updown', choices=sorted(TRAIN))
-    p.add_argument('--mode', default='xe', choices=('xe', 'scst', 'struc'))
+    p.add_argument('--mode', default='xe',
+                   choices=('xe', 'scst', 'scst_grad', 'struc'))
+    p.add_argument('--route', default='eager', choices=('eager', 'graph'))
     a = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit('profile_train: needs a CUDA device')
@@ -219,10 +241,11 @@ def main(argv=None):
         raise SystemExit('profile_train: --mode %s takes --model %s'
                          % (a.mode, '|'.join(sorted(RL))))
     from torch.profiler import ProfilerActivity, profile
+    graphed = a.route == 'graph'
     if a.mode == 'xe':
-        _, step, _ = make_step(a.model)
+        _, step, _ = make_step(a.model, graphed=graphed)
     else:
-        _, step, _, _ = make_rl_step(a.model, a.mode)
+        _, step, _, _ = make_rl_step(a.model, a.mode, graphed=graphed)
     it = 0
     for _ in range(WARM):
         it += 1
@@ -250,7 +273,8 @@ def main(argv=None):
               and not getattr(e, 'is_user_annotation', False)]
     busy = sum(e.self_device_time_total for e in events) / 1000 / PROFILED
     events.sort(key=lambda e: -e.self_device_time_total)
-    out = {'model': a.model, 'mode': a.mode, 'batch': '10 x 5',
+    out = {'model': a.model, 'mode': a.mode, 'route': a.route,
+           'batch': '10 x 5',
            'label_length': L,
            'device': torch.cuda.get_device_name(0),
            'step_wall_ms_unprofiled': walls,

@@ -6,7 +6,11 @@ added to the gradient for all but adamw, RMSprop's eps outside the sqrt,
 Adagrad with torch's defaults), the noam optimizer, the gradient clip, and
 the host-side schedules (``noam_rate``, ``epoch_decay_lr``,
 ``ReduceLROnPlateau``).  The learning rate is set on the param groups
-before every step (``set_lr``), as the JAX trainer injects it.
+before every step (``set_lr``), as the JAX trainer injects it.  Built
+``capturable`` (on the card, for the optimizers of ``CAPTURABLE``), the
+optimizer keeps its step count on the device and reads the learning rate
+from a 0-d tensor on the device that ``set_lr`` fills: its update then
+reads nothing on the host, and a CUDA graph holds it (``engine.graphs``).
 
 ``state_to_jax`` / ``state_from_jax`` map the optimizer state to and from
 the JAX package's ``optimizer.npz`` layout, the flattened optax chain
@@ -29,15 +33,55 @@ from .weights import jax_from_state_dict, state_dict_from_jax
 _ADAM = {'exp_avg': '#1', 'exp_avg_sq': '#2'}
 
 
-def build_optimizer(opt, params) -> torch.optim.Optimizer:
+# the --optim values whose torch.optim update a CUDA graph holds: each has a
+# capturable mode and reads a learning rate held in a device tensor
+CAPTURABLE = ('adam', 'adamw', 'rmsprop')
+_SGD_WHY = ('torch.optim.SGD has no capturable mode and applies the '
+            'learning rate as a host scalar (alpha=-lr): a graph would '
+            'freeze one rate')
+# why each other --optim keeps its update out of a graph
+NOT_CAPTURABLE = {
+    'sgd': _SGD_WHY, 'sgdm': _SGD_WHY, 'sgdmom': _SGD_WHY,
+    'adagrad': ('torch.optim.Adagrad has no capturable mode: its step '
+                'count lives on the host, where a graph never advances it'),
+}
+
+
+def graph_route(opt) -> str:
+    """'' when ``opt``'s optimizer (``--optim``, noam builds adam or
+    adamw) is captured with the train step, else why it is not."""
+    name = getattr(opt, 'optim', 'adam')
+    if name in CAPTURABLE:
+        return ''
+    return NOT_CAPTURABLE.get(name, 'unknown optim %r' % name)
+
+
+def _lr(lr, params, capturable: bool):
+    """The param group's learning rate: a float32 0-d tensor on the
+    parameters' device for a capturable optimizer, else the float."""
+    if not capturable:
+        return lr
+    return torch.tensor(float(lr), dtype=torch.float32,
+                        device=params[0].device)
+
+
+def build_optimizer(opt, params, capturable: bool = False
+                    ) -> torch.optim.Optimizer:
     """The reference's optimizer for ``opt.optim`` (reference
-    misc.py:114-130)."""
+    misc.py:114-130); ``capturable`` (an optimizer of ``CAPTURABLE``, CUDA
+    parameters) builds it in torch's capturable mode with a tensor
+    learning rate."""
     name = opt.optim
-    lr = opt.learning_rate
+    if capturable and name not in CAPTURABLE:
+        raise ValueError('optim %r: %s' % (name, graph_route(opt)))
+    params = list(params)
+    lr = _lr(opt.learning_rate, params, capturable)
     wd = float(getattr(opt, 'weight_decay', 0) or 0)
     a, b, eps = opt.optim_alpha, opt.optim_beta, opt.optim_epsilon
+    cap = {'capturable': True} if capturable else {}
     if name == 'rmsprop':
-        return torch.optim.RMSprop(params, lr, a, eps, weight_decay=wd)
+        return torch.optim.RMSprop(params, lr, a, eps, weight_decay=wd,
+                                   **cap)
     if name == 'adagrad':
         return torch.optim.Adagrad(params, lr, weight_decay=wd)
     if name == 'sgd':
@@ -47,22 +91,29 @@ def build_optimizer(opt, params) -> torch.optim.Optimizer:
     if name == 'sgdmom':
         return torch.optim.SGD(params, lr, a, weight_decay=wd, nesterov=True)
     if name == 'adam':
-        return torch.optim.Adam(params, lr, (a, b), eps, weight_decay=wd)
+        return torch.optim.Adam(params, lr, (a, b), eps, weight_decay=wd,
+                                **cap)
     if name == 'adamw':
-        return torch.optim.AdamW(params, lr, (a, b), eps, weight_decay=wd)
+        return torch.optim.AdamW(params, lr, (a, b), eps, weight_decay=wd,
+                                 **cap)
     raise Exception("bad option opt.optim: {}".format(name))
 
 
-def build_noam_optimizer(opt, params) -> torch.optim.Optimizer:
+def build_noam_optimizer(opt, params, capturable: bool = False
+                         ) -> torch.optim.Optimizer:
     """The optimizer under NoamOpt (reference misc.py:257-263): adam or
     adamw with betas (0.9, 0.98) and eps 1e-9; adamw keeps torch's default
-    weight decay 0.01; any other --optim raises."""
+    weight decay 0.01; any other --optim raises.  ``capturable`` as in
+    ``build_optimizer``."""
     name = getattr(opt, 'optim', 'adam')
+    params = list(params)
+    lr = _lr(0.0, params, capturable)
+    cap = {'capturable': True} if capturable else {}
     if name == 'adam':
-        return torch.optim.Adam(params, 0.0, (0.9, 0.98), 1e-9)
+        return torch.optim.Adam(params, lr, (0.9, 0.98), 1e-9, **cap)
     if name == 'adamw':
-        return torch.optim.AdamW(params, 0.0, (0.9, 0.98), 1e-9,
-                                 weight_decay=0.01)
+        return torch.optim.AdamW(params, lr, (0.9, 0.98), 1e-9,
+                                 weight_decay=0.01, **cap)
     raise KeyError('noamopt supports optim adam/adamw, got %r' % name)
 
 
@@ -78,8 +129,13 @@ def clip_transform(opt) -> Callable:
 
 
 def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """The learning rate of every param group: written into a capturable
+    optimizer's device tensor (which a captured step reads), else set."""
     for group in optimizer.param_groups:
-        group['lr'] = lr
+        if torch.is_tensor(group['lr']):
+            group['lr'].fill_(lr)
+        else:
+            group['lr'] = lr
 
 
 def noam_rate(step: int, d_model: int, factor: float, warmup: int) -> float:
@@ -214,8 +270,11 @@ def state_from_jax(optimizer, opt, named_params: Dict[str, torch.Tensor],
                if k.startswith(head)}
         per[key] = state_dict_from_jax(sub, cfg, params_only=True)
     stepped = counted or getattr(opt, 'optim', '') in ('rmsprop', 'adagrad')
+    # a capturable optimizer counts its steps on the parameters' device
+    on_device = optimizer.defaults.get('capturable', False)
     for name, p in named_params.items():
         st = {key: per[key][name].to(p.device, p.dtype) for key in fields}
         if stepped:
-            st['step'] = torch.tensor(step)
+            st['step'] = torch.tensor(step, dtype=torch.float32,
+                                      device=p.device if on_device else None)
         optimizer.state[p] = st

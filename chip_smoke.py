@@ -73,13 +73,13 @@ Phases, in order; any failure raises and exits non-zero:
    stay within 1e-6 of the model's largest gradient); (b) UpDown of ``configs/updown/updown.yml``
    and StackAtt at the ``opts.py`` widths, batch 10 x 5, label length 16,
    adam 5e-4, clip by value 0.1, ``ss_prob`` 0.25 (the ramp's maximum),
-   dropout 0.5: 3 warm-up steps, then 20 steps on one seeded batch with
+   dropout 0.5: 2 warm-up steps, then 10 steps on one seeded batch with
    the launch counters reset just before, B3 required at one forward
    launch per attention head and time step (17 time steps: the input is
    ``labels[..., :-1]``) and B5 at one per maxout cell and time step, the
    backward launching none; (c) the transformer of
    ``configs/transformer/transformer.yml`` with noam (warmup 20000) and
-   dropout 0.1, the same way, no kernel launched.  The last of the 20
+   dropout 0.1, the same way, no kernel launched.  The last of the 10
    steps draws the first's dropout and sampling again (the generator
    state restored), so its loss, below the first's, shows the updates; each
    run prints its median step time and spread (CUDA events and the host
@@ -115,9 +115,10 @@ Phases, in order; any failure raises and exits non-zero:
    length 20, float32, 5 references of label length 16 an image, the
    CIDEr-D df table built as ``scripts/prepro_ngrams.py`` builds it over a
    seeded random corpus of 5000 images x 5 references in the COCO
-   vocabulary: 3 warm-up steps, then 20 with the launch counters reset
-   just before, B3 required on the UpDown baseline and sample (at least
-   21 launches a step, no other kernel), B1 and B2 on the transformer's
+   vocabulary: 1 warm-up step, then 4 with the launch counters reset
+   just before (phase 13 times the step), B3 required on the UpDown
+   baseline and sample (at least 21 launches a step, no other kernel; the
+   baseline runs all 20 steps: 40), B1 and B2 on the transformer's
    greedy baseline (B1 six times B2's count, no other kernel); each run
    prints its median s/iter and spread (CUDA events and host wall), its
    peak memory, and an ``sc_decode`` scored on the card and by the python
@@ -135,13 +136,31 @@ Phases, in order; any failure raises and exits non-zero:
    against eager tokens, required identical, at B = 8 for the four models
    and at B = 1024 for the transformer; then the port's bench
    (``captioning_tpu_torch/tools/bench.py``) at full size: its headline
-   JSON line and the four suite rows, every row required.
+   JSON line and the four suite rows, every row required;
+13. the CUDA-graph train steps (``Trainer.xe_step_graphed``,
+   ``sc_fused_step_graphed``, ``sc_grad_step_graphed``;
+   ``engine.graphs.GraphTrainStep``) against the eager ones, float32,
+   TF32 off, from one init, batch and generator seeds a case: XE of
+   UpDown, StackAtt and the transformer at 10 x 5, L 16 (phase 9's
+   options); the fused SCST step of UpDown and the transformer at 10 x 5
+   and of the transformer at 50 x 5 (phase 11's); UpDown's SCST grad step
+   over one ``sc_decode`` at 10 x 5.  For each: 3 steps a route with the
+   sampled and greedy sequences identical, loss and reward within 1e-6
+   relative, then every parameter and Adam moment within 1e-5 of its
+   tensor's largest magnitude; 20 timed steps a route in turns (blocks
+   of 5), their medians by host wall and CUDA events, the routes' peak
+   memory and the graph's pool; one profiled step a route (device busy,
+   idle share); the kernels the graph holds required (B3 17 a step for
+   UpDown XE, B3 34 and B5 51 for StackAtt, none for the transformer; B3
+   40 for UpDown SCST, B1 120 and B2 20 for the transformer's, B3 20 for
+   the grad step) and equal to the eager step's launches, no wrapper
+   launch on a replay, the replays' launches captures x replays.
 
 Each decode mode requires the kernels its path runs: the top-k only in
 beam (the RNN plain-step route; the transformer's fused route selects in
 B2's epilogue).  Phases 5-7 and 10 decode through the eager entries,
-whose wrappers count every launch; phase 12's graphs are counted by
-captures and replays.
+whose wrappers count every launch; phase 12's and phase 13's graphs are
+counted by captures and replays.
 
 The last two lines are the kernels' JSON record (for each of the eight:
 launches on its path, counted by its wrapper, where a call that a CUDA
@@ -666,16 +685,19 @@ def time_kernels(torch, ba, lt):
     return out, library, (replay, greedy_bound), product
 
 
-def check_maxout(torch, ml, N, H, dtype, seed):
+def check_maxout(torch, ml, N, H, dtype, seed, offset=0):
     """Kernel vs twin on the same inputs; returns (max |h|, |c| error,
     atol).  float32: atol 1e-6 (the same ops in float32; the kernel's expf
     and tanhf against PyTorch's).  bf16: the kernel rounds where the twin
     rounds, so the two differ only where a float32 difference flips a
     bf16 rounding of an intermediate: 2 bf16 ulps at the largest input
-    magnitude."""
+    magnitude.  ``offset``: s and c_prev start that many elements into
+    their buffers (off 16 bytes: the scalar path)."""
     g = torch.Generator(device='cuda').manual_seed(seed)
-    s = torch.randn(N, 5 * H, generator=g, device='cuda').to(dtype)
-    c = torch.randn(N, H, generator=g, device='cuda').to(dtype)
+    s = torch.randn(N * 5 * H + offset, generator=g,
+                    device='cuda').to(dtype)[offset:].view(N, 5 * H)
+    c = torch.randn(N * H + offset, generator=g,
+                    device='cuda').to(dtype)[offset:].view(N, H)
     h1, c1 = ml.maxout_lstm_gates_fused(s, c)
     h2, c2 = ml.maxout_lstm_gates_ref(s, c)
     torch.cuda.synchronize()
@@ -704,7 +726,13 @@ def phase_maxout(torch, ml):
                 log('  maxout_lstm_gates %s N=%d H=%d: ok (max err %.3g, '
                     'atol %.3g)' % (dtype, N, H, e, atol))
         check_maxout(torch, ml, 37, 77, dtype, seed=3)
-    log('  maxout_lstm_gates ragged N=37 H=77: ok')
+        # the vector path at one row and at the narrowest vector width;
+        # the scalar path on inputs off 16 bytes (a view one element in)
+        check_maxout(torch, ml, 1, 8, dtype, seed=4)
+        check_maxout(torch, ml, 3, 8, dtype, seed=5, offset=1)
+        check_maxout(torch, ml, 1000, 512, dtype, seed=6, offset=1)
+    log('  maxout_lstm_gates ragged N=37 H=77, N=1 / 3 H=8, inputs off 16 '
+        'bytes (N=3 H=8, N=1000 H=512): ok')
     return err
 
 
@@ -1051,7 +1079,7 @@ def train_agreement(torch, model):
         fc, att, am, labels, masks = (x.to(device) for x in batch)
         loss = tr.xe_step(fc, att, labels, masks, am, 5e-4, 0.0,
                           torch.Generator(device).manual_seed(0))['loss']
-        got[device] = (float(loss), {n: p.grad.detach().cpu()
+        got[device] = (float(loss), {n: p.grad.detach().cpu().clone()
                                      for n, p in tr.named_params.items()})
         del cap, tr
     (lg, gg), (lc, gc) = got['cuda'], got['cpu']
@@ -1093,7 +1121,7 @@ def step_agreement(model, what, lg, lc, gg, gc):
     return loss_err, grad_err
 
 
-def train_run(torch, model, wrappers, per_step, warm=3, steps=20):
+def train_run(torch, model, wrappers, per_step, warm=2, steps=10):
     """``warm`` + ``steps`` XE steps of ``model`` with its config's
     options (``profile_train.TRAIN``) at batch 10 x 5, L 16 on one seeded
     batch; the launch counters are set to 0 after the warm-up and each
@@ -1216,14 +1244,18 @@ def rl_agreement(torch, model, scorers):
                    greedy, sampled, refs, ref_mask).cpu()}
         out = tr.sc_fused_step(fc, att, am, refs, ref_mask, 0.0, None,
                                cpu_draws(torch, 200), gen, scorer)
+        # copies: the trainer's gradient buffers are reused by its next
+        # step (on the CPU ``.cpu()`` would return the buffer itself)
         rec['scst'] = (float(out['loss']), {
-            n: p.grad.detach().cpu() for n, p in tr.named_params.items()})
+            n: p.grad.detach().cpu().clone()
+            for n, p in tr.named_params.items()})
         rec['scst_reward'] = float(out['reward'])
         out = tr.struc_fused_step(fc, att, labels, masks, am, refs,
                                   ref_mask, 0.0, cpu_draws(torch, 200), gen,
                                   gen, scorer)
         rec['struc'] = (float(out['loss']), {
-            n: p.grad.detach().cpu() for n, p in tr.named_params.items()})
+            n: p.grad.detach().cpu().clone()
+            for n, p in tr.named_params.items()})
         rec['struc_reward'] = out['reward'].cpu()
         got[device] = rec
         del cap, tr
@@ -1255,7 +1287,7 @@ def rl_agreement(torch, model, scorers):
 
 
 def rl_run(torch, model, B, scorer, df_path, wrappers, check_launches,
-           warm=3, steps=20):
+           warm=1, steps=4):
     """``warm`` + ``steps`` fused SCST steps of ``model`` with its SCST
     stage's options (``profile_train.RL``) at B images x 5 samples, decode
     length 20, on one seeded batch; the launch counters are set to 0 after
@@ -1380,7 +1412,7 @@ def phase_rl(torch, wrappers):
         for name, n in counts.items():
             launches[name] += n
     log('  SCST record: %s' % json.dumps(records))
-    return launches
+    return launches, scorers['cuda']
 
 
 # ---------------------------------------------------------------------------
@@ -1659,6 +1691,220 @@ def phase_graphs(torch, wrappers):
     return record
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the CUDA-graph train steps against the eager ones
+# ---------------------------------------------------------------------------
+
+# (step kind of profile_train, model, images): XE at 10 x 5, L 16; the
+# fused SCST step at 10 x 5 (and the transformer at 50 x 5); the SCST grad
+# step (the host-scorer route's gradient half) at 10 x 5
+PHASE13 = [('xe', 'updown', 10), ('xe', 'stackatt', 10),
+           ('xe', 'transformer', 10), ('scst', 'updown', 10),
+           ('scst', 'transformer', 10), ('scst', 'transformer', 50),
+           ('scst_grad', 'updown', 10)]
+# kernel wrapper -> its launches a step on each path (the greedy baseline
+# and the sampling pass run all 20 decode steps; the XE input is 17
+# tokens; the recompute runs 20 steps), by the names of ``wrappers``
+PHASE13_LAUNCHES = {
+    ('xe', 'updown'): {'additive_attention': 17},
+    ('xe', 'stackatt'): {'additive_attention': 34, 'maxout_lstm_gates': 51},
+    ('xe', 'transformer'): {},
+    ('scst', 'updown'): {'additive_attention': 40},
+    ('scst', 'transformer'): {'attend_write_merged': 120, 'logit_topk': 20},
+    ('scst_grad', 'updown'): {'additive_attention': 20},
+}
+
+
+def _step_out(out):
+    return out if isinstance(out, dict) else {'loss': out}
+
+
+def _tensor_err(torch, a, b):
+    """max |a - b| over the largest |a| (0 where both are 0)."""
+    scale = float(a.abs().max())
+    err = float((a.float() - b.float()).abs().max())
+    return err / scale if scale > 0 else err
+
+
+def train_state_err(torch, te, tg):
+    """The worst parameter and optimizer-moment difference of two
+    trainers, each over its tensor's largest magnitude: (err, its name)."""
+    worst, where = 0.0, ''
+    for name, pe in te.named_params.items():
+        pg = tg.named_params[name]
+        pairs = [(name, pe.detach(), pg.detach())]
+        se, sg = te.optimizer.state[pe], tg.optimizer.state[pg]
+        pairs += [('%s.%s' % (name, k), se[k], sg[k]) for k in se
+                  if torch.is_tensor(se[k])]
+        for what, a, b in pairs:
+            e = _tensor_err(torch, a, b)
+            if e > worst:
+                worst, where = e, what
+    return worst, where
+
+
+def graph_train_case(torch, kind, model, B, scorer, wrappers):
+    """One case of phase 13: an eager and a graphed trainer of ``model``
+    from one init, batch and generator seeds.  3 steps each, held against
+    each other (sequences identical, loss and reward within 1e-6
+    relative, then every parameter and optimizer moment within 1e-5 of
+    its tensor's largest magnitude); 20 timed steps a route in turns,
+    blocks of 5 (eager, graph, graph, eager, ...), each ending in a
+    synchronize (host wall and CUDA events), with each route's peak
+    memory over what was allocated before (the graph's temporaries live
+    in its pool, whose size is given); one profiled step a route (device
+    busy; idle share = 1 - busy / the median wall); no wrapper launch on
+    a replay and the graph's launches captures x replays.  Returns
+    (record, launches of the replays)."""
+    from captioning_tpu_torch.tools import profile_train as pt
+    short = {fn.__name__: name for name, fn in wrappers.items()}
+    torch.cuda.empty_cache()
+    case_start = time.time()
+    made = {}
+    for graphed in (False, True):
+        if kind == 'xe':
+            tr, step, gen = pt.make_step(model, 'cuda', B, graphed=graphed)
+        else:
+            tr, step, _, _ = pt.make_rl_step(model, kind, 'cuda', B, scorer,
+                                            graphed=graphed)
+        made[graphed] = (tr, step)
+    (te, se), (tg, sg) = made[False], made[True]
+    what = '%s %s %d x 5' % (kind, model, B)
+    loss_err = 0.0
+    for it in range(1, 4):
+        oe, og = _step_out(se(it)), _step_out(sg(it))
+        for key in ('greedy', 'sampled'):
+            if key in oe and not torch.equal(oe[key], og[key]):
+                raise AssertionError('%s step %d: the %s sequences of the '
+                                     'graph and the eager step differ on %d '
+                                     'rows' % (what, it, key, int(
+                                         (oe[key] != og[key]).any(1).sum())))
+        for key in ('loss', 'reward'):
+            if key in oe:
+                a, b = float(oe[key]), float(og[key])
+                e = abs(a - b) / max(abs(a), 1e-30)
+                loss_err = max(loss_err, e)
+                if not e <= 1e-6:
+                    raise AssertionError('%s step %d: %s eager %.9g, graph '
+                                         '%.9g (rel %.2e, max 1e-6)'
+                                         % (what, it, key, a, b, e))
+    state_err, where = train_state_err(torch, te, tg)
+    if not state_err <= 1e-5:
+        raise AssertionError('%s: after 3 steps %s differs by %.2e of its '
+                             'largest magnitude (max 1e-5)'
+                             % (what, where, state_err))
+    entry = list(tg._graphs.values())[-1]
+    held = {short.get(k, k): n for k, n in entry.held().items()}
+    want = PHASE13_LAUNCHES[(kind, model)]
+    if held != want:
+        raise AssertionError('%s: the graph holds %s, expected %s'
+                             % (what, held, want))
+    walls = {False: [], True: []}
+    events = {False: [], True: []}
+    # each route's peak over what was allocated before its steps: the
+    # graph's temporaries live in its pool (``bytes_reserved``), so its
+    # replays allocate nothing
+    peak = {False: 0.0, True: 0.0}
+    replays_before = entry.replays
+    eager_launches = dict.fromkeys(wrappers, 0)
+    it = 4
+    for graphed in (False, True, True, False) * 2:
+        step = sg if graphed else se
+        before = {n: fn.launches for n, fn in wrappers.items()}
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(5):
+            _, wall, dev = timed(torch, lambda: step(it))
+            walls[graphed].append(wall)
+            events[graphed].append(dev)
+            it += 1
+        peak[graphed] = max(peak[graphed], (torch.cuda.max_memory_allocated()
+                                            - base) / 2 ** 30)
+        delta = {n: fn.launches - before[n] for n, fn in wrappers.items()}
+        if graphed and any(delta.values()):
+            raise AssertionError('%s: a graph step launched kernels outside '
+                                 'its graph: %s' % (what, delta))
+        if not graphed:
+            for n, d in delta.items():
+                eager_launches[n] += d
+    eager_per_step = {n: c // 20 for n, c in eager_launches.items() if c}
+    if eager_per_step != want:
+        raise AssertionError('%s: the eager step launched %s a step, the '
+                             'graph holds %s' % (what, eager_per_step, want))
+    replays = entry.replays - replays_before
+    replayed = {short.get(k, k): n for k, n in entry.launches().items()}
+    if replayed != {n: c * entry.replays for n, c in want.items()}:
+        raise AssertionError('%s: replays ran %s, not the captures times '
+                             '%d replays' % (what, replayed, entry.replays))
+    busy = {}
+    from torch.profiler import ProfilerActivity, profile
+    for graphed, step in ((False, se), (True, sg)):
+        torch.cuda.synchronize()
+        # the device's events alone: busy needs no host-side op events
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            step(it)
+            it += 1
+            torch.cuda.synchronize()
+        busy[graphed] = sum(
+            e.self_device_time_total for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, 'is_user_annotation', False)) / 1000
+
+    def med(v):
+        return sorted(v)[len(v) // 2]
+
+    rec = {'case': what, 'case_s': round(time.time() - case_start, 1),
+           'capture_s': round(entry.capture_s, 3),
+           'graph_pool_gib': entry.bytes_reserved / 2 ** 30,
+           'loss_reward_max_rel_err': loss_err,
+           'state_max_err': state_err, 'state_worst': where,
+           'launches_per_step': want, 'replays_timed': replays}
+    for graphed, name in ((False, 'eager'), (True, 'graph')):
+        wall = med(walls[graphed])
+        rec[name] = {'wall_ms_median': wall,
+                     'wall_ms_min': min(walls[graphed]),
+                     'wall_ms_max': max(walls[graphed]),
+                     'events_ms_median': med(events[graphed]),
+                     'busy_ms': busy[graphed],
+                     'idle_share': 1 - busy[graphed] / wall,
+                     'step_peak_gib': peak[graphed]}
+    log('  %s: eager wall %.2f ms (events %.2f, busy %.2f, idle %.3f, '
+        'step peak %.3f GiB); graph wall %.2f ms (events %.2f, busy %.2f, '
+        'idle %.3f, pool %.3f GiB); capture %.2f s; loss / reward rel err '
+        '%.1e, parameters and moments after 3 steps %.1e (%s); launches a '
+        'step %s; case %.1f s'
+        % (what, rec['eager']['wall_ms_median'],
+           rec['eager']['events_ms_median'], busy[False],
+           rec['eager']['idle_share'], peak[False],
+           rec['graph']['wall_ms_median'], rec['graph']['events_ms_median'],
+           busy[True], rec['graph']['idle_share'], rec['graph_pool_gib'],
+           entry.capture_s, loss_err, state_err, where, want,
+           rec['case_s']))
+    del te, tg, se, sg, made, entry
+    return rec, {n: c * replays for n, c in want.items()}
+
+
+def phase_graph_train(torch, wrappers, cases=PHASE13, scorer=None):
+    """Phase 13 (``scorer``: phase 11's card scorer, else one over
+    ``profile_train.corpus_df``); returns the launches that the timed
+    replays ran."""
+    if scorer is None:
+        from captioning_tpu_torch.ops.cider_device import DeviceCiderD
+        from captioning_tpu_torch.tools import profile_train as pt
+        scorer = DeviceCiderD(*pt.corpus_df(), device='cuda')
+    launches = dict.fromkeys(wrappers, 0)
+    records = []
+    for kind, model, B in cases:
+        rec, counts = graph_train_case(torch, kind, model, B, scorer,
+                                       wrappers)
+        records.append(rec)
+        for name, n in counts.items():
+            launches[name] += n
+    log('  graph train record: %s' % json.dumps(records))
+    return launches
+
+
 def main():
     import torch
     wall = time.time()
@@ -1802,7 +2048,8 @@ def main():
     log('phase 11: SCST and structure training through the port\'s '
         'Trainer')
     t = time.time()
-    for name, n in phase_rl(torch, wrappers).items():
+    counts, scorer = phase_rl(torch, wrappers)
+    for name, n in counts.items():
         launches[name] += n
     log('phase 11: %.1f s' % (time.time() - t))
 
@@ -1816,6 +2063,13 @@ def main():
         raise AssertionError('bench: suite rows failed: %s' % json.dumps(
             {k: r for k, r in rows.items() if 'error' in r}))
     log('phase 12: %.1f s' % (time.time() - t))
+
+    log('phase 13: the CUDA-graph train steps against the eager ones')
+    t = time.time()
+    for name, n in phase_graph_train(torch, wrappers,
+                                     scorer=scorer).items():
+        launches[name] += n
+    log('phase 13: %.1f s' % (time.time() - t))
 
     bad = [m for m in sys.modules
            if m.split('.')[0] in ('jax', 'flax', 'optax', 'captioning_tpu')]

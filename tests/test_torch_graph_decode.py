@@ -16,13 +16,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
 from captioning_tpu_torch.engine import decoding
 from captioning_tpu_torch.engine.graphs import EagerRecorder, GraphDecode
 from captioning_tpu_torch.models.api import setup
 from captioning_tpu_torch.ops import _build
 from captioning_tpu_torch.utils import eval_utils
+from tests.torch_graph_util import NoHostRead
 from tests.torch_port_util import (inputs, jax_and_port, tiny_opt,
                                    tiny_rnn_opt, tiny_vocab)
 
@@ -41,8 +41,6 @@ PARITY = ('newfc', 'transformer', 'updown')
 BODIES = [('transformer', 'beam'), ('updown', 'beam'), ('newfc', 'beam'),
           ('stackatt', 'beam'), ('transformer', 'greedy'),
           ('updown', 'greedy')]
-HOST_READS = ('aten._local_scalar_dense', 'aten.item', 'aten.is_nonzero',
-              'aten.nonzero')
 
 
 @pytest.fixture(autouse=True)
@@ -66,15 +64,6 @@ def _program(cap, kind, opt=None):
     if kind == 'beam':
         return decoding.beam_program(cap.bind(), dict(BEAM, **(opt or {})))
     return decoding.sample_program(cap.bind(), dict(GREEDY, **(opt or {})))
-
-
-class NoHostRead(TorchDispatchMode):
-    """Fails on any op that reads a tensor's value on the host."""
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        if str(func).startswith(HOST_READS):
-            raise AssertionError('host read in the step body: %s' % func)
-        return func(*args, **(kwargs or {}))
 
 
 def _tensors(tree, prefix=''):

@@ -395,6 +395,27 @@ def test_rl_stage_rewards_agree_across_scorers(ds, tmp_path, monkeypatch,
     assert all(runs['device'][i] > 0 for i in (1, 2))
 
 
+@pytest.mark.parametrize('optim,xe_route', [
+    ('adam', 'train step xe: xe_step_graphed (run eagerly on the CPU)'),
+    ('sgdmom', 'train step xe: eager (xe_step): torch.optim.SGD')])
+def test_the_chosen_step_route_is_logged_once(ds, tmp_path, monkeypatch,
+                                              capsys, optim, xe_route):
+    """2 XE steps, then 2 SCST steps: each step kind's route (the graphed
+    entry, which runs eagerly on the CPU, or the eager one with its
+    reason) is printed once, on its first step."""
+    monkeypatch.chdir(tmp_path)
+    _train_port(_rl_args(ds, str(tmp_path / 'ckpt'), 2,
+                         self_critical_after=1, optim=optim))
+    lines = [ln for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith('train step ')]
+    assert len(lines) == 2
+    assert lines[0].startswith(xe_route)
+    assert lines[1].startswith('train step sc_fused: ')
+    assert ('sc_fused_step_graphed' in lines[1]) == (optim == 'adam')
+    assert sorted(_histories(str(tmp_path / 'ckpt'))['loss_history']) == [
+        1, 2, 3, 4]
+
+
 def test_ppo_stage_runs(ds, tmp_path, monkeypatch):
     """PPO through the loop: the old policy loaded from
     ``--ppo_old_model_path`` (an XE checkpoint), the structure stage's

@@ -16,8 +16,12 @@ resume (infos, histories, model, optimizer and loader state); a checkpoint
 on an exception; the optional tensorboard and wandb writers.  It runs on
 ``--device`` (cuda by default, where the CUDA kernels build at first use;
 ``--device cpu`` runs the kernels' plain twins) and raises with
-``--device cuda`` and no GPU.  The checkpoints keep the JAX package's
-contract (``model[-best|-<iter>].npz``, ``optimizer*.npz`` in the optax
+``--device cuda`` and no GPU.  Each step goes through the trainer's
+graphed entry (``xe_step_graphed``, ``sc_fused_step_graphed``, ...: one
+CUDA graph a step on the card, the same step run eagerly on the CPU) where
+``Trainer.graph_route`` allows it, else through the eager one; the route
+of each step kind is printed once, with the reason where it stays eager.
+The checkpoints keep the JAX package's contract (``model[-best|-<iter>].npz``, ``optimizer*.npz`` in the optax
 layout, ``infos_<id>*.pkl``, ``histories_<id>*.pkl``): tools/eval.py and
 tools/train.py read them, and this script resumes theirs.
 
@@ -172,6 +176,24 @@ def train(opt, device='cuda'):
                                                  'm2transformer'):
         raise ValueError('noamopt can only work with transformer')
     trainer = Trainer(captioner, opt, old_captioner=old_captioner)
+    routes = {}
+
+    def step_fn(kind):
+        """The trainer's entry for the step ``kind``: the graphed one where
+        its route allows, else the eager one; the choice printed once."""
+        if kind not in routes:
+            why = trainer.graph_route(kind)
+            routes[kind] = getattr(trainer, '%s_step%s' % (
+                kind, '' if why else '_graphed'))
+            if why:
+                print('train step %s: eager (%s_step): %s' % (kind, kind,
+                                                              why))
+            else:
+                print('train step %s: %s_step_graphed (%s)' % (
+                    kind, kind, 'one CUDA graph a step'
+                    if captioner.device.type == 'cuda'
+                    else 'run eagerly on the CPU'))
+        return routes[kind]
     if opt.start_from is not None and os.path.isfile(
             os.path.join(opt.start_from, 'optimizer.npz')):
         trainer.load_opt_state_jax(utils.load_flat(
@@ -350,7 +372,7 @@ def train(opt, device='cuda'):
                       opt.bleu_reward_weight > 0) and not drop_worst_flag)
             if struc_flag and fused:
                 refs, ref_mask = device_refs(data['gts'])
-                out = trainer.struc_fused_step(
+                out = step_fn('struc_fused')(
                     fc, att, labels, masks, am, refs, ref_mask,
                     opt.current_lr, noise, gen, gen_lm,
                     get_device_scorer('structure'))
@@ -373,18 +395,18 @@ def train(opt, device='cuda'):
                                                       opt)
                 else:
                     sc_scores = np.zeros((len(data['gts']),), np.float32)
-                out = trainer.struc_grad_step(
+                out = step_fn('struc_grad')(
                     fc, att, labels, masks, am, gen_seq,
                     dev(scores, torch.float32), dev(sc_scores, torch.float32),
                     opt.current_lr, gen, gen_lm,
                     drop_worst_flag=drop_worst_flag)
             elif not sc_flag:
-                out = trainer.xe_step(fc, att, labels, masks, am,
-                                      opt.current_lr, ss_prob, gen,
-                                      drop_worst_flag=drop_worst_flag)
+                out = step_fn('xe')(fc, att, labels, masks, am,
+                                    opt.current_lr, ss_prob, gen,
+                                    drop_worst_flag=drop_worst_flag)
             elif fused:
                 refs, ref_mask = device_refs(data['gts'])
-                out = trainer.sc_fused_step(
+                out = step_fn('sc_fused')(
                     fc, att, am, refs, ref_mask, opt.current_lr, noise,
                     noise, gen, get_device_scorer('SCST'))
             else:
@@ -401,7 +423,7 @@ def train(opt, device='cuda'):
                     reward = get_self_critical_reward(
                         greedy_seq.cpu().numpy(), data['gts'],
                         gen_seq.cpu().numpy(), opt)
-                out = trainer.sc_grad_step(
+                out = step_fn('sc_grad')(
                     fc, att, am, gen_seq, dev(reward, torch.float32),
                     opt.current_lr, gen, drop_worst_flag=drop_worst_flag)
                 out['reward'] = float(reward[:, 0].mean())
