@@ -21,8 +21,9 @@
 //
 // This design, two kernels behind one entry point:
 //  * the ring kernel (additive_attention_ring), for rows of whole 16-byte
-//    multiples on 16-byte boundaries, A a multiple of 8 and H <= 1024 (every
-//    captioner's widths): a persistent grid of two blocks an SM walks over
+//    multiples on 16-byte boundaries, A a multiple of 8 and H <= 1024 (the
+//    captioners that embed their regions first; att2in attends over the
+//    raw 2048-wide regions and takes the direct kernel): a persistent grid of two blocks an SM walks over
 //    the images.  In each block a producer warp streams the operands into
 //    shared memory by bulk async copies (cp.async.bulk, completed on
 //    mbarriers): for each image its bw query rows (a 2-deep buffer), then

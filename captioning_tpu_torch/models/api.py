@@ -1,16 +1,17 @@
 """Captioner: a ported model bound into the decode engine's protocol.
 
 Port of ``captioning_tpu/models/api.py``: ``setup`` builds the
-transformer or one of the RNN captioners of ``harness.MODELS`` (other
-model keys raise), ``bind`` returns the ``DecodeModel`` the engine drives,
-``sample_beam`` / ``sample_stats`` / ``sample`` / ``forward_tf`` are the
-eager entry points, ``sample_beam_graphed`` / ``sample_stats_graphed``
-their CUDA-graph counterparts (the JAX ``sample_beam_jit`` /
-``sample_stats_jit``, with ``_graph_cache`` for ``_jit_cache``), which
-``eval_split`` calls where the route allows; ``forward_tf(train=True)`` is
-the teacher-forced pass the XE trainer differentiates
-(``modules.trainer``), ``sample_train`` the train-mode sampling of the RL
-steps and ``scan_logprobs`` the recompute over a sampled sequence.
+transformer, AoANet (``models/aoa.py``) or one of the RNN captioners of
+``harness.MODELS`` (``bert`` and ``m2transformer`` raise), ``bind``
+returns the ``DecodeModel`` the engine drives, ``sample_beam`` /
+``sample_stats`` / ``sample`` / ``forward_tf`` are the eager entry points,
+``sample_beam_graphed`` / ``sample_stats_graphed`` their CUDA-graph
+counterparts (the JAX ``sample_beam_jit`` / ``sample_stats_jit``, with
+``_graph_cache`` for ``_jit_cache``), which ``eval_split`` calls where the
+route allows; ``forward_tf(train=True)`` is the teacher-forced pass the XE
+trainer differentiates (``modules.trainer``), ``sample_train`` the
+train-mode sampling of the RL steps and ``scan_logprobs`` the recompute
+over a sampled sequence.
 Parameters live in ``self.module`` on ``self.device``.
 """
 
@@ -26,6 +27,7 @@ from ..engine.decoding import DecodeModel
 from ..engine.graphs import CudaRecorder, GraphDecode
 from ..ops.logit_topk import logit_topk
 from . import harness
+from .aoa import AoACaptioner
 from .config import ModelConfig, config_from_opt
 from .harness import AttCaptioner
 from .layers import MaskedBatchNorm
@@ -68,13 +70,15 @@ class Captioner:
                                "(pass device='cpu' to run the plain twins)")
         if cfg.caption_model == 'transformer':
             self.module_cls = TransformerCaptioner
+        elif cfg.caption_model == 'aoa':
+            self.module_cls = AoACaptioner
         elif cfg.caption_model in harness.MODELS:
             self.module_cls = AttCaptioner
         else:
             raise NotImplementedError(
-                'caption model %r is not ported yet (transformer, %s are); '
-                'see ROADMAP.md' % (cfg.caption_model,
-                                    ', '.join(harness.MODELS)))
+                'caption model %r is not ported yet (transformer, aoa, %s '
+                'are); see ROADMAP.md' % (cfg.caption_model,
+                                          ', '.join(harness.MODELS)))
         self.cfg = cfg
         self.bad_endings_ix, self.unk_idx = _vocab_indices(vocab,
                                                            cfg.vocab_size)
@@ -162,9 +166,10 @@ class Captioner:
             seq_length=cfg.seq_length, vocab_plus=cfg.vocab_size + 1,
             bos_idx=cfg.bos_idx, eos_idx=cfg.eos_idx, pad_idx=cfg.pad_idx,
             unk_idx=self.unk_idx, bad_endings_ix=self.bad_endings_ix)
-        if self.module_cls is AttCaptioner:
-            # the attention heads of the shared-feats models read one feats
-            # row per beam block, the other RNN models get one per lane; the
+        if issubclass(self.module_cls, AttCaptioner):
+            # the attention of the shared-feats models (AoA's too) reads one
+            # feats row per beam block, the other RNN models get one per
+            # lane; the
             # state is reordered by a plain row gather (no ancestry) and
             # the vocab epilogue is the engine's plain-step route
             return DecodeModel(shared_beam_feats=module.shared_feats,
@@ -394,6 +399,6 @@ class Captioner:
 
 def setup(opt, vocab: Optional[Dict[str, str]] = None,
           device='cuda') -> Captioner:
-    """Model factory: the transformer and the RNN captioners of
-    ``harness.MODELS``, for now."""
+    """Model factory: the transformer, AoANet and the RNN captioners of
+    ``harness.MODELS``; ``bert`` and ``m2transformer`` are not ported."""
     return Captioner(config_from_opt(opt, opt.vocab_size), vocab, device)

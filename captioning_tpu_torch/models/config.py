@@ -1,7 +1,8 @@
 """Model configuration (port of ``captioning_tpu/models/harness.py:35-126``).
 
-Only the fields the ported models read are kept (the transformer and the
-RNN attention harness); the compute dtype is a torch dtype.  ``use_pallas``
+Only the fields the ported models read are kept (the transformer, the
+RNN attention harness, ShowTell and AoANet); the compute dtype is a torch
+dtype.  ``use_pallas``
 chooses, for CPU tensors only, which JAX branch the RNN attention head
 mirrors (the fused kernel's twin or the plain jnp math); CUDA tensors
 always take the CUDA kernels.  Its "auto" value (None / -1) resolves as
@@ -43,6 +44,20 @@ class ModelConfig:
     d_ff: int = 2048
     num_att_heads: int = 8
     dropout: float = 0.1
+    # aoa
+    refine: int = 1
+    refine_aoa: int = 1
+    use_ff: int = 0
+    mean_feats: int = 1
+    use_multi_head: int = 2
+    multi_head_scale: int = 1
+    ctx_drop: int = 1
+    num_heads: int = 8
+    dropout_aoa: float = 0.3
+    decoder_type: str = 'AoA'
+    out_res: int = 0
+    # show_tell
+    rnn_type: str = 'lstm'
     use_pallas: int = 0
     dtype: torch.dtype = torch.float32
 
@@ -75,6 +90,16 @@ def config_from_opt(opt, vocab_size: int) -> ModelConfig:
         d_ff=g('d_ff', opt.rnn_size),
         num_att_heads=g('num_att_heads', 8),
         dropout=g('dropout', 0.1),
+        refine=g('refine', 1), refine_aoa=g('refine_aoa', 1),
+        use_ff=g('use_ff', 0), mean_feats=g('mean_feats', 1),
+        use_multi_head=g('use_multi_head', 2),
+        multi_head_scale=g('multi_head_scale', 1),
+        ctx_drop=g('ctx_drop', 1),
+        num_heads=g('num_heads', 8),
+        dropout_aoa=g('dropout_aoa', 0.3),
+        decoder_type=g('decoder_type', 'AoA'),
+        out_res=g('out_res', 0),
+        rnn_type=g('rnn_type', 'lstm'),
         use_pallas=_resolve_use_pallas(g('use_pallas', None)),
         dtype=_DTYPES[g('compute_dtype', 'float32')],
     )

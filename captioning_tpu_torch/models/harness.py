@@ -1,12 +1,14 @@
-"""The RNN captioners: UpDown / TopDown, Att2in2, Att2all2, StackAtt /
-DenseAtt, AdaAtt / AdaAttMO, NewFC / FC / LM.
+"""The RNN captioners: UpDown / TopDown, Att2in2 / Att2in, Att2all2,
+StackAtt / DenseAtt, AdaAtt / AdaAttMO, NewFC / FC / LM, ShowTell.
 
 Port of ``captioning_tpu/models/harness.py``: the shared
 embeds of ``AttCaptioner`` (word embedding, with ReLU except for the FC
-family; the fc embed as an ``MLPEmbed``, a plain Linear (NewFC / FC) or
-none; att embeds, the optional masked BatchNorm and the ``ctx2att`` key
-projection for the models with attention; the logit MLP, none for the
-legacy 'fc') around a per-step core, exposing the engine's step protocol
+family and the legacy 'fc', 'show_tell' and 'att2in'; the fc embed as an
+``MLPEmbed``, a plain Linear (NewFC / FC / ShowTell) or none; att embeds,
+the optional masked BatchNorm and the ``ctx2att`` key projection for the
+models with attention (att2in projects the raw regions); the logit MLP,
+none for the legacy models) around a per-step core, exposing the engine's
+step protocol
 (``prepare_feature``, ``init_state``, ``step``) and a teacher-forced
 ``forward_tf``.  Train mode is the generator ``gen`` these take (None is
 eval): dropout at exactly the JAX sites, drawn from ``gen``
@@ -18,24 +20,28 @@ one to one.
 
 Two kernels run inside the cores for CUDA tensors:
 
-* the attention heads (UpDown, Att2in2, Att2all2, StackAtt's two) run
+* the attention heads (UpDown, Att2in2, Att2in, Att2all2, StackAtt's two;
+  AoANet's with ``use_multi_head`` other than 2, ``models/aoa.py``) run
   kernel B3 (``ops.attention.additive_attention_fused``), row-aligned or
   block-shared.  For CPU tensors the head follows the JAX branch that
   ``cfg.use_pallas`` selects: the fused kernel's twin when the rows are
   aligned and ``use_pallas`` is set, the plain ``layers.additive_attention``
   otherwise;
 * every maxout LSTM chain (``MaxoutLSTMCell`` of StackAtt / DenseAtt and
-  the FC family, the AdaAttMO cells, the Att2in2 / Att2all2 cells) runs
+  the FC family, the AdaAttMO cells, the Att2in2 / Att2in / Att2all2
+  cells) runs
   ``ops.lstm.maxout_lstm_gates_fused``, whose twin is the JAX chain.
 
-AdaAtt's sentinel attention, AdaAtt's tanh cell and UpDown's torch-style
-LSTM cells are plain PyTorch, as the JAX package left them to XLA.
+AdaAtt's sentinel attention, AdaAtt's tanh cell, UpDown's torch-style
+LSTM cells and ShowTell's LSTM / GRU stack are plain PyTorch, as the JAX
+package left them to XLA.
 
 Parameters are float32; ``to_compute_dtype`` casts the Linear and Embedding
 weights to ``cfg.dtype`` (the masked BatchNorm stays float32), and the LSTM
 state h / c is kept in the compute dtype, as the JAX cells keep it.
 
-ShowTell, att2in and AoA are not ported yet (ROADMAP.md).
+``models/aoa.py`` builds AoANet on this harness (its step and
+``forward_tf``).
 """
 
 from __future__ import annotations
@@ -57,15 +63,20 @@ from .layers import (Embedding, MaskedBatchNorm, MLPEmbed, additive_attention,
 BAD_ENDINGS = ['a', 'an', 'the', 'in', 'for', 'at', 'of', 'with', 'before',
                'after', 'on', 'upon', 'near', 'to', 'is', 'are', 'am']
 # model keys served by this module; 'topdown' is UpDown
-MODELS = ('updown', 'topdown', 'att2in2', 'att2all2', 'stackatt',
-          'denseatt', 'adaatt', 'adaattmo', 'newfc', 'fc', 'language_model')
+MODELS = ('updown', 'topdown', 'att2in2', 'att2in', 'att2all2', 'stackatt',
+          'denseatt', 'adaatt', 'adaattmo', 'newfc', 'fc', 'language_model',
+          'show_tell')
 # the models whose cores read attention features only through
 # AttentionHead, which takes one feats row per block of query rows (the JAX
 # api's _SHARED_FEATS_RNN); AdaAtt reads them directly
-SHARED_FEATS = ('updown', 'topdown', 'att2in2', 'att2all2', 'stackatt',
-                'denseatt')
-# the FC family: no attention features, words embedded without the ReLU
-_NO_ATT = ('newfc', 'fc', 'language_model')
+SHARED_FEATS = ('updown', 'topdown', 'att2in2', 'att2in', 'att2all2',
+                'stackatt', 'denseatt')
+# the FC family and ShowTell: no attention features, words embedded
+# without the ReLU
+_NO_ATT = ('newfc', 'fc', 'language_model', 'show_tell')
+# the legacy models: a U(+-0.1) word embedding without the ReLU and
+# dropout, a U(+-0.1) logit with a zero bias and no hidden logit layers
+_LEGACY = ('fc', 'show_tell', 'att2in')
 
 
 class TorchLSTMCell(nn.Module):
@@ -134,7 +145,8 @@ class MaxoutLSTMCell(nn.Module):
 
 class Att2in2Core(nn.Module):
     """Attention feeds only the input transform, via a2c (reference
-    AttModel.py:750-796)."""
+    AttModel.py:750-796).  'att2in' attends over the raw regions (no att
+    embed), so its a2c reads ``att_feat_size`` wide contexts."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -143,7 +155,8 @@ class Att2in2Core(nn.Module):
                                        bool(cfg.use_pallas))
         self.i2h = nn.Linear(E, 5 * H)
         self.h2h = nn.Linear(H, 5 * H)
-        self.a2c = nn.Linear(H, 2 * H)
+        self.a2c = nn.Linear(cfg.att_feat_size if cfg.caption_model ==
+                             'att2in' else H, 2 * H)
         self.drop = cfg.drop_prob_lm
 
     def forward(self, xt, feats, state, gen=None):
@@ -376,20 +389,88 @@ class FCCore(nn.Module):
                 dict(state, h=next_h[:, None], c=next_c[:, None]))
 
 
+class ShowTellCore(nn.Module):
+    """``num_layers`` stacked torch LSTM or GRU cells (``rnn_type``) without
+    bias (reference ShowTellModel.py:13-94), dropout between the layers and
+    on the output; the state is seeded with the image embedding at the
+    first step, as ``FCCore`` seeds it (the reference feeds the image as a
+    step before BOS: the same computation).  The seeding pass draws the
+    dropout between its layers, as the JAX core draws it.  A GRU keeps its
+    c at 0."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        E, H, L = cfg.input_encoding_size, cfg.rnn_size, cfg.num_layers
+        self.lstm = cfg.rnn_type == 'lstm'
+        n = (4 if self.lstm else 3) * H
+        for layer in range(L):
+            self.add_module('ih_%d' % layer,
+                            nn.Linear(E if layer == 0 else H, n, bias=False))
+            self.add_module('hh_%d' % layer, nn.Linear(H, n, bias=False))
+        self.num_layers = L
+        self.drop = cfg.drop_prob_lm
+
+    def init_weights(self, generator: torch.Generator):
+        bound = 1.0 / math.sqrt(self.hh_0.in_features)
+        for lin in self.children():
+            uniform_(lin.weight, bound, generator)
+
+    def _stack(self, x, h, c, gen):
+        """(the top layer's output, h, c) of one pass up the stack."""
+        H = h.shape[-1]
+        hs, cs = [], []
+        for layer in range(self.num_layers):
+            s_x = linear(x, getattr(self, 'ih_%d' % layer))
+            s_h = linear(h[:, layer], getattr(self, 'hh_%d' % layer))
+            if self.lstm:
+                s = s_x + s_h
+                i = torch.sigmoid(s[:, :H])
+                f = torch.sigmoid(s[:, H:2 * H])
+                g = torch.tanh(s[:, 2 * H:3 * H])
+                o = torch.sigmoid(s[:, 3 * H:])
+                next_c = f * c[:, layer] + i * g
+                next_h = o * torch.tanh(next_c)
+            else:
+                r = torch.sigmoid(s_x[:, :H] + s_h[:, :H])
+                z = torch.sigmoid(s_x[:, H:2 * H] + s_h[:, H:2 * H])
+                n = torch.tanh(s_x[:, 2 * H:] + r * s_h[:, 2 * H:])
+                next_h = (1 - z) * n + z * h[:, layer]
+                next_c = c[:, layer]
+            hs.append(next_h)
+            cs.append(next_c)
+            x = (next_h if layer == self.num_layers - 1
+                 else dropout(next_h, self.drop, gen))
+        return x, torch.stack(hs, 1), torch.stack(cs, 1)
+
+    def forward(self, xt, feats, state, gen=None):
+        h, c, t = state['h'], state['c'], state['t']
+        # the seeding pass at t == 0 (per row for a per-row t), as FCCore
+        if torch.is_tensor(t) or t == 0:
+            _, h_fc, c_fc = self._stack(feats['fc_feats'], torch.zeros_like(h),
+                                        torch.zeros_like(c), gen)
+            if torch.is_tensor(t):
+                first = (t == 0)[:, None, None]
+                h_fc = torch.where(first, h_fc, h)
+                c_fc = torch.where(first, c_fc, c)
+            h, c = h_fc, c_fc
+        top, h, c = self._stack(xt, h, c, gen)
+        return dropout(top, self.drop, gen), dict(state, h=h, c=c)
+
+
 def state_num_layers(cfg: ModelConfig) -> int:
     m = cfg.caption_model
-    if m in ('updown', 'topdown'):
+    if m in ('updown', 'topdown', 'aoa'):
         return 2
     if m in ('stackatt', 'denseatt'):
         return 3
-    if m in ('adaatt', 'adaattmo'):
+    if m in ('adaatt', 'adaattmo', 'show_tell'):
         return cfg.num_layers
     return 1
 
 
 def make_core(cfg: ModelConfig) -> nn.Module:
     m = cfg.caption_model
-    if m == 'att2in2':
+    if m in ('att2in2', 'att2in'):
         return Att2in2Core(cfg)
     if m == 'att2all2':
         return Att2all2Core(cfg)
@@ -401,6 +482,8 @@ def make_core(cfg: ModelConfig) -> nn.Module:
         return AdaAttCore(cfg, use_maxout=m == 'adaattmo')
     if m in ('newfc', 'fc', 'language_model'):
         return FCCore(cfg)
+    if m == 'show_tell':
+        return ShowTellCore(cfg)
     raise NotImplementedError('caption model %r is not ported yet; see '
                               'ROADMAP.md' % m)
 
@@ -416,27 +499,30 @@ class AttCaptioner(nn.Module):
         E, H = cfg.input_encoding_size, cfg.rnn_size
         V1 = cfg.vocab_size + 1
         self.core = make_core(cfg)
-        # the FC family embeds words without the ReLU
-        self.embed_relu = m not in _NO_ATT
+        # the FC family, ShowTell and att2in embed words without the ReLU
+        self.embed_relu = m not in _NO_ATT + _LEGACY
         self.embed = Embedding(V1, E)
         p = cfg.drop_prob_lm
-        if m in ('att2in2', 'att2all2', 'language_model'):
+        if m in ('att2in2', 'att2in', 'att2all2', 'language_model'):
             self.fc_embed = None
-        elif m in ('newfc', 'fc'):
+        elif m in ('newfc', 'fc', 'show_tell'):
             self.fc_embed = nn.Linear(cfg.fc_feat_size, E)
         else:
             self.fc_embed = MLPEmbed(cfg.fc_feat_size, H, p)
-        has_att = m not in _NO_ATT
+        # att2in attends over the raw regions: no att embed, no BatchNorm
+        embed_att = m not in _NO_ATT + ('att2in',)
         self.att_bn_in = (MaskedBatchNorm(cfg.att_feat_size)
-                          if has_att and cfg.use_bn else None)
-        self.att_embed = MLPEmbed(cfg.att_feat_size, H, p) if has_att else None
-        self.att_bn_out = (MaskedBatchNorm(H) if has_att and cfg.use_bn == 2
+                          if embed_att and cfg.use_bn else None)
+        self.att_embed = (MLPEmbed(cfg.att_feat_size, H, p) if embed_att
+                          else None)
+        self.att_bn_out = (MaskedBatchNorm(H) if embed_att and cfg.use_bn == 2
                            else None)
-        self.ctx2att = nn.Linear(H, cfg.att_hid_size) if has_att else None
-        # 'fc' keeps the legacy logit: no hidden layers
+        self.ctx2att = (None if m in _NO_ATT else nn.Linear(
+            H if embed_att else cfg.att_feat_size, cfg.att_hid_size))
+        # the legacy logit has no hidden layers
         self.logit_hidden = nn.ModuleList(
             nn.Linear(H, H)
-            for _ in range(0 if m == 'fc' else cfg.logit_layers - 1))
+            for _ in range(0 if m in _LEGACY else cfg.logit_layers - 1))
         self.logit = nn.Linear(H, V1)
 
     @property
@@ -448,16 +534,16 @@ class AttCaptioner(nn.Module):
     # -- parameters ----------------------------------------------------------
     def init_weights(self, generator: torch.Generator):
         """The JAX module's init, drawn from ``generator``: Dense
-        U(+-1/sqrt(fan_in)), Embedding N(0, 1), LSTM U(+-1/sqrt(H)); the
-        legacy 'fc' embedding and logit U(+-0.1) with a zero logit bias."""
+        U(+-1/sqrt(fan_in)), Embedding N(0, 1), LSTM / GRU U(+-1/sqrt(H));
+        the legacy embedding and logit U(+-0.1) with a zero logit bias."""
         for m in self.modules():
             if isinstance(m, nn.Linear):
                 init_dense(m, generator)
         # the cells redraw their ih / hh with the LSTM bound
         for m in self.modules():
-            if isinstance(m, (Embedding, TorchLSTMCell)):
+            if isinstance(m, (Embedding, TorchLSTMCell, ShowTellCore)):
                 m.init_weights(generator)
-        if self.cfg.caption_model == 'fc':
+        if self.cfg.caption_model in _LEGACY:
             uniform_(self.embed.embedding, 0.1, generator)
             uniform_(self.logit.weight, 0.1, generator)
             with torch.no_grad():
@@ -474,8 +560,9 @@ class AttCaptioner(nn.Module):
     # -- public protocol -------------------------------------------------------
     def prepare_feature(self, fc_feats, att_feats, att_masks, gen=None):
         """reference AttModel.py:114-124 and the NewFC / LM overrides
-        (:942-968).  The FC family's cores read no attention features, so
-        its feats carry none (the JAX tree carries them along unread).  In
+        (:942-968).  The cores of the FC family and ShowTell read no
+        attention features, so their feats carry none (the JAX tree carries
+        them along unread); att2in's are the raw regions.  In
         train mode (``gen``) the BatchNorms update their running
         statistics in place."""
         cfg = self.cfg
@@ -489,13 +576,14 @@ class AttCaptioner(nn.Module):
             p_fc = self.fc_embed(fc_feats, gen)
         else:
             p_fc = fc_feats
-        if self.att_embed is None:
+        if self.ctx2att is None:
             return {'fc_feats': p_fc, 'att_feats': None,
                     'p_att_feats': None, 'att_masks': None}
         x = att_feats
         if self.att_bn_in is not None:
             x = self.att_bn_in(x, att_masks, train)
-        x = self.att_embed(x, gen)
+        if self.att_embed is not None:
+            x = self.att_embed(x, gen)
         if self.att_bn_out is not None:
             x = self.att_bn_out(x, att_masks, train)
         return {'fc_feats': p_fc, 'att_feats': x,

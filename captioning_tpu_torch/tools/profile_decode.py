@@ -3,12 +3,15 @@
 take the device time.
 
     python -m captioning_tpu_torch.tools.profile_decode \\
-        [--model transformer|updown|stackatt|newfc] [--mode beam5|greedy|...]
+        [--model transformer|updown|stackatt|newfc|aoa|att2in|show_tell]
+        [--mode beam5|greedy|...]
 
 The model is built at the flagship widths (``MODELS``: the transformer of
 ``configs/transformer/transformer.yml``, UpDown of
 ``configs/updown/updown.yml``, StackAtt at the ``opts.py`` widths, NewFC
-of ``configs/fc.yml``; COCO vocab 9487 + 1, 36 x 2048 features, max
+of ``configs/fc.yml``, AoANet of ``configs/aoa.yml``, att2in and
+ShowTell at the ``opts.py`` widths; COCO vocab 9487 + 1, 36 x 2048
+features, max
 length 20, bf16, B = 1024) with random weights from a seed, as
 ``chip_smoke.py`` builds it, and decodes by one of ``MODES`` (beam 5 and
 greedy, and phase 10's: the constrained general beam body, diverse beam,
@@ -45,7 +48,10 @@ BATCH, WALLS, TOP = 1024, 3, 15
 # the flagships' widths: configs/transformer/transformer.yml and
 # configs/updown/updown.yml (the shapes bench.py measures); StackAtt at the
 # opts.py defaults (captioning_tpu/utils/opts.py:45-65); NewFC of
-# configs/fc.yml (MODEL_ZOO row "FC", the opts.py widths)
+# configs/fc.yml (MODEL_ZOO row "FC", the opts.py widths); AoANet of
+# configs/aoa.yml (rnn and encoding 1024, the 6-layer refiner with the AoA
+# gate, 8 heads, the AoA decoder); att2in and ShowTell (one LSTM layer) at
+# the opts.py widths
 MODELS = {
     'transformer': dict(input_encoding_size=512, rnn_size=2048, num_layers=6,
                         drop_prob_lm=0.1, att_hid_size=512, N_enc=6, N_dec=6,
@@ -56,6 +62,15 @@ MODELS = {
                      drop_prob_lm=0.5, att_hid_size=512),
     'newfc': dict(input_encoding_size=512, rnn_size=512, num_layers=1,
                   drop_prob_lm=0.5, att_hid_size=512),
+    'aoa': dict(input_encoding_size=1024, rnn_size=1024, num_layers=2,
+                drop_prob_lm=0.5, att_hid_size=512, refine=1, refine_aoa=1,
+                use_ff=0, decoder_type='AoA', use_multi_head=2, num_heads=8,
+                multi_head_scale=1, mean_feats=1, ctx_drop=1,
+                dropout_aoa=0.3),
+    'att2in': dict(input_encoding_size=512, rnn_size=512, num_layers=1,
+                   drop_prob_lm=0.5, att_hid_size=512),
+    'show_tell': dict(input_encoding_size=512, rnn_size=512, num_layers=1,
+                      drop_prob_lm=0.5, att_hid_size=512, rnn_type='lstm'),
 }
 BEAM = {'beam_size': 5, 'sample_n': 1, 'group_size': 1, 'suppress_UNK': 1}
 GREEDY = {'sample_method': 'greedy', 'beam_size': 1, 'sample_n': 1}

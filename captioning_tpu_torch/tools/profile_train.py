@@ -3,7 +3,7 @@
 kernels that take the device time.
 
     python -m captioning_tpu_torch.tools.profile_train \\
-        [--model updown|stackatt|transformer]
+        [--model updown|stackatt|transformer|aoa|att2in|show_tell]
         [--mode xe|scst|scst_grad|struc] [--route eager|graph]
 
 The model is built at the flagship widths of ``profile_decode.MODELS`` in
@@ -13,12 +13,14 @@ at adam 5e-4, the scheduled-sampling ramp's maximum 0.25 and the
 ``opts.py`` dropout 0.5; the transformer of
 ``configs/transformer/transformer.yml`` with noam, warmup 20000, dropout
 0.1; clip by value 0.1) on one seeded batch of 10 images x 5 captions of
-label length 16, as ``chip_smoke.py`` phase 9 trains them.  ``--mode
-scst`` takes the fused SCST step instead (``Trainer.sc_fused_step``), and
+label length 16, as ``chip_smoke.py`` phase 9 trains them; AoANet of
+``configs/aoa.yml`` at adam 2e-4 with label smoothing 0.2, att2in and
+ShowTell as UpDown.  ``--mode scst`` takes the fused SCST step instead (``Trainer.sc_fused_step``), and
 ``--mode struc`` the fused structure step (``struc_fused_step``,
 new_self_critical), with the SCST stages' options (``RL``: UpDown of
 ``configs/updown/updown_sc.yml`` and the transformer of
-``configs/transformer/transformer_sc.yml``, adam at their rates,
+``configs/transformer/transformer_sc.yml`` and AoANet of
+``configs/aoa_sc.yml``, adam at their rates,
 ``train_sample_n`` 5 sampled against a greedy baseline, max length 20):
 their rewards against 5 references of label length 16 an image, scored on
 the card with a df table built as ``scripts/prepro_ngrams.py`` builds it
@@ -55,6 +57,12 @@ WARM, WALLS, PROFILED, TOP = 3, 5, 3, 15
 TRAIN = {
     'updown': ({'drop_prob_lm': 0.5}, {}, 0.25, lambda it: 5e-4),
     'stackatt': ({'drop_prob_lm': 0.5}, {}, 0.25, lambda it: 5e-4),
+    'att2in': ({'drop_prob_lm': 0.5}, {}, 0.25, lambda it: 5e-4),
+    'show_tell': ({'drop_prob_lm': 0.5}, {}, 0.25, lambda it: 5e-4),
+    # configs/aoa.yml: adam 2e-4, label smoothing 0.2
+    'aoa': ({'drop_prob_lm': 0.5}, {'learning_rate': 2e-4,
+                                    'label_smoothing': 0.2}, 0.25,
+            lambda it: 2e-4),
     # drop_prob_lm (the att embed's) keeps its opts.py 0.5
     'transformer': ({'drop_prob_lm': 0.5, 'dropout': 0.1},
                     {'noamopt': True, 'noamopt_warmup': 20000}, 0.0,
@@ -64,9 +72,10 @@ TRAIN = {
 
 # per model: the captioner's option overrides and the trainer's, of the
 # SCST stage (configs/updown/updown_sc.yml, configs/transformer/
-# transformer_sc.yml: adam, no noam)
+# transformer_sc.yml, configs/aoa_sc.yml: adam, no noam)
 RL = {
     'updown': ({'drop_prob_lm': 0.5}, {'learning_rate': 5e-5}),
+    'aoa': ({'drop_prob_lm': 0.5}, {'learning_rate': 2e-5}),
     'transformer': ({'drop_prob_lm': 0.5, 'dropout': 0.1},
                     {'learning_rate': 1e-5}),
 }

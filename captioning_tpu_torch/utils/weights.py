@@ -9,7 +9,9 @@ leading [L] axis (``enc_self_wq_kernel`` [L, D, D], ``dec_norm1_a2``
 [L, D], ...).  The RNN attention harness maps its keys one to one, since
 the port's modules carry the JAX names (``core/attention/h2att/kernel`` ->
 ``core.attention.h2att.weight``, ``logit_hidden_0`` -> ``logit_hidden.0``,
-``batch_stats/att_bn_in/mean`` -> ``att_bn_in.mean``).  Every JAX key is
+``batch_stats/att_bn_in/mean`` -> ``att_bn_in.mean``); so does AoANet
+(``refiner/attn_0/q/kernel`` -> ``refiner.attn_0.q.weight``,
+``refiner/norm_out/a_2`` -> ``refiner.norm_out.a_2``).  Every JAX key is
 consumed exactly once; a key left over or one the port needs but does not
 find raises.  ``jax_from_state_dict`` is the inverse: the flat JAX tree
 (``params/...`` and, with use_bn, ``batch_stats/...``), so a ``model.npz``
@@ -26,6 +28,7 @@ import numpy as np
 import torch
 
 from ..models import harness
+from ..models.aoa import AoACaptioner
 from ..models.config import ModelConfig
 from .misc import _flatten_tree
 
@@ -37,6 +40,9 @@ _DEC = {'dec_self_wq': 's_wq', 'dec_self_wk': 's_wk', 'dec_self_wv': 's_wv',
         'dec_src_wv': 'c_wv', 'dec_src_wo': 'c_wo', 'dec_ffn_w1': 'w1',
         'dec_ffn_w2': 'w2'}
 _NORMS = {'enc': ('norm1', 'norm2'), 'dec': ('norm1', 'norm2', 'norm3')}
+# the models whose port carries the JAX names, and their module classes
+_ONE_TO_ONE = dict({m: harness.AttCaptioner for m in harness.MODELS},
+                   aoa=AoACaptioner)
 
 
 def _flat(tree_or_flat) -> Dict[str, np.ndarray]:
@@ -53,9 +59,9 @@ def _flat(tree_or_flat) -> Dict[str, np.ndarray]:
 def state_dict_from_jax(tree_or_flat, cfg: ModelConfig,
                         params_only: bool = False
                         ) -> Dict[str, torch.Tensor]:
-    """The port's TransformerCaptioner / AttCaptioner state_dict from JAX
-    params."""
-    if cfg.caption_model in harness.MODELS:
+    """The port's TransformerCaptioner / AttCaptioner / AoACaptioner
+    state_dict from JAX params."""
+    if cfg.caption_model in _ONE_TO_ONE:
         return _harness_state_dict(_flat(tree_or_flat), cfg, params_only)
     if cfg.caption_model != 'transformer':
         raise NotImplementedError('weight bridge: %r is not ported; see '
@@ -116,7 +122,7 @@ def jax_from_state_dict(state_dict, cfg: ModelConfig,
     """The flat JAX tree (float32 numpy) of the port's state_dict: the
     inverse of ``state_dict_from_jax``."""
     sd = {k: v.detach().float().cpu().numpy() for k, v in state_dict.items()}
-    if cfg.caption_model in harness.MODELS:
+    if cfg.caption_model in _ONE_TO_ONE:
         out = {}
         for name, value in sd.items():
             key = _jax_harness_key(name)
@@ -200,7 +206,7 @@ def _harness_state_dict(flat: Dict[str, np.ndarray], cfg: ModelConfig,
                         params_only: bool = False
                         ) -> Dict[str, torch.Tensor]:
     with torch.device('meta'):
-        module = harness.AttCaptioner(cfg)
+        module = _ONE_TO_ONE[cfg.caption_model](cfg)
     want = (dict(module.named_parameters()) if params_only
             else module.state_dict())
     out: Dict[str, torch.Tensor] = {}

@@ -154,7 +154,24 @@ Phases, in order; any failure raises and exits non-zero:
    UpDown XE, B3 34 and B5 51 for StackAtt, none for the transformer; B3
    40 for UpDown SCST, B1 120 and B2 20 for the transformer's, B3 20 for
    the grad step) and equal to the eager step's launches, no wrapper
-   launch on a replay, the replays' launches captures x replays.
+   launch on a replay, the replays' launches captures x replays;
+14. the last three model keys: AoANet of ``configs/aoa.yml`` (rnn
+   and word embedding 1024, 8 heads, the 6-layer refiner with the AoA gate,
+   the AoA decoder), att2in and ShowTell at the ``opts.py`` widths, 36 x
+   2048 features, COCO vocab 9487 + 1: beam 5 and greedy at B = 1024, bf16,
+   eager and graphed (the eager path's kernels required on its first
+   batch, the graphs' held and replayed ones required: B6 in the beams, B3
+   and B5 on att2in; no wrapper launch on a graph batch; graph tokens
+   required equal to eager; 3 batches a route in turns, cap/s at each
+   route's median, one profiled batch a route: busy and idle share; the
+   capture time and the graph cache), then float32 at B = 8, the card's
+   tokens required equal to the CPU's; AoANet's XE step (label smoothing
+   0.2, ``ss_prob`` 0.25) and fused SCST step (``configs/aoa_sc.yml``)
+   at 10 x 5, graph against eager by phase 13's rules; one float32 XE
+   step of att2in and of ShowTell, card against CPU by phase 9's rules
+   (B3 and B5 required on att2in's); B3 as att2in calls it (H 2048, the
+   raw float32 regions with bf16 queries, bw 5 and 1; and bf16 regions)
+   held against its twin and timed beside its bound.
 
 Each decode mode requires the kernels its path runs: the top-k only in
 beam (the RNN plain-step route; the transformer's fused route selects in
@@ -1712,6 +1729,8 @@ PHASE13_LAUNCHES = {
     ('scst', 'updown'): {'additive_attention': 40},
     ('scst', 'transformer'): {'attend_write_merged': 120, 'logit_topk': 20},
     ('scst_grad', 'updown'): {'additive_attention': 20},
+    ('xe', 'aoa'): {},
+    ('scst', 'aoa'): {},
 }
 
 
@@ -1905,6 +1924,219 @@ def phase_graph_train(torch, wrappers, cases=PHASE13, scorer=None):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 14: AoANet, att2in and ShowTell on the card
+# ---------------------------------------------------------------------------
+
+# model -> (kernels its decodes run in both modes, in beam only), by the
+# wrappers' names in chip_smoke's ``wrappers``
+PHASE14 = {'aoa': ([], ['topk_lastdim']),
+           'att2in': (['additive_attention', 'maxout_lstm_gates'],
+                      ['topk_lastdim']),
+           'show_tell': ([], ['topk_lastdim'])}
+# AoANet's train steps, graph against eager (phase 13's rules)
+PHASE14_TRAIN = [('xe', 'aoa', 10), ('scst', 'aoa', 10)]
+
+
+def new_key_decodes(torch, model, wrappers):
+    """Beam 5 and greedy of ``model`` at B = 1024, bf16, eager and graphed:
+    the eager path with the counters set to 0 just before its first batch
+    and its kernels required just after; the graph's capture (time, MiB)
+    and held kernels (required); 3 batches a route in turns (eager, graph,
+    graph, eager, eager, graph) with no wrapper launch on a graph batch;
+    the replays' launches (required); graph tokens equal to eager
+    (required); cap/s at each route's median; one profiled batch a route
+    (device busy, idle share).  Then float32 at B = 8: the card's tokens
+    equal to the CPU's (required).  Returns (record, launches)."""
+    from captioning_tpu_torch.tools import profile_decode as pd
+    short = {fn.__name__: name for name, fn in wrappers.items()}
+    both, beam_only = PHASE14[model]
+    launches = dict.fromkeys(wrappers, 0)
+    record = {}
+    torch.cuda.empty_cache()
+    cap = pd.make_captioner(model, 'bfloat16', 'cuda')
+    B = 1024
+    fc, att, am = pd.features(B, 'cuda', seed=1)
+    for mode in ('beam5', 'greedy'):
+        required = both + (beam_only if mode == 'beam5' else [])
+        for fn in wrappers.values():
+            fn.launches = 0
+        pd.decode(cap, mode, fc, att, am)                  # eager warm-up
+        torch.cuda.synchronize()
+        counts = {n: fn.launches for n, fn in wrappers.items()}
+        for name in required:
+            if counts[name] <= 0:
+                raise AssertionError('%s was never launched on the eager '
+                                     '%s %s path' % (name, model, mode))
+        t = time.time()
+        pd.decode(cap, mode, fc, att, am, graphed=True)
+        torch.cuda.synchronize()
+        first_s = time.time() - t
+        entry = list(cap._graph_cache.values())[-1]
+        held = {short.get(k, k): n for k, n in entry.held().items()}
+        for name in required:
+            if held.get(name, 0) <= 0:
+                raise AssertionError('%s is not among the %s %s graphs\' '
+                                     'captures %s' % (name, model, mode,
+                                                      held))
+        before = cap.graph_launches()
+        walls = {False: [], True: []}
+        outs = {}
+        for graphed in (False, True, True, False, False, True):
+            base = {n: fn.launches for n, fn in wrappers.items()}
+            outs[graphed], wall, dev = timed(torch, lambda: pd.decode(
+                cap, mode, fc, att, am, graphed=graphed))
+            walls[graphed].append([round(wall, 3), round(dev, 3)])
+            delta = {n: fn.launches - base[n] for n, fn in wrappers.items()}
+            if graphed and any(delta.values()):
+                raise AssertionError('a %s %s graph batch launched kernels '
+                                     'outside its graphs: %s'
+                                     % (model, mode, delta))
+        prof = {name: pd.profiled(cap, mode, fc, att, am, graphed)
+                for name, graphed in (('eager', False), ('graph', True))}
+        replayed = {short.get(k, k): n - before.get(k, 0)
+                    for k, n in cap.graph_launches().items()
+                    if n - before.get(k, 0)}
+        for name in required:
+            if replayed.get(name, 0) <= 0:
+                raise AssertionError('the %s %s graphs never ran %s'
+                                     % (model, mode, name))
+        (sg, stg), (se, ste) = outs[True], outs[False]
+        check_output(torch, sg, stg, B, 20, pd.V)
+        same = (sg == se).all(1).float().mean().item()
+        rate = {name: B / (sorted(w[0] for w in walls[g])[1] / 1000)
+                for name, g in (('eager', False), ('graph', True))}
+        rec = {'capture_s': round(entry.capture_s, 3),
+               'first_call_s': round(first_s, 3),
+               'graph_cache_mib': entry.bytes_reserved / 2 ** 20,
+               'held': held, 'replay_launches': replayed,
+               'eager_ms_events': walls[False],
+               'graph_ms_events': walls[True], 'cap_s': rate,
+               'busy_ms': {k: v['device_busy_ms'] for k, v in prof.items()},
+               'idle_share': {k: v['idle_share'] for k, v in prof.items()},
+               'top_kernels_graph': [(k['name'][:60], round(k['ms'], 3))
+                                     for k in prof['graph']['kernels'][:6]],
+               'bf16_tokens_identical': same}
+        log('  cap/s %s %s: eager %.1f, graph %.1f' % (
+            model, mode, rate['eager'], rate['graph']))
+        log('  %s %s B=1024 bf16: capture %.2f s (first call %.2f s), '
+            'graph cache %.1f MiB; walls [host ms, event ms] eager %s, '
+            'graph %s; busy eager %.2f / graph %.2f ms, idle eager %.3f / '
+            'graph %.3f; graph tokens identical to eager %.4f; held %s, '
+            'replays ran %s' % (model, mode, entry.capture_s, first_s,
+                                rec['graph_cache_mib'], walls[False],
+                                walls[True], rec['busy_ms']['eager'],
+                                rec['busy_ms']['graph'],
+                                rec['idle_share']['eager'],
+                                rec['idle_share']['graph'], same, held,
+                                replayed))
+        if same < 1:
+            raise AssertionError('bf16 %s %s: graph and eager tokens differ '
+                                 '(%.4f identical): %s' % (
+                                     model, mode, same, json.dumps(
+                                         first_gaps(torch, cap, fc, att, am,
+                                                    se, sg))))
+        # the mode's eager batches (the warm-up, the walls, the profiled
+        # one) and its graphs' replays
+        for n, fn in wrappers.items():
+            launches[n] += fn.launches + replayed.get(n, 0)
+        record['%s %s' % (model, mode)] = rec
+    del cap, outs, sg, se
+    torch.cuda.empty_cache()
+    torch.set_num_threads(min(8, os.cpu_count() or 1))
+    capg = pd.make_captioner(model, 'float32', 'cuda')
+    capc = pd.make_captioner(model, 'float32', 'cpu')
+    fc, att, am = pd.features(8, 'cpu', seed=2)
+    for fn in wrappers.values():
+        fn.launches = 0
+    for mode in ('beam5', 'greedy'):
+        sg, stg = pd.decode(capg, mode, fc.cuda(), att.cuda(), am.cuda())
+        sc, stc = pd.decode(capc, mode, fc, att, am)
+        same = (sg.cpu() == sc).all(1).float().mean().item()
+        err = (stg['lp_sum'].cpu() - stc['lp_sum']).abs().max().item()
+        record['%s %s f32 B=8' % (model, mode)] = {
+            'card_cpu_tokens_identical': same, 'lp_sum_max_diff': err}
+        log('  %s f32 %s B=8: card tokens identical to the CPU\'s %.3f, max '
+            'lp_sum diff %.2e' % (model, mode, same, err))
+        if same < 1:
+            raise AssertionError('f32 %s %s: card and CPU tokens differ '
+                                 '(%.3f identical)' % (model, mode, same))
+    for n, fn in wrappers.items():
+        launches[n] += fn.launches
+        fn.launches = 0
+    del capg, capc
+    torch.cuda.empty_cache()
+    return record, launches
+
+
+def time_b3_h2048(torch, aa):
+    """B3 as att2in calls it at B = 1024 (bf16 queries and keys, the raw
+    float32 regions, H 2048, A 512, M 36; beam bw 5 and greedy bw 1), and
+    beam 5 with bf16 regions: held against the twin and timed (CUDA
+    events, 50 launches; the twin 10) beside its bound."""
+    nb, M, H, A = 1024, 36, 2048, 512
+    bf16, f32 = torch.bfloat16, torch.float32
+    for label, bw, att_dtype in (('bw5 f32 regions', 5, f32),
+                                 ('bw1 f32 regions', 1, f32),
+                                 ('bw5 bf16 regions', 5, bf16)):
+        err, _ = check_additive_attention(torch, aa, nb, bw, M, H, A, bf16,
+                                          seed=40 + bw, att_dtype=att_dtype)
+        args = _aa_inputs(torch, nb, bw, M, H, A, bf16, seed=7,
+                          ragged=False, att_dtype=att_dtype)
+        fs = 4 if att_dtype == f32 else 2
+        # queries, p_att, w, b in bf16; the regions and the output in the
+        # regions' type; the float32 mask
+        nbytes = (2 * (nb * bw * A + nb * M * A + A + 1)
+                  + fs * (nb * M * H + nb * bw * H) + 4 * nb * M)
+        log('  additive_attention H 2048 %s (1024 images, M 36, A 512): '
+            'kernel %.4f ms, twin %.4f ms, bound %.4f ms (%s); max err vs '
+            'twin %.3g' % (
+                (label,
+                 cuda_ms(lambda: aa.additive_attention_fused(*args), 50),
+                 cuda_ms(lambda: aa.additive_attention_ref(*args), 10))
+                + bound(nbytes, nb * bw * M * (3 * A + 2 * H), PEAK_F32)
+                + (err,)))
+        del args
+
+
+def phase_new_keys(torch, aa, wrappers, scorer=None):
+    """Phase 14: AoANet of ``configs/aoa.yml``, att2in and ShowTell at the
+    ``opts.py`` widths: their decodes (``new_key_decodes``); AoANet's XE
+    and fused SCST steps graph against eager (``graph_train_case``); one
+    float32 XE step of att2in and ShowTell, card against CPU
+    (``train_agreement``); B3 at att2in's H 2048.  Returns the launches of
+    the phase."""
+    launches = dict.fromkeys(wrappers, 0)
+    records = {}
+    for model in PHASE14:
+        t = time.time()
+        rec, counts = new_key_decodes(torch, model, wrappers)
+        records.update(rec)
+        for n, c in counts.items():
+            launches[n] += c
+        log('  %s decodes: %.1f s' % (model, time.time() - t))
+    log('  new keys decode record: %s' % json.dumps(records))
+    if scorer is None:
+        from captioning_tpu_torch.ops.cider_device import DeviceCiderD
+        from captioning_tpu_torch.tools import profile_train as pt
+        scorer = DeviceCiderD(*pt.corpus_df(), device='cuda')
+    for name, n in phase_graph_train(torch, wrappers, PHASE14_TRAIN,
+                                     scorer).items():
+        launches[name] += n
+    for fn in wrappers.values():
+        fn.launches = 0
+    for model in ('att2in', 'show_tell'):
+        train_agreement(torch, model)
+    if wrappers['additive_attention'].launches <= 0 or \
+            wrappers['maxout_lstm_gates'].launches <= 0:
+        raise AssertionError('the att2in XE step on the card launched no B3 '
+                             'or no B5')
+    for n, fn in wrappers.items():
+        launches[n] += fn.launches
+    time_b3_h2048(torch, aa)
+    return launches
+
+
 def main():
     import torch
     wall = time.time()
@@ -2070,6 +2302,13 @@ def main():
                                      scorer=scorer).items():
         launches[name] += n
     log('phase 13: %.1f s' % (time.time() - t))
+
+    log('phase 14: AoANet, att2in and ShowTell through Captioner and '
+        'Trainer')
+    t = time.time()
+    for name, n in phase_new_keys(torch, aa, wrappers, scorer).items():
+        launches[name] += n
+    log('phase 14: %.1f s' % (time.time() - t))
 
     bad = [m for m in sys.modules
            if m.split('.')[0] in ('jax', 'flax', 'optax', 'captioning_tpu')]

@@ -1,9 +1,9 @@
 """tools/eval_torch.py end to end on the synthetic dataset (--device cpu):
-a JAX-initialised tiny transformer, UpDown, StackAtt, NewFC or AdaAttMO
-saved as model.npz + infos pickle, the port's CLI run on it, and its
-predictions compared with the JAX ``eval_split`` on the same checkpoint:
-identical captions, entropy and perplexity within 1e-4, the val loss
-within rtol 1e-5."""
+a JAX-initialised tiny transformer, UpDown, StackAtt, NewFC, AdaAttMO,
+AoANet, att2in or ShowTell saved as model.npz + infos pickle, the port's
+CLI run on it, and its predictions compared with the JAX ``eval_split`` on
+the same checkpoint: identical captions, entropy and perplexity within
+1e-4, the val loss within rtol 1e-5."""
 
 import json
 import os
@@ -85,6 +85,23 @@ def test_eval_cli_rnn_zoo_matches_jax_eval_split(zoo_checkpoint, beam,
     per-lane feats, through the CLI; the val loss repeats the feats per
     caption where the core reads them per row."""
     _cli_matches_jax(zoo_checkpoint, beam, monkeypatch)
+
+
+@pytest.fixture(scope='module', params=['aoa', 'att2in', 'show_tell'])
+def new_key_checkpoint(request, tmp_path_factory):
+    # AoANet at rnn 24 in 4 heads, its 6-layer refiner and AoA decoder
+    kw = {'num_heads': 4} if request.param == 'aoa' else {}
+    return _checkpoint(tmp_path_factory, request.param, **kw)
+
+
+@pytest.mark.parametrize('beam', [1, 3])
+def test_eval_cli_new_keys_match_jax_eval_split(new_key_checkpoint, beam,
+                                                monkeypatch):
+    """AoANet (block-shared feats and the mean feats), att2in (the raw
+    regions) and ShowTell (its fc seeding): a JAX checkpoint through the
+    CLI, the val loss with one feats row per image (AoANet, att2in) or
+    per caption."""
+    _cli_matches_jax(new_key_checkpoint, beam, monkeypatch)
 
 
 ROUTES = {

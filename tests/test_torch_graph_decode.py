@@ -31,16 +31,19 @@ BEAM = {'beam_size': 3, 'sample_n': 1, 'group_size': 1, 'suppress_UNK': 1}
 GREEDY = {'sample_method': 'greedy', 'beam_size': 1, 'sample_n': 1}
 MODELS = {'transformer': tiny_opt, 'updown': lambda: tiny_rnn_opt('updown'),
           'newfc': lambda: tiny_rnn_opt('newfc'),
-          'stackatt': lambda: tiny_rnn_opt('stackatt')}
+          'stackatt': lambda: tiny_rnn_opt('stackatt'),
+          'att2in': lambda: tiny_rnn_opt('att2in'),
+          'show_tell': lambda: tiny_rnn_opt('show_tell')}
 # the models held against JAX
 PARITY = ('newfc', 'transformer', 'updown')
 # (model, program): the transformer's fused beam, UpDown's plain-step beam
 # (B3, B6), NewFC's beam (per-lane feats, the FC seeding, B5), StackAtt's
-# (B3 twice and B5 three times a step), and the greedy stats loop on the
+# (B3 twice and B5 three times a step), att2in's (B3 over the raw regions,
+# B5) and ShowTell's (its seeding at t 0), and the greedy stats loop on the
 # fused (transformer) and plain (UpDown) routes
 BODIES = [('transformer', 'beam'), ('updown', 'beam'), ('newfc', 'beam'),
-          ('stackatt', 'beam'), ('transformer', 'greedy'),
-          ('updown', 'greedy')]
+          ('stackatt', 'beam'), ('att2in', 'beam'), ('show_tell', 'beam'),
+          ('transformer', 'greedy'), ('updown', 'greedy')]
 
 
 @pytest.fixture(autouse=True)

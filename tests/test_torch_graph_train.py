@@ -108,7 +108,7 @@ def _calls(tr, x, scorer):
 
 # (step kind, model): every model key a body is held for
 BODIES = ([('xe', m) for m in ('updown', 'stackatt', 'newfc',
-                               'transformer')]
+                               'transformer', 'att2in', 'show_tell')]
           + [(k, m) for k in ('sc_fused', 'sc_grad')
              for m in ('updown', 'transformer')]
           + [('struc_fused', 'updown'), ('struc_fused', 'transformer'),

@@ -1,5 +1,6 @@
 """The port's RNN captioners (``models/harness.py``: UpDown, Att2in2,
-Att2all2, StackAtt / DenseAtt, NewFC / FC / LM, AdaAtt / AdaAttMO) against
+Att2in, Att2all2, StackAtt / DenseAtt, NewFC / FC / LM, AdaAtt / AdaAttMO,
+ShowTell with its LSTM and its GRU) against
 the JAX modules on the same weights and inputs (float32 on the CPU, tiny
 widths): prepare_feature, per-step log-probs and logits and the h / c state
 over several steps, with the attention rows aligned to the queries and
@@ -15,8 +16,8 @@ import pytest
 import torch
 
 from captioning_tpu_torch.models.harness import SHARED_FEATS
-from tests.torch_port_util import (RNN_MODELS, inputs, jax_and_port,
-                                   tiny_rnn_opt)
+from tests.torch_port_util import (NO_ATT_MODELS, RNN_MODELS, inputs,
+                                   jax_and_port, tiny_rnn_opt)
 
 ATOL = 1e-5
 
@@ -68,9 +69,10 @@ def test_prepare_feature_matches_jax(model, use_bn):
     assert set(got) == set(want)
     for key in ('fc_feats', 'att_feats', 'p_att_feats', 'att_masks'):
         if got[key] is None:
-            # the FC family's cores read no attention features: the port
-            # carries none (the JAX tree carries the raw ones, unread)
-            assert model in ('newfc', 'fc', 'language_model')
+            # the FC family's and ShowTell's cores read no attention
+            # features: the port carries none (the JAX tree carries the raw
+            # ones, unread)
+            assert model in NO_ATT_MODELS
             continue
         _close(got[key], want[key])
 
@@ -168,9 +170,24 @@ def _check_forward_tf(opt):
 
 def test_unported_models_raise():
     from captioning_tpu_torch.models.api import setup
-    for model in ('show_tell', 'att2in', 'aoa'):
+    for model in ('bert', 'm2transformer'):
         with pytest.raises(NotImplementedError, match='ROADMAP'):
             setup(tiny_rnn_opt(model, vocab_size=29), device='cpu')
+
+
+@pytest.mark.parametrize('model,kw', [('show_tell', {}),
+                                      ('show_tell', {'rnn_type': 'gru'}),
+                                      ('att2in', {}), ('aoa', {})])
+def test_last_rnn_keys_build(model, kw):
+    """show_tell (LSTM and GRU), att2in and aoa build on the CPU; on
+    'cuda' without a GPU they raise, as every key does."""
+    from captioning_tpu_torch.models.api import setup
+    cap = setup(tiny_rnn_opt(model, vocab_size=29, **kw),
+                device='cpu').init_params(torch.Generator().manual_seed(0))
+    assert cap.module.cfg.caption_model == model
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match='no CUDA device'):
+            setup(tiny_rnn_opt(model, vocab_size=29, **kw), device='cuda')
 
 
 def test_init_weights_follow_jax_init():
@@ -204,8 +221,10 @@ def test_bf16_state_stays_bf16(model, use_bn, use_pallas):
     fc, att, am = (torch.from_numpy(a) for a in inputs(B=2))
     feats = pm.prepare_feature(fc, att, am)
     if feats['att_feats'] is not None:
-        assert feats['att_feats'].dtype == (torch.float32 if use_bn == 2
-                                            else torch.bfloat16)
+        # att2in attends over the raw regions, in the input's dtype
+        assert feats['att_feats'].dtype == (
+            torch.float32 if use_bn == 2 or model == 'att2in'
+            else torch.bfloat16)
     for n in (2, 10):                # aligned rows; 5 rows per att row
         if n > 2 and model not in SHARED_FEATS:
             # these cores read one feats row per query row

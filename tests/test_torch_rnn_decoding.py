@@ -1,10 +1,11 @@
-"""The port's decode of the RNN attention captioners (UpDown, Att2in2,
-Att2all2) through the engine's plain-step routes, against the JAX
-package's ``sample_stats_jit`` and ``sample_beam_jit(..., want_logps=False)``
-on the same weights and inputs (float32, CPU).  Sequences must be
-token-identical; ent_sum / lp_sum agree within 1e-4 (the carried sums
-differ from the JAX reductions in summation order only).  With a boosted
-EOS bias the captions end early and the exact early exits fire."""
+"""The port's decode of the RNN captioners (``RNN_MODELS``: every RNN key,
+ShowTell with its LSTM and its GRU) through the engine's plain-step
+routes, against the JAX package's ``sample_stats_jit`` and
+``sample_beam_jit(..., want_logps=False)`` on the same weights and inputs
+(float32, CPU). Sequences must be token-identical; ent_sum / lp_sum agree
+within 1e-4 (the carried sums differ from the JAX reductions in summation
+order only). With a boosted EOS bias the captions end early and the exact
+early exits fire."""
 
 import dataclasses
 

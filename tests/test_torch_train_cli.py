@@ -225,7 +225,8 @@ def test_eval_split_between_steps_leaves_training_unchanged(ds, tmp_path,
         assert torch.equal(got_sd[k], want_sd[k]), k
 
 
-@pytest.mark.parametrize('model', ['updown', 'stackatt', 'transformer'])
+@pytest.mark.parametrize('model', ['updown', 'stackatt', 'transformer',
+                                   'aoa'])
 def test_profile_train_steps_on_the_cpu(model, monkeypatch):
     """``tools/profile_train.py``'s set-up (the one ``chip_smoke.py`` phase
     9 trains with) at tiny widths on the CPU: its config's options, one
@@ -245,7 +246,9 @@ def test_profile_train_steps_on_the_cpu(model, monkeypatch):
         'updown': dict(input_encoding_size=24, rnn_size=24, num_layers=2,
                        att_hid_size=8),
         'stackatt': dict(input_encoding_size=16, rnn_size=24, num_layers=1,
-                         att_hid_size=8)})
+                         att_hid_size=8),
+        'aoa': dict(input_encoding_size=16, rnn_size=24, num_layers=2,
+                    att_hid_size=8, num_heads=4)})
     # a rate that moves the tiny model in a few steps (noam's first steps
     # barely move it)
     model_kw, opt_kw, ss_prob, _ = pt.TRAIN[model]
@@ -266,7 +269,8 @@ def test_profile_train_steps_on_the_cpu(model, monkeypatch):
 
 @pytest.mark.parametrize('model,mode', [('updown', 'scst'),
                                         ('transformer', 'scst'),
-                                        ('updown', 'struc')])
+                                        ('updown', 'struc'),
+                                        ('aoa', 'scst')])
 def test_profile_rl_steps_on_the_cpu(model, mode, monkeypatch):
     """``tools/profile_train.py``'s RL set-up (the one ``chip_smoke.py``
     phase 11 times) at tiny widths on the CPU: the SCST stage's options,
@@ -287,7 +291,9 @@ def test_profile_rl_steps_on_the_cpu(model, mode, monkeypatch):
                             num_layers=2, att_hid_size=8, N_enc=1, N_dec=1,
                             d_model=16, d_ff=32, num_att_heads=4),
         'updown': dict(input_encoding_size=24, rnn_size=24, num_layers=2,
-                       att_hid_size=8)})
+                       att_hid_size=8),
+        'aoa': dict(input_encoding_size=16, rnn_size=24, num_layers=2,
+                    att_hid_size=8, num_heads=4)})
     df, ref_len = pt.corpus_df(images=50)
     assert ref_len == 50 and ('0',) in df
     assert max(len(g) for g in df) == 4
@@ -414,6 +420,82 @@ def test_the_chosen_step_route_is_logged_once(ds, tmp_path, monkeypatch,
     assert ('sc_fused_step_graphed' in lines[1]) == (optim == 'adam')
     assert sorted(_histories(str(tmp_path / 'ckpt'))['loss_history']) == [
         1, 2, 3, 4]
+
+
+def _aoa_args(ds, ckpt, epochs, cfg, **kw):
+    """``configs/<cfg>`` at tiny widths through --set_cfgs (rnn 32 in 4
+    heads, word embedding 16); the data, schedule and checkpoint flags of
+    ``_args``, explicit flags taking precedence over the YAML."""
+    args = _args(ds, ckpt, epochs, caption_model=None, rnn_size=None,
+                 input_encoding_size=None, att_hid_size=None, **kw)
+    return args + ['--cfg', os.path.join(REPO, 'configs', cfg),
+                   '--set_cfgs', 'rnn_size', '32', 'input_encoding_size',
+                   '16', 'num_heads', '4']
+
+
+def test_aoa_xe_then_scst_through_the_configs(ds, tmp_path, monkeypatch):
+    """AoANet through ``configs/aoa.yml`` (XE with label smoothing 0.2),
+    then ``configs/aoa_sc.yml`` resumed from the XE checkpoint (SCST, 2
+    samples an image); the SCST checkpoint's ``model.npz`` decodes to the
+    same captions in the JAX ``eval_split`` as in tools/eval_torch.py."""
+    import importlib.util
+
+    from captioning_tpu.data.dataset import DataLoader
+    from captioning_tpu.models import setup as jax_setup
+    from captioning_tpu.utils import eval_utils
+    from captioning_tpu.utils.misc import load_pytree
+    monkeypatch.chdir(tmp_path)
+    xe, sc = str(tmp_path / 'xe'), str(tmp_path / 'sc')
+    _train_port(_aoa_args(ds, xe, 1, 'aoa.yml'))
+    infos = _load(os.path.join(xe, 'infos_tr.pkl'))
+    assert infos['opt'].caption_model == 'aoa'
+    assert infos['opt'].label_smoothing == 0.2
+    assert (infos['opt'].rnn_size, infos['opt'].num_heads) == (32, 4)
+    _train_port(_aoa_args(ds, sc, 2, 'aoa_sc.yml', start_from=xe,
+                          cached_tokens=ds.cached_tokens, train_sample_n=2))
+    infos = _load(os.path.join(sc, 'infos_tr.pkl'))
+    assert (infos['iter'], infos['epoch']) == (4, 2)
+    assert infos['opt'].self_critical_after == 0
+    hist = _histories(sc)['loss_history']
+    assert sorted(hist) == [1, 2, 3, 4]
+    assert all(np.isfinite(v) for v in hist.values())
+
+    run = tmp_path / 'eval'
+    run.mkdir()
+    monkeypatch.chdir(run)
+    spec = importlib.util.spec_from_file_location(
+        'eval_torch', os.path.join(REPO, 'tools', 'eval_torch.py'))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.main(['--device', 'cpu', '--model', os.path.join(sc, 'model.npz'),
+              '--infos_path', os.path.join(sc, 'infos_tr.pkl'), '--split',
+              'val', '--num_images', '4', '--language_eval', '0',
+              '--force', '1', '--beam_size', '3', '--max_length', '6',
+              '--id', 'tr'])
+    got = _load(run / 'eval_results' / '.saved_pred_tr_val.pkl')[0]
+    opt = infos['opt']
+    loader = DataLoader(opt)
+    cap = jax_setup(opt, loader.get_vocab())
+    variables = load_pytree(os.path.join(sc, 'model.npz'))
+    _, want, _ = eval_utils.eval_split(cap, variables, loader, {
+        'split': 'val', 'num_images': 4, 'language_eval': 0,
+        'verbose': False, 'id': 'tr_jax', 'max_length': 6, 'beam_size': 3})
+    assert len(want) == 4
+    assert [p['caption'] for p in got] == [p['caption'] for p in want]
+
+
+def test_default_caption_model_trains(ds, tmp_path, monkeypatch):
+    """Without --caption_model the opts default, show_tell, trains: one
+    step (16 images at batch 16) writes its checkpoint."""
+    monkeypatch.chdir(tmp_path)
+    ckpt = str(tmp_path / 'ckpt')
+    _train_port(_args(ds, ckpt, 1, caption_model=None, batch_size=16,
+                      save_checkpoint_every=1))
+    infos = _load(os.path.join(ckpt, 'infos_tr.pkl'))
+    assert infos['opt'].caption_model == 'show_tell'
+    assert infos['iter'] == 1
+    hist = _histories(ckpt)['loss_history']
+    assert sorted(hist) == [1] and np.isfinite(hist[1])
 
 
 def test_ppo_stage_runs(ds, tmp_path, monkeypatch):

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from captioning_tpu_torch.models import aoa as paoa
 from captioning_tpu_torch.models import harness as pharness
 from captioning_tpu_torch.models import layers as players
 from captioning_tpu_torch.models import transformer as ptransformer
@@ -45,14 +46,14 @@ def _count_port_sites(monkeypatch):
             count[0] += 1
         return real(x, p, gen)
 
-    for mod in (players, pharness, ptransformer):
+    for mod in (players, pharness, ptransformer, paoa):
         monkeypatch.setattr(mod, 'dropout', counting)
     return count
 
 
 # every key, and a hidden logit layer (its dropout is 0.5 whatever
 # drop_prob_lm is) on one key of each RNN core family
-SITES = ([(m, 1) for m in ('transformer',) + RNN_MODELS]
+SITES = ([(m, 1) for m in ('transformer', 'aoa') + RNN_MODELS]
          + [(m, 2) for m in ('updown', 'stackatt', 'adaatt', 'newfc')])
 
 

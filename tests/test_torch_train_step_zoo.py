@@ -1,5 +1,6 @@
 """The port's XE train step against the JAX ``Trainer.xe_step`` (as in
-``test_torch_train_step.py``) for the other six RNN keys, and with
+``test_torch_train_step.py``) for the other nine RNN keys (show_tell
+with its LSTM and its GRU), and with
 seq_per_img 1 and use_pallas (StackAtt with label smoothing), where B3
 takes aligned
 rows, so both sides differentiate their kernel's wrapper (the JAX custom
@@ -21,7 +22,8 @@ def _one_thread():
 
 
 @pytest.mark.parametrize('model', ['denseatt', 'adaatt', 'adaattmo', 'newfc',
-                                   'fc', 'language_model'])
+                                   'fc', 'language_model', 'att2in',
+                                   'show_tell', 'show_tell_gru'])
 def test_xe_step_matches_jax(model):
     want, got, _, state, _, pt = run_both(model_opt(model))
     check_losses(want, got)

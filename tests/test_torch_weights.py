@@ -12,8 +12,8 @@ from captioning_tpu_torch.models.harness import AttCaptioner
 from captioning_tpu_torch.models.transformer import TransformerCaptioner
 from captioning_tpu_torch.utils.weights import (_harness_name,
                                                  state_dict_from_jax)
-from tests.torch_port_util import (RNN_MODELS, V, jax_and_port, tiny_opt,
-                                   tiny_rnn_opt)
+from tests.torch_port_util import (LEGACY_MODELS, NO_ATT_MODELS, RNN_MODELS,
+                                   V, jax_and_port, tiny_opt, tiny_rnn_opt)
 
 
 @pytest.fixture(autouse=True)
@@ -94,14 +94,14 @@ def test_rnn_bridge_consumes_every_key(model, use_bn, logit_layers):
     p = variables['params']
     np.testing.assert_array_equal(sd['embed.embedding'].numpy(),
                                   p['embed']['embedding'])
-    # the legacy 'fc' logit has no hidden layers, whatever logit_layers says
-    if logit_layers == 2 and model != 'fc':
+    # the legacy logit has no hidden layers, whatever logit_layers says
+    if logit_layers == 2 and model not in LEGACY_MODELS:
         np.testing.assert_array_equal(sd['logit_hidden.0.weight'].numpy(),
                                       p['logit_hidden_0']['kernel'].T)
     if model in ('stackatt', 'denseatt'):
         np.testing.assert_array_equal(sd['core.lstm1.h2h.weight'].numpy(),
                                       p['core']['lstm1']['h2h']['kernel'].T)
-    if use_bn and model not in ('newfc', 'fc', 'language_model'):
+    if use_bn and model not in NO_ATT_MODELS + LEGACY_MODELS:
         np.testing.assert_array_equal(
             sd['att_bn_out.var'].numpy(),
             variables['batch_stats']['att_bn_out']['var'])

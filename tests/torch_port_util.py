@@ -25,8 +25,15 @@ def tiny_opt(**kw):
     return opt
 
 
+# 'show_tell_gru' is show_tell with rnn_type gru
 RNN_MODELS = ('updown', 'att2in2', 'att2all2', 'stackatt', 'denseatt',
-              'newfc', 'fc', 'language_model', 'adaatt', 'adaattmo')
+              'newfc', 'fc', 'language_model', 'adaatt', 'adaattmo',
+              'att2in', 'show_tell', 'show_tell_gru')
+# the keys whose feats carry no attention features
+NO_ATT_MODELS = ('newfc', 'fc', 'language_model', 'show_tell',
+                 'show_tell_gru')
+# the keys with the legacy logit (no hidden layers) and no BatchNorm
+LEGACY_MODELS = ('fc', 'att2in', 'show_tell', 'show_tell_gru')
 
 
 def tiny_rnn_opt(caption_model='updown', **kw):
@@ -34,11 +41,24 @@ def tiny_rnn_opt(caption_model='updown', **kw):
     dimension cannot pass): rnn 24, word embedding 20, attention hidden 12,
     fc 10, att 12.  AdaAtt joins its sentinel [word embedding width] to the
     regions [rnn width], so there both are 24 (as
-    tests/test_reference_parity.py sizes it); its num_layers is 2."""
+    tests/test_reference_parity.py sizes it); its num_layers is 2.
+    'show_tell_gru' is show_tell with ``rnn_type`` gru."""
     E = 24 if caption_model in ('adaatt', 'adaattmo') else 20
+    if caption_model == 'show_tell_gru':
+        caption_model = 'show_tell'
+        kw = dict(dict(rnn_type='gru'), **kw)
     return tiny_opt(**dict(dict(caption_model=caption_model, rnn_size=24,
                                 input_encoding_size=E, att_hid_size=12),
                            **kw))
+
+
+def tiny_aoa_opt(**kw):
+    """AoANet at tiny widths: rnn 32 in 4 heads, word embedding 20,
+    attention hidden 12 (``use_multi_head`` other than 2), fc 10, att 12;
+    the refiner keeps its 6 layers."""
+    return tiny_opt(**dict(dict(caption_model='aoa', rnn_size=32,
+                                input_encoding_size=20, att_hid_size=12,
+                                num_heads=4), **kw))
 
 
 def tiny_vocab():
@@ -98,12 +118,13 @@ def inputs(B=4, seed=0, ragged=True):
 def train_opt(opt, **kw):
     """``opt`` with the XE trainer's options: adam 1e-2 (a rate large
     enough that 3 steps move the loss), clip by value 0.1, dropout 0 (the
-    torch and JAX streams never agree), no label smoothing."""
+    torch and JAX streams never agree; AoA's gate input too), no label
+    smoothing."""
     base = dict(optim='adam', learning_rate=1e-2, optim_alpha=0.9,
                 optim_beta=0.999, optim_epsilon=1e-8, weight_decay=0.0,
                 grad_clip_mode='value', grad_clip_value=0.1, noamopt=False,
                 label_smoothing=0, drop_worst_rate=0.0, drop_prob_lm=0.0,
-                dropout=0.0)
+                dropout=0.0, dropout_aoa=0.0)
     for k, v in dict(base, **kw).items():
         setattr(opt, k, v)
     return opt

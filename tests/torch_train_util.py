@@ -8,21 +8,26 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_port_util import (inputs, jax_and_port, tiny_opt,
-                                   tiny_rnn_opt, train_batch, train_opt)
+from tests.torch_port_util import (inputs, jax_and_port, tiny_aoa_opt,
+                                   tiny_opt, tiny_rnn_opt, train_batch,
+                                   train_opt)
 
 
 def model_opt(model, **kw):
-    opt = tiny_opt() if model == 'transformer' else tiny_rnn_opt(model)
+    opt = (tiny_opt() if model == 'transformer' else
+           tiny_aoa_opt() if model == 'aoa' else tiny_rnn_opt(model))
     return train_opt(opt, **kw)
 
 
-def run_both(opt, steps=3, spi=5, lr=1e-2, drop_worst=False):
+def run_both(opt, steps=3, spi=5, lr=1e-2, drop_worst=False, ss_prob=0.0,
+             eos_boost=0.0):
     """(JAX losses, port losses, JAX variables, JAX optax state, port
-    captioner, port trainer) after ``steps`` XE steps on one batch."""
+    captioner, port trainer) after ``steps`` XE steps on one batch, at
+    ``ss_prob`` (``eos_boost`` raises the EOS logit bias, so that a
+    scheduled-sampling draw is EOS on both sides)."""
     from captioning_tpu.modules.trainer import Trainer as JaxTrainer
     from captioning_tpu_torch.modules.trainer import Trainer
-    jcap, variables, pcap = jax_and_port(opt=opt)
+    jcap, variables, pcap = jax_and_port(opt=opt, eos_boost=eos_boost)
     B = 4
     fc, att, am = inputs(B)
     labels, masks = train_batch(B, spi)
@@ -34,10 +39,10 @@ def run_both(opt, steps=3, spi=5, lr=1e-2, drop_worst=False):
     want, got = [], []
     for step in range(steps):
         variables, state, out = jt.xe_step(
-            variables, state, *jargs, lr, 0.0, jax.random.PRNGKey(step),
+            variables, state, *jargs, lr, ss_prob, jax.random.PRNGKey(step),
             drop_worst_flag=drop_worst)
         want.append(float(out['loss']))
-        got.append(float(pt.xe_step(*pargs, lr, 0.0,
+        got.append(float(pt.xe_step(*pargs, lr, ss_prob,
                                     torch.Generator().manual_seed(step),
                                     drop_worst_flag=drop_worst)['loss']))
     return want, got, variables, state, pcap, pt
