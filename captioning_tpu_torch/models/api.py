@@ -30,7 +30,7 @@ from . import harness
 from .aoa import AoACaptioner
 from .config import ModelConfig, config_from_opt
 from .harness import AttCaptioner
-from .layers import MaskedBatchNorm
+from .layers import MaskedBatchNorm, compute_param, sync_compute_copies
 from .transformer import TransformerCaptioner
 
 
@@ -86,6 +86,8 @@ class Captioner:
             self.unk_idx = cfg.unk_idx
         self.device = torch.device(device)
         self.module = None    # set by init_params / load_params
+        # (float32 master, compute-dtype copy) pairs; none in float32
+        self._compute_pairs = []
         # (kind, options, shapes, dtypes) -> GraphDecode
         self._graph_cache = {}
         # the graph decodes' recorder class: None is CudaRecorder on a CUDA
@@ -96,7 +98,8 @@ class Captioner:
     # -- params ------------------------------------------------------------
     def init_params(self, generator: torch.Generator):
         """Random weights with the JAX package's init, drawn on the CPU from
-        ``generator`` and moved to the device in the compute dtype."""
+        ``generator`` and moved to the device (float32 masters and their
+        compute-dtype copies)."""
         module = self.module_cls(self.cfg).init_weights(generator)
         return self._install(module.state_dict())
 
@@ -115,28 +118,36 @@ class Captioner:
     def _install(self, state_dict):
         module = self.module_cls(self.cfg)
         module.load_state_dict(state_dict, strict=True)
-        # frozen until trainable(): decoding needs no autograd graph
-        self.module = (module.requires_grad_(False).to(self.device)
-                       .to_compute_dtype().eval())
+        # frozen until trainable(): decoding needs no autograd graph.  The
+        # parameters stay float32 (the masters); at a bf16 compute dtype the
+        # module computes with copies in that dtype (layers.compute_param)
+        self.module = module.requires_grad_(False).to(self.device).eval()
+        self._compute_pairs = self.module.install_compute_copies()
         self._graph_cache = {}     # its graphs read the old module
         return self
 
+    def sync_compute_weights(self):
+        """Rewrite the compute-dtype copies from the float32 masters, in
+        place (the trainer calls it after each optimizer step, inside a
+        graphed step's capture too): a graph decode captured earlier reads
+        the same addresses, so it decodes with the updated weights.  A
+        float32 captioner has no copies."""
+        sync_compute_copies(self._compute_pairs)
+
     def trainable(self):
-        """Make the parameters require grad, for ``modules.trainer``.  They
-        stay float32: training in bf16 needs float32 master weights, which
-        are not ported (ROADMAP.md)."""
-        if self.cfg.dtype != torch.float32:
-            raise NotImplementedError(
-                'training in %s needs float32 master weights, not ported '
-                'yet; see ROADMAP.md (train with --compute_dtype float32)'
-                % self.cfg.dtype)
+        """Make the float32 master parameters require grad, for
+        ``modules.trainer``: their gradients and the optimizer's state are
+        float32 at any compute dtype; a bf16 captioner computes with its
+        bf16 copies, whose uses cast their gradients back to float32
+        (``layers.CastUse``)."""
         self.module.requires_grad_(True)
         return self
 
     def jax_variables(self):
         """The JAX variables tree (``params``, with use_bn ``batch_stats``)
-        as float32 numpy arrays: what ``misc.save_pytree`` writes as a
-        ``model.npz`` that the JAX package loads."""
+        as float32 numpy arrays, the masters at any compute dtype: what
+        ``misc.save_pytree`` writes as a ``model.npz`` that the JAX package
+        loads."""
         from ..utils.misc import _unflatten_tree
         from ..utils.weights import jax_from_state_dict
         return _unflatten_tree(jax_from_state_dict(self.module.state_dict(),
@@ -180,8 +191,10 @@ class Captioner:
             # eval steps draw no randomness: the rng is accepted and unused
             hid, st = module.step(it, feats, state, uniform_t=True,
                                   beam_width=beam_width, return_hidden=True)
+            # B2 picks its path by the weight's dtype: the compute copy
             tv, ti, rs, en = logit_topk(
-                hid, module.generator.weight, module.generator.bias, temp,
+                hid, compute_param(module.generator, 'weight'),
+                compute_param(module.generator, 'bias'), temp,
                 unk_bias, k=int(k), unk_idx=int(unk_idx))
             return tv, ti, rs, en, st
 

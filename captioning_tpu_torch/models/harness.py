@@ -36,9 +36,10 @@ AdaAtt's sentinel attention, AdaAtt's tanh cell, UpDown's torch-style
 LSTM cells and ShowTell's LSTM / GRU stack are plain PyTorch, as the JAX
 package left them to XLA.
 
-Parameters are float32; ``to_compute_dtype`` casts the Linear and Embedding
-weights to ``cfg.dtype`` (the masked BatchNorm stays float32), and the LSTM
-state h / c is kept in the compute dtype, as the JAX cells keep it.
+Parameters are float32 masters; ``install_compute_copies`` gives the Linear
+and Embedding weights their copies in ``cfg.dtype`` (``layers``; the masked
+BatchNorm stays float32), and the LSTM state h / c is kept in the compute
+dtype, as the JAX cells keep it.
 
 ``models/aoa.py`` builds AoANet on this harness (its step and
 ``forward_tf``).
@@ -56,7 +57,8 @@ from ..ops.attention import additive_attention_fused
 from ..ops.lstm import maxout_lstm_gates_fused
 from .config import ModelConfig
 from .layers import (Embedding, MaskedBatchNorm, MLPEmbed, additive_attention,
-                     dropout, init_dense, linear, uniform_)
+                     compute_param, dropout, init_dense,
+                     install_compute_copies, linear, uniform_)
 
 # words banned from preceding EOS by remove_bad_endings (reference
 # AttModel.py:29-30, the JAX harness's BAD_ENDINGS)
@@ -122,7 +124,8 @@ class AttentionHead(nn.Module):
                                       att.shape[0] == h.shape[0]):
             return additive_attention_fused(
                 linear(h, self.h2att), att, p_att, masks,
-                self.alpha_net.weight[0], self.alpha_net.bias)
+                compute_param(self.alpha_net, 'weight')[0],
+                compute_param(self.alpha_net, 'bias'))
         return additive_attention(h, att, p_att, masks, self.h2att,
                                   self.alpha_net)
 
@@ -550,12 +553,11 @@ class AttCaptioner(nn.Module):
                 self.logit.bias.zero_()
         return self
 
-    def to_compute_dtype(self):
-        dt = self.cfg.dtype
-        for m in self.modules():
-            if isinstance(m, (nn.Linear, Embedding)):
-                m.to(dt)
-        return self
+    def install_compute_copies(self):
+        """The (master, copy) pairs of the Linear and Embedding weights in
+        ``cfg.dtype`` (``layers.install_compute_copies``)."""
+        return install_compute_copies(self, self.cfg.dtype,
+                                      (nn.Linear, Embedding))
 
     # -- public protocol -------------------------------------------------------
     def prepare_feature(self, fc_feats, att_feats, att_masks, gen=None):

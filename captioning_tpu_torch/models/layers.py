@@ -2,10 +2,18 @@
 
 Init semantics follow the JAX package, which follows torch's defaults:
 ``Dense`` kernels and biases are U(+-1/sqrt(fan_in)), ``Embedding`` tables
-N(0, 1).  Parameters are float32; a Linear or an Embedding computes in the
-dtype its weight was cast to (the models' ``to_compute_dtype``), as the
-JAX ``Dense`` and ``Embedding`` cast their float32 params to the compute
-dtype at every use.
+N(0, 1).  Parameters are float32 and stay so: they are the master weights
+that the optimizer steps and the checkpoint holds.  At a compute dtype
+other than float32 (``cfg.dtype``), ``install_compute_copies`` gives each
+Linear and Embedding parameter a copy in that dtype (a non-persistent
+buffer), and ``compute_param`` hands a use that copy, as the JAX ``Dense``
+and ``Embedding`` cast their float32 params to the compute dtype at every
+use.  In a pass that differentiates, the use goes through ``CastUse``:
+its backward casts the use's gradient to float32, so the uses of a weight
+sum in float32, as the transpose of each JAX ``astype`` does.  The copies
+are refreshed in place from the masters (``sync_compute_copies``) after
+each optimizer step, so a CUDA graph that read them reads the new
+weights.
 
 Train mode is an explicit ``torch.Generator`` (``gen``), as the JAX modules
 take ``train`` and a dropout rng: ``None`` runs the eval branch (no
@@ -35,9 +43,71 @@ def init_dense(lin: nn.Linear, generator: torch.Generator):
         uniform_(lin.bias, bound, generator)
 
 
+class CastUse(torch.autograd.Function):
+    """One use of a float32 master through its compute-dtype copy: the
+    forward hands out the copy (a view: no kernel), the backward returns
+    this use's gradient cast to float32 for the master, where autograd
+    sums it with the other uses' (the JAX ``astype`` transposes to a cast
+    back at each use, and a scan sums the steps in float32)."""
+
+    @staticmethod
+    def forward(ctx, master, copy):
+        return copy.view_as(copy)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.to(torch.float32), None
+
+
+def compute_param(module: nn.Module, name: str) -> torch.Tensor:
+    """The parameter ``name`` of ``module`` as a use computes with it: its
+    compute-dtype copy where ``install_compute_copies`` made one (through
+    ``CastUse`` when the pass differentiates the master), else the float32
+    parameter itself."""
+    p = getattr(module, name)
+    copy = module._buffers.get(name + '_c')
+    if copy is None:
+        return p
+    if p.requires_grad and torch.is_grad_enabled():
+        return CastUse.apply(p, copy)
+    return copy
+
+
+def install_compute_copies(module: nn.Module, dtype: torch.dtype, kinds,
+                           extra=()):
+    """Give every parameter of the submodules of the types ``kinds``, and
+    the parameters named in ``extra`` of ``module`` itself, a copy in
+    ``dtype``, a non-persistent buffer ``<name>_c`` beside it (float32
+    installs nothing: the parameters are the compute weights).  Returns
+    the (master, copy) pairs that ``sync_compute_copies`` refreshes."""
+    if dtype == torch.float32:
+        return []
+    owners = [(m, n) for m in module.modules() if isinstance(m, kinds)
+              for n, _ in m.named_parameters(recurse=False)]
+    owners += [(module, n) for n in extra]
+    pairs = []
+    for m, n in owners:
+        p = getattr(m, n)
+        copy = p.detach().to(dtype)
+        m.register_buffer(n + '_c', copy, persistent=False)
+        pairs.append((p, copy))
+    return pairs
+
+
+@torch.no_grad()
+def sync_compute_copies(pairs) -> None:
+    """Each copy rewritten in place from its master: one cast a
+    parameter, at the copy's fixed address."""
+    if pairs:
+        torch._foreach_copy_([c for _, c in pairs], [p for p, _ in pairs])
+
+
 def linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
-    """``layers.Dense`` compute: the input is cast to the weight's dtype."""
-    return F.linear(x.to(lin.weight.dtype), lin.weight, lin.bias)
+    """``layers.Dense`` compute: the input, the kernel and the bias in the
+    compute dtype (the weight's copy, made in ``cfg.dtype``)."""
+    w = compute_param(lin, 'weight')
+    b = None if lin.bias is None else compute_param(lin, 'bias')
+    return F.linear(x.to(w.dtype), w, b)
 
 
 class Embedding(nn.Module):
@@ -52,7 +122,10 @@ class Embedding(nn.Module):
             self.embedding.normal_(generator=generator)
 
     def forward(self, ids):
-        return self.embedding[ids]
+        # cast, then gather: a repeated id's gradient rows sum in the
+        # compute dtype before the cast back, as the JAX ``jnp.take`` of
+        # the cast table
+        return compute_param(self, 'embedding')[ids]
 
 
 def dropout(x, p: float, gen: Optional[torch.Generator]):

@@ -14,9 +14,10 @@ module's, line for line where it matters for parity:
   into the query, the K bias drops out of the softmax, ``b_v`` is added
   once after the weighted sum.
 
-Parameters are float32; ``to_compute_dtype`` casts the matmul weights and
-the token embedding to ``cfg.dtype`` (the JAX ``Dense`` casts its float32
-params at every use, LayerNorm params stay float32).  The self-attention of
+Parameters are float32 masters; ``install_compute_copies`` gives the matmul
+weights and the token embedding their copies in ``cfg.dtype`` (the JAX
+``Dense`` casts its float32 params at every use, LayerNorm params stay
+float32; ``layers``).  The self-attention of
 every decode step goes through ``ops.beam_attend.attend_write_merged`` (a
 CUDA kernel for CUDA tensors, its plain twin for CPU tensors); the vocab
 epilogue on ``step(return_hidden=True)`` is ``models.api``'s
@@ -50,7 +51,8 @@ from torch import nn
 
 from ..ops.beam_attend import attend_write_merged, sqrt_in
 from .config import ModelConfig
-from .layers import MaskedBatchNorm, MLPEmbed, dropout, linear, uniform_
+from .layers import (MaskedBatchNorm, MLPEmbed, compute_param, dropout,
+                     install_compute_copies, linear, uniform_)
 
 _NEG_INF = -1e9
 
@@ -195,7 +197,7 @@ class DecoderLayer(nn.Module):
         nb = mem.shape[0]
         bw = B // nb
         q = linear(y, self.c_wq).view(B, h, dk)
-        wk = self.c_wk.weight.to(mem.dtype).view(h, dk, D)
+        wk = compute_param(self.c_wk, 'weight').to(mem.dtype).view(h, dk, D)
         qt = torch.einsum('bhk,hkd->bhd', q, wk)
         scores = (qt.reshape(nb, bw * h, D) @ mem.transpose(1, 2)
                   / sqrt_in(dk, q.dtype))
@@ -203,9 +205,9 @@ class DecoderLayer(nn.Module):
             scores = scores.masked_fill(att_masks[:, None, :] == 0, _NEG_INF)
         pr = dropout(_softmax_f32(scores, q.dtype), p, gen)
         ctx = pr @ mem                                      # [nb, bw*h, D]
-        wv = self.c_wv.weight.to(mem.dtype).view(h, dk, D)
+        wv = compute_param(self.c_wv, 'weight').to(mem.dtype).view(h, dk, D)
         out = torch.einsum('bhd,hkd->bhk', ctx.reshape(B, h, D), wv)
-        bv = self.c_wv.bias.to(mem.dtype).view(1, h, dk)
+        bv = compute_param(self.c_wv, 'bias').to(mem.dtype).view(1, h, dk)
         if gen is not None and p > 0:
             out = out + bv * pr.sum(-1).reshape(B, h, 1)
         else:
@@ -255,14 +257,18 @@ class TransformerCaptioner(nn.Module):
         _xavier_(self.tgt_embed, D, V1, generator)
         return self
 
-    def to_compute_dtype(self):
-        """Cast matmul weights and the token embedding to ``cfg.dtype``."""
+    def install_compute_copies(self):
+        """The (master, copy) pairs of the matmul weights and the token
+        embedding in ``cfg.dtype`` (``layers.install_compute_copies``)."""
+        return install_compute_copies(self, self.cfg.dtype, nn.Linear,
+                                      extra=('tgt_embed',))
+
+    def _embed(self, ids):
+        """The token embedding, cast then gathered (the JAX ``jnp.take`` of
+        ``tgt_embed.astype(dtype)``), scaled by sqrt(d_model)."""
         dt = self.cfg.dtype
-        for m in self.modules():
-            if isinstance(m, nn.Linear):
-                m.to(dt)
-        self.tgt_embed.data = self.tgt_embed.data.to(dt)
-        return self
+        return (compute_param(self, 'tgt_embed')[ids].to(dt)
+                * sqrt_in(self.cfg.d_model, dt))
 
     # -- encoder -------------------------------------------------------------
     def encode(self, att_feats, att_masks, gen=None):
@@ -324,7 +330,7 @@ class TransformerCaptioner(nn.Module):
         h, dt, D = cfg.num_att_heads, cfg.dtype, cfg.d_model
         t0 = int(state['t'])
         B = it.shape[0]
-        x = self.tgt_embed[it].to(dt) * sqrt_in(D, dt)
+        x = self._embed(it)
         x = x + self.pe[t0].to(dt)
 
         new_state = dict(state, t=t0 + 1)
@@ -370,7 +376,7 @@ class TransformerCaptioner(nn.Module):
         B = it.shape[0]
         Tp = state['k0'].shape[1]
         t = int(state['t'])
-        x = self.tgt_embed[it].to(dt) * sqrt_in(D, dt)
+        x = self._embed(it)
         x = dropout(x + self.pe[min(t, self.pe.shape[0] - 1)].to(dt), p, gen)
         new_state = dict(state, t=t + 1)
         pos = torch.arange(Tp, device=it.device)
@@ -423,7 +429,7 @@ class TransformerCaptioner(nn.Module):
         t = state['t']
         t_rows = (t if torch.is_tensor(t) else
                   torch.full((B,), t, dtype=torch.long, device=it.device))
-        x = self.tgt_embed[it].to(dt) * sqrt_in(D, dt)
+        x = self._embed(it)
         x = x + self.pe[t_rows.clamp(max=self.pe.shape[0] - 1)].to(dt)
         x = dropout(x, p, gen)
         new_state = dict(state, t=t_rows + 1)
@@ -475,7 +481,7 @@ class TransformerCaptioner(nn.Module):
         src_mask = (None if att_masks is None
                     else att_masks[:, None, None, None, :])
 
-        x = self.tgt_embed[seq].to(dt) * sqrt_in(cfg.d_model, dt)
+        x = self._embed(seq)
         x = dropout(x + self.pe[:T][None].to(dt), p, gen)
         for layer in self.dec:
             y = layer.norm1(x)

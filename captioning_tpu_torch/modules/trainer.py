@@ -7,6 +7,14 @@ and the ``torch.optim`` state are updated in place.  ``opt_state_jax`` /
 ``load_opt_state_jax`` carry the optimizer state in the JAX package's
 ``optimizer.npz`` layout.
 
+At any compute dtype the parameters, their gradients, the clip and the
+optimizer's state are float32, as ``jax.value_and_grad`` over float32
+params gives them to optax: a bf16 captioner computes with bf16 copies of
+its float32 masters (``models.layers.compute_param``), each use's gradient
+is cast back to float32 and the uses sum there, and each update ends by
+rewriting the copies in place from the masters
+(``Captioner.sync_compute_weights``; inside a graphed step's capture too).
+
 The RL steps come in two forms, as in the JAX package.  The fused ones
 (``sc_fused_step``, ``struc_fused_step``) sample, score on the card
 (``ops/cider_device.py``) and differentiate the sampling pass itself.  The
@@ -140,6 +148,8 @@ class Trainer:
         loss.backward()
         self.clip(list(self.named_params.values()))
         self.optimizer.step()
+        # the compute-dtype copies follow the masters, at their addresses
+        self.captioner.sync_compute_weights()
 
     def _crit(self, logprobs, target, mask, reduction):
         if self.label_smoothing > 0:

@@ -141,6 +141,15 @@ def _check(att_h, att_feats, p_att_feats, mask, w_alpha, b_alpha):
                          % tuple(tuple(x.shape) for x in (
                              att_h, att_feats, p_att_feats, mask, w_alpha,
                              b_alpha)))
+    if (any(x.dtype != att_h.dtype for x in (p_att_feats, w_alpha, b_alpha))
+            or att_feats.dtype not in (att_h.dtype, torch.float32)):
+        # a mismatch raises on either device: nothing upcasts quietly
+        raise ValueError('additive_attention_fused: att_h, p_att_feats, '
+                         'w_alpha and b_alpha of one dtype (att_feats that '
+                         'one or float32), got %s' % ', '.join(
+                             str(x.dtype) for x in (att_h, att_feats,
+                                                    p_att_feats, w_alpha,
+                                                    b_alpha)))
     bw = N // nb
     smem = smem_bytes(bw, M, A, att_h.dtype)
     if bw > MAX_BW or M > MAX_M or smem > _SMEM:

@@ -29,10 +29,11 @@ Suite rows (``bench.py:221-305``), each on its own line with its spread:
 transformer's ``Trainer.xe_step_graphed`` at 128 images x 5, label length
 18, ``bench.py:308``'s options) and ``scst_fused_s_iter`` (its
 ``sc_fused_step_graphed`` at 50 x 5 with ``bench.py:264-276``'s df table
-and ref_len); the two train rows run float32 (bf16 training is not
-ported) and say so, and each carries the eager step's numbers
-(``xe_step`` / ``sc_fused_step``, timed first on the same trainer) under
-``eager``.  A failing row is printed with its error, and the bench then
+and ref_len), in float32, and ``xe_img_s_bf16`` / ``scst_fused_s_iter_bf16``,
+the same steps at ``compute_dtype`` bfloat16 with float32 master weights,
+the dtype the root bench trains in (``bench.py:97``); each train row says
+its ``dtype`` and carries the eager step's numbers (``xe_step`` /
+``sc_fused_step``, timed first on the same trainer) under ``eager``.  A failing row is printed with its error, and the bench then
 exits non-zero.  ``--suite 0`` is the JAX bench's ``BENCH_SUITE=0``.
 
 ``--small`` builds every model at the widths a CPU run takes (2 + 2
@@ -240,13 +241,15 @@ def _eager_beside(row, eager):
     return row
 
 
-def train_rows(small, device, seed, iters, B):
-    """``xe_img_s`` and ``scst_fused_s_iter``: the float32 transformer's
-    train steps (``bench.py:236-276``), graphed, with the eager step's
-    numbers beside."""
+def train_rows(small, device, seed, iters, B, dtype='float32'):
+    """``xe_img_s`` and ``scst_fused_s_iter``: the transformer's train
+    steps (``bench.py:236-276``) at the compute ``dtype`` (float32 master
+    weights at either; the rows of bfloat16 end in ``_bf16``), graphed,
+    with the eager step's numbers beside."""
     from ..modules.trainer import Trainer
     from ..ops.cider_device import DeviceCiderD, pad_gts
-    opt = model_opt('transformer', small, 'float32')
+    suffix = '' if dtype == 'float32' else '_bf16'
+    opt = model_opt('transformer', small, dtype)
     trainer = Trainer(make_captioner(opt, device, seed), _train_opt(opt))
     fc, att, am = features(max(XE_IMAGES, SC_IMAGES), small, device,
                            seed + 1)
@@ -264,12 +267,13 @@ def train_rows(small, device, seed, iters, B):
                 lambda i: step(fc[:xb], att[:xb], labels, masks, am[:xb],
                                4e-4, 0.0, gen)['loss'], float, iters, device)
             return spread(walls, dev, xb * 5, 'images x captions/s',
-                          dtype='float32', batch=[xb, 5, XE_LEN])
+                          dtype=dtype, batch=[xb, 5, XE_LEN])
         except Exception as e:       # a failing row is reported, not hidden
             return {'error': repr(e)}
 
     eager = xe_row(trainer.xe_step)
-    rows['xe_img_s'] = _eager_beside(xe_row(trainer.xe_step_graphed), eager)
+    rows['xe_img_s' + suffix] = _eager_beside(
+        xe_row(trainer.xe_step_graphed), eager)
 
     sb = min(SC_IMAGES, B)
     gts = [torch.randint(1, opt.vocab_size, (5, 16), generator=g).numpy()
@@ -286,13 +290,13 @@ def train_rows(small, device, seed, iters, B):
                 lambda i: step(fc[:sb], att[:sb], am[:sb], refs, ref_mask,
                                4e-4, noise, noise, gen, scorer)['loss'],
                 float, iters, device)
-            return spread(walls, dev, 1, 's/iter', dtype='float32',
+            return spread(walls, dev, 1, 's/iter', dtype=dtype,
                           batch=[sb, 5])
         except Exception as e:       # a failing row is reported, not hidden
             return {'error': repr(e)}
 
     eager = sc_row(trainer.sc_fused_step)
-    rows['scst_fused_s_iter'] = _eager_beside(
+    rows['scst_fused_s_iter' + suffix] = _eager_beside(
         sc_row(trainer.sc_fused_step_graphed), eager)
     return rows
 
@@ -318,8 +322,11 @@ def suite(cap, fc, att, am, args):
         rows['updown_beam5_cap_s'] = {'error': repr(e)}
     if torch.device(args.device).type == 'cuda':
         torch.cuda.empty_cache()
-    rows.update(train_rows(args.small, args.device, args.seed, args.iters,
-                           args.batch))
+    for dtype in ('float32', 'bfloat16'):
+        rows.update(train_rows(args.small, args.device, args.seed,
+                               args.iters, args.batch, dtype))
+        if torch.device(args.device).type == 'cuda':
+            torch.cuda.empty_cache()
     return rows
 
 

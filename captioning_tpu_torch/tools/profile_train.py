@@ -5,9 +5,11 @@ kernels that take the device time.
     python -m captioning_tpu_torch.tools.profile_train \\
         [--model updown|stackatt|transformer|aoa|att2in|show_tell]
         [--mode xe|scst|scst_grad|struc] [--route eager|graph]
+        [--compute_dtype float32|bfloat16]
 
 The model is built at the flagship widths of ``profile_decode.MODELS`` in
-float32 from the port's seeded init, and trained with its config's
+float32 (``--compute_dtype bfloat16``: computing in bf16 with float32
+master weights) from the port's seeded init, and trained with its config's
 options (``TRAIN``: UpDown of ``configs/updown/updown.yml`` and StackAtt
 at adam 5e-4, the scheduled-sampling ramp's maximum 0.25 and the
 ``opts.py`` dropout 0.5; the transformer of
@@ -82,14 +84,14 @@ RL = {
 CORPUS_IMAGES, CORPUS_REFS = 5000, 5
 
 
-def train_captioner(model: str, device: str, **kw):
-    """A float32 ``Captioner`` at the flagship widths, with ``kw``
-    overriding its options, from the port's init with a seeded
-    generator."""
+def train_captioner(model: str, device: str, dtype: str = 'float32', **kw):
+    """A ``Captioner`` at the flagship widths computing in ``dtype``
+    (float32 masters at either), with ``kw`` overriding its options, from
+    the port's init with a seeded generator."""
     from ..models.api import setup
     opt = SimpleNamespace(caption_model=model, vocab_size=pd.V,
                           fc_feat_size=pd.FEAT, att_feat_size=pd.FEAT,
-                          max_length=20, compute_dtype='float32',
+                          max_length=20, compute_dtype=dtype,
                           **dict(pd.MODELS[model], **kw))
     vocab = {str(i): 'w%d' % i for i in range(1, pd.V + 1)}
     return setup(opt, vocab, device).init_params(
@@ -156,13 +158,14 @@ def train_batch(B: int, seed: int):
 
 
 def make_step(model: str, device: str = 'cuda', B: int = 10,
-              graphed: bool = False):
+              graphed: bool = False, dtype: str = 'float32'):
     """(trainer, step(it) -> loss tensor, the dropout generator) for
     ``model`` trained with its ``TRAIN`` options on one seeded batch;
-    ``graphed``: through ``xe_step_graphed``."""
+    ``graphed``: through ``xe_step_graphed``; ``dtype``: the compute
+    dtype."""
     from ..modules.trainer import Trainer
     model_kw, opt_kw, ss_prob, lr_fn = TRAIN[model]
-    tr = Trainer(train_captioner(model, device, **model_kw),
+    tr = Trainer(train_captioner(model, device, dtype, **model_kw),
                  train_opt(**opt_kw))
     fc, att, am, labels, masks = (x.to(device) for x in train_batch(B, 4))
     gen = torch.Generator(device).manual_seed(6)
@@ -196,7 +199,8 @@ def rl_batch(captioner, B: int, seed: int):
 
 
 def make_rl_step(model: str, mode: str = 'scst', device: str = 'cuda',
-                 B: int = 10, scorer=None, graphed: bool = False):
+                 B: int = 10, scorer=None, graphed: bool = False,
+                 dtype: str = 'float32'):
     """(trainer, step(it) -> its output dict, (dropout generator, noise
     generator), the batch (fc, att, am, refs, ref_mask)) for ``model``'s
     fused SCST (``mode`` 'scst') or structure ('struc') step with its
@@ -204,12 +208,13 @@ def make_rl_step(model: str, mode: str = 'scst', device: str = 'cuda',
     ``scorer`` a ``DeviceCiderD`` on ``device`` (default: over
     ``corpus_df``).  ``mode`` 'scst_grad' takes ``sc_grad_step`` over one
     ``sc_decode`` of the batch made here, its reward from ``scorer``.
-    ``graphed``: through the ``*_step_graphed`` entries."""
+    ``graphed``: through the ``*_step_graphed`` entries; ``dtype``: the
+    compute dtype."""
     from ..modules.trainer import Trainer
     from ..ops.cider_device import DeviceCiderD
     model_kw, opt_kw = RL[model]
     opt = rl_opt(**opt_kw)
-    tr = Trainer(train_captioner(model, device, **model_kw), opt)
+    tr = Trainer(train_captioner(model, device, dtype, **model_kw), opt)
     fc, att, am, labels, masks, refs, ref_mask = rl_batch(tr.captioner, B, 4)
     if scorer is None:
         scorer = DeviceCiderD(*corpus_df(), device=device)
@@ -243,6 +248,8 @@ def main(argv=None):
     p.add_argument('--mode', default='xe',
                    choices=('xe', 'scst', 'scst_grad', 'struc'))
     p.add_argument('--route', default='eager', choices=('eager', 'graph'))
+    p.add_argument('--compute_dtype', default='float32',
+                   choices=('float32', 'bfloat16'))
     a = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit('profile_train: needs a CUDA device')
@@ -252,9 +259,11 @@ def main(argv=None):
     from torch.profiler import ProfilerActivity, profile
     graphed = a.route == 'graph'
     if a.mode == 'xe':
-        _, step, _ = make_step(a.model, graphed=graphed)
+        _, step, _ = make_step(a.model, graphed=graphed,
+                               dtype=a.compute_dtype)
     else:
-        _, step, _, _ = make_rl_step(a.model, a.mode, graphed=graphed)
+        _, step, _, _ = make_rl_step(a.model, a.mode, graphed=graphed,
+                                     dtype=a.compute_dtype)
     it = 0
     for _ in range(WARM):
         it += 1
@@ -283,7 +292,7 @@ def main(argv=None):
     busy = sum(e.self_device_time_total for e in events) / 1000 / PROFILED
     events.sort(key=lambda e: -e.self_device_time_total)
     out = {'model': a.model, 'mode': a.mode, 'route': a.route,
-           'batch': '10 x 5',
+           'compute_dtype': a.compute_dtype, 'batch': '10 x 5',
            'label_length': L,
            'device': torch.cuda.get_device_name(0),
            'step_wall_ms_unprofiled': walls,

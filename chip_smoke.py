@@ -171,7 +171,23 @@ Phases, in order; any failure raises and exits non-zero:
    step of att2in and of ShowTell, card against CPU by phase 9's rules
    (B3 and B5 required on att2in's); B3 as att2in calls it (H 2048, the
    raw float32 regions with bf16 queries, bw 5 and 1; and bf16 regions)
-   held against its twin and timed beside its bound.
+   held against its twin and timed beside its bound;
+15. bf16 training with float32 master weights (``--compute_dtype
+   bfloat16``): one bf16 XE step of StackAtt at full width, card (B3 34
+   and B5 51 launches) against the CPU's twins, the loss within 1e-2
+   relative and each gradient within 2e-2 relative L2 plus twice its
+   bf16-to-float32 distance on the CPU (PERF.md's bf16 tolerance), and one
+   float32 XE step of UpDown, card against CPU by phase 9's rules; then
+   the XE and fused SCST steps of the transformer, UpDown and AoANet at
+   10 x 5, L 16, bf16: an eager and a graphed trainer from one init, 3
+   steps each bit for bit (sequences, loss, reward, the float32
+   parameters and Adam moments, the bf16 copies), parameters, gradients
+   and moments float32, the graph holding phase 13's kernels; 3 timed
+   eager and 10 timed graph steps (medians by host wall and CUDA events,
+   peak memory, the graph's pool) beside 10 graph steps of the same step
+   in float32; UpDown's greedy decode through a graph captured before the
+   updates gives, after them, a fresh captioner's tokens from the trained
+   masters.
 
 Each decode mode requires the kernels its path runs: the top-k only in
 beam (the RNN plain-step route; the transformer's fused route selects in
@@ -2137,6 +2153,276 @@ def phase_new_keys(torch, aa, wrappers, scorer=None):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 15: bf16 training with float32 master weights
+# ---------------------------------------------------------------------------
+
+# the cases: each step kind and model at 10 x 5, L 16, bf16 against the
+# same steps in float32 (profile_train's options, as phases 9, 11, 13, 14)
+PHASE15 = [('xe', 'transformer'), ('xe', 'updown'), ('xe', 'aoa'),
+           ('scst', 'transformer'), ('scst', 'updown'), ('scst', 'aoa')]
+
+
+def all_float32(torch, tr, what):
+    """Every parameter, gradient and optimizer moment of ``tr`` float32."""
+    for n, p in tr.named_params.items():
+        kinds = [('parameter', p), ('gradient', p.grad)] + [
+            (k, v) for k, v in tr.optimizer.state[p].items()
+            if torch.is_tensor(v) and k != 'step']
+        for k, v in kinds:
+            if v is None or v.dtype != torch.float32:
+                raise AssertionError('%s: the %s of %s is %s, not float32'
+                                     % (what, k, n, None if v is None
+                                        else v.dtype))
+
+
+def _route_times(torch, step, it, n, wrappers):
+    """``n`` timed steps from iteration ``it``: (host walls, CUDA-event
+    times, peak GiB over what was allocated before, wrapper launches)."""
+    before = {k: fn.launches for k, fn in wrappers.items()}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    walls, events = [], []
+    for i in range(n):
+        _, wall, dev = timed(torch, lambda: step(it + i))
+        walls.append(wall)
+        events.append(dev)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    return walls, events, peak, {k: fn.launches - before[k]
+                                 for k, fn in wrappers.items()}
+
+
+def _med(v):
+    return sorted(v)[len(v) // 2]
+
+
+def greedy_tokens(torch, cap, fc, att, am, graphed):
+    opt = {'sample_method': 'greedy', 'beam_size': 1}
+    entry = cap.sample_stats_graphed if graphed else cap.sample_stats
+    return entry(fc, att, am, None, opt)[0]
+
+
+def bf16_case(torch, kind, model, scorer, wrappers):
+    """One case of phase 15: an eager and a graphed bf16 trainer from one
+    init, batch and generator seeds, 3 steps each held bit for bit (the
+    sequences, loss and reward, then every float32 parameter and Adam
+    moment and every bf16 copy) and float32 throughout; the graph's held
+    kernels phase 13's; 3 timed eager steps and 10 timed graph steps, and
+    10 timed graph steps of the same step in float32.  UpDown's XE case
+    also decodes greedy through a graph captured before the updates and
+    eagerly after them: both the tokens of a fresh captioner loaded from
+    the trained masters.  Returns (record, wrapper launches on the main
+    path)."""
+    from captioning_tpu_torch.tools import profile_train as pt
+    short = {fn.__name__: name for name, fn in wrappers.items()}
+    what = '%s %s 10 x 5 bf16' % (kind, model)
+    start = time.time()
+    torch.cuda.empty_cache()
+
+    def make(dtype, graphed):
+        if kind == 'xe':
+            tr, step, _ = pt.make_step(model, 'cuda', 10, graphed=graphed,
+                                       dtype=dtype)
+        else:
+            tr, step, _, _ = pt.make_rl_step(model, kind, 'cuda', 10, scorer,
+                                             graphed=graphed, dtype=dtype)
+        return tr, step
+
+    for fn in wrappers.values():
+        fn.launches = 0
+    (te, se), (tg, sg) = make('bfloat16', False), make('bfloat16', True)
+    if te.captioner.cfg.dtype != torch.bfloat16:
+        raise AssertionError('%s: the captioner computes in %s'
+                             % (what, te.captioner.cfg.dtype))
+    decode_check = kind == 'xe' and model == 'updown'
+    if decode_check:
+        fc, att, am = (x.cuda() for x in pt.train_batch(10, 4)[:3])
+        before = greedy_tokens(torch, tg.captioner, fc, att, am, True)
+    for it in range(1, 4):
+        oe, og = _step_out(se(it)), _step_out(sg(it))
+        for key in ('greedy', 'sampled', 'loss', 'reward'):
+            if key in oe and not torch.equal(oe[key], og[key]):
+                raise AssertionError('%s step %d: the graph\'s %s differs '
+                                     'from the eager step\'s' % (what, it,
+                                                                 key))
+    state_err, where = train_state_err(torch, te, tg)
+    copies = [(a, b) for (_, a), (_, b) in zip(
+        te.captioner._compute_pairs, tg.captioner._compute_pairs)]
+    if state_err != 0 or not all(torch.equal(a, b) for a, b in copies):
+        raise AssertionError('%s: after 3 steps the graph\'s state differs '
+                             'from the eager step\'s (%.2e, %s)'
+                             % (what, state_err, where))
+    for tr in (te, tg):
+        all_float32(torch, tr, what)
+    if not copies or any(a.dtype != torch.bfloat16 for a, _ in copies):
+        raise AssertionError('%s: no bf16 compute copies' % what)
+    entry = list(tg._graphs.values())[-1]
+    held = {short.get(k, k): n for k, n in entry.held().items()}
+    want = PHASE13_LAUNCHES[(kind, model)]
+    if held != want:
+        raise AssertionError('%s: the graph holds %s, expected %s'
+                             % (what, held, want))
+    eager_w, eager_e, eager_peak, delta = _route_times(torch, se, 4, 3,
+                                                       wrappers)
+    if {n: c // 3 for n, c in delta.items() if c} != want:
+        raise AssertionError('%s: the eager step launched %s in 3 steps, '
+                             'the graph holds %s a step' % (what, delta,
+                                                            want))
+    graph_w, graph_e, graph_peak, delta = _route_times(torch, sg, 4, 10,
+                                                       wrappers)
+    if any(delta.values()):
+        raise AssertionError('%s: a graph step launched kernels outside its '
+                             'graph: %s' % (what, delta))
+    rec = {'case': what, 'capture_s': round(entry.capture_s, 3),
+           'graph_pool_gib': entry.bytes_reserved / 2 ** 30,
+           'launches_per_step': want, 'bit_identical_3_steps': True,
+           'bf16': {'eager_wall_ms': _med(eager_w),
+                    'eager_events_ms': _med(eager_e),
+                    'eager_peak_gib': eager_peak,
+                    'graph_wall_ms': _med(graph_w),
+                    'graph_wall_ms_min': min(graph_w),
+                    'graph_wall_ms_max': max(graph_w),
+                    'graph_events_ms': _med(graph_e),
+                    'graph_peak_gib': graph_peak}}
+    if decode_check:
+        graphed = greedy_tokens(torch, tg.captioner, fc, att, am, True)
+        eager = greedy_tokens(torch, tg.captioner, fc, att, am, False)
+        fresh = type(tg.captioner)(tg.captioner.cfg, None, 'cuda')
+        fresh.load_jax_variables(tg.captioner.jax_variables())
+        want_tok = greedy_tokens(torch, fresh, fc, att, am, False)
+        if not (torch.equal(graphed, want_tok) and torch.equal(eager,
+                                                               want_tok)):
+            raise AssertionError('%s: after the updates the graphed / '
+                                 'eager greedy decode differs from a fresh '
+                                 'captioner\'s on %d / %d rows'
+                                 % (what, int((graphed != want_tok).any(1)
+                                              .sum()),
+                                    int((eager != want_tok).any(1).sum())))
+        if len(tg.captioner._graph_cache) != 1 or torch.equal(before,
+                                                              graphed):
+            raise AssertionError('%s: the cached greedy graph did not '
+                                 'decode the updated weights' % what)
+        rec['decode_after_updates'] = 'graph = eager = fresh captioner'
+        del fresh
+    launches = {n: fn.launches for n, fn in wrappers.items()}
+    for n, c in entry.launches().items():
+        launches[short.get(n, n)] += c
+    del te, tg, se, sg, entry
+    torch.cuda.empty_cache()
+    tf, sf = make('float32', True)
+    sf(1)                            # the capture
+    w, e, peak, _ = _route_times(torch, sf, 2, 10, wrappers)
+    f_entry = list(tf._graphs.values())[-1]
+    rec['float32'] = {'graph_wall_ms': _med(w), 'graph_wall_ms_min': min(w),
+                      'graph_wall_ms_max': max(w), 'graph_events_ms': _med(e),
+                      'graph_peak_gib': peak,
+                      'graph_pool_gib': f_entry.bytes_reserved / 2 ** 30}
+    for n, c in f_entry.launches().items():
+        launches[short.get(n, n)] += c
+    rec['graph_bf16_over_float32'] = (rec['bf16']['graph_events_ms']
+                                      / rec['float32']['graph_events_ms'])
+    rec['case_s'] = round(time.time() - start, 1)
+    log('  %s: graph %.2f ms (events %.2f, peak %.3f GiB, pool %.3f GiB), '
+        'eager %.2f ms (events %.2f); float32 graph %.2f ms (events %.2f, '
+        'pool %.3f GiB); bf16 / float32 %.3f; 3 steps graph = eager bit for '
+        'bit, parameters, gradients and moments float32; launches a step '
+        '%s; case %.1f s'
+        % (what, rec['bf16']['graph_wall_ms'], rec['bf16']['graph_events_ms'],
+           graph_peak, rec['graph_pool_gib'], rec['bf16']['eager_wall_ms'],
+           rec['bf16']['eager_events_ms'], rec['float32']['graph_wall_ms'],
+           rec['float32']['graph_events_ms'],
+           rec['float32']['graph_pool_gib'], rec['graph_bf16_over_float32'],
+           want, rec['case_s']))
+    del tf, sf, f_entry
+    return rec, launches
+
+
+def bf16_train_agreement(torch, model, wrappers):
+    """One bf16 XE step of ``model`` at full width (2 images x 5, dropout
+    0, no clip) on the card (kernels) and on the CPU (twins), and the
+    CPU's float32 step: the loss within 1e-2 relative of the CPU's bf16
+    one, each gradient within 2e-2 of the CPU's bf16 gradient in relative
+    L2 plus twice its distance to the float32 one plus 1e-4 of the largest
+    gradient norm (PERF.md's bf16 tolerance).  Returns the card
+    step's wrapper launches."""
+    from captioning_tpu_torch.modules.trainer import Trainer
+    from captioning_tpu_torch.tools import profile_train as pt
+    batch = pt.train_batch(2, seed=3)
+    got = {}
+    for fn in wrappers.values():
+        fn.launches = 0
+    for device, dtype in (('cuda', 'bfloat16'), ('cpu', 'bfloat16'),
+                          ('cpu', 'float32')):
+        cap = pt.train_captioner(model, device, dtype, drop_prob_lm=0.0,
+                                 dropout=0.0)
+        tr = Trainer(cap, pt.train_opt(grad_clip_value=0.0))
+        fc, att, am, labels, masks = (x.to(device) for x in batch)
+        loss = tr.xe_step(fc, att, labels, masks, am, 5e-4, 0.0,
+                          torch.Generator(device).manual_seed(0))['loss']
+        all_float32(torch, tr, '%s %s %s' % (model, device, dtype))
+        got[device, dtype] = (float(loss), {
+            n: p.grad.detach().double().cpu()
+            for n, p in tr.named_params.items()})
+        if device == 'cuda':
+            counts = {n: fn.launches for n, fn in wrappers.items()}
+        del cap, tr
+    (lg, gg), (lc, gc), (_, g32) = (got['cuda', 'bfloat16'],
+                                    got['cpu', 'bfloat16'],
+                                    got['cpu', 'float32'])
+    loss_err = abs(lg - lc) / max(abs(lc), 1e-30)
+    scale = max(float(g.norm()) for g in gc.values())
+    worst, where = 0.0, ''
+    for n, c in gc.items():
+        bound = 2e-2 * float(c.norm()) + 2 * float((c - g32[n]).norm()) \
+            + 1e-4 * scale
+        e = float((gg[n] - c).norm()) / bound
+        if e > worst:
+            worst, where = e, n
+    card_far = sum(float((gg[n] - g32[n]).norm()) ** 2 for n in gc) ** 0.5
+    noise = sum(float((gc[n] - g32[n]).norm()) ** 2 for n in gc) ** 0.5
+    log('  %s bf16 xe_step, kernels (card) vs twins (CPU): loss %.6f vs '
+        '%.6f (rel %.2e; float32 %.6f); worst gradient error over its bound '
+        '%.3f (%s); the card %.3g from the float32 gradients, the CPU\'s bf16 '
+        '%.3g; launches %s'
+        % (model, lg, lc, loss_err, got['cpu', 'float32'][0], worst, where,
+           card_far, noise, {n: c for n, c in counts.items() if c}))
+    if not (loss_err <= 1e-2 and worst <= 1.0 and card_far >= 0.25 * noise):
+        raise AssertionError('%s bf16 xe_step card vs CPU: loss rel err '
+                             '%.2e (max 1e-2), gradient %s at %.3f of its '
+                             'bound, %.3g from float32 (bf16 noise %.3g)'
+                             % (model, loss_err, where, worst, card_far,
+                                noise))
+    return counts
+
+
+def phase_bf16_train(torch, wrappers, scorer=None):
+    """Phase 15; returns the launches of its main-path train steps."""
+    from captioning_tpu_torch.tools import profile_train as pt
+    torch.set_num_threads(min(8, os.cpu_count() or 1))
+    if scorer is None:
+        from captioning_tpu_torch.ops.cider_device import DeviceCiderD
+        scorer = DeviceCiderD(*pt.corpus_df(), device='cuda')
+    launches = dict.fromkeys(wrappers, 0)
+    counts = bf16_train_agreement(torch, 'stackatt', wrappers)
+    if counts['additive_attention'] != 34 or counts['maxout_lstm_gates'] != 51:
+        raise AssertionError('the StackAtt bf16 XE step on the card launched '
+                             'B3 %d times and B5 %d (34 and 51 expected)'
+                             % (counts['additive_attention'],
+                                counts['maxout_lstm_gates']))
+    for n, c in counts.items():
+        launches[n] += c
+    train_agreement(torch, 'updown')
+    records = []
+    for kind, model in PHASE15:
+        rec, counts = bf16_case(torch, kind, model, scorer, wrappers)
+        records.append(rec)
+        for n, c in counts.items():
+            launches[n] += c
+    log('  bf16 train record (%s): %s' % (gpu_line(), json.dumps(records)))
+    return launches
+
+
 def main():
     import torch
     wall = time.time()
@@ -2309,6 +2595,12 @@ def main():
     for name, n in phase_new_keys(torch, aa, wrappers, scorer).items():
         launches[name] += n
     log('phase 14: %.1f s' % (time.time() - t))
+
+    log('phase 15: bf16 training with float32 master weights')
+    t = time.time()
+    for name, n in phase_bf16_train(torch, wrappers, scorer).items():
+        launches[name] += n
+    log('phase 15: %.1f s' % (time.time() - t))
 
     bad = [m for m in sys.modules
            if m.split('.')[0] in ('jax', 'flax', 'optax', 'captioning_tpu')]

@@ -1,6 +1,7 @@
 """The port's bench (``captioning_tpu_torch/tools/bench.py``) on the CPU at
 small widths and 2 iterations: the headline JSON line with its keys and
-the four suite rows; a failing row is printed with its error and makes
+the six suite rows (the train rows in float32 and, since bf16 training
+with float32 masters is ported, in bf16); a failing row is printed with its error and makes
 the exit code non-zero; an unknown card has no peak.  Speeds come only
 from the card (``chip_smoke.py`` phase 12)."""
 
@@ -15,7 +16,7 @@ HEAD_KEYS = {'metric', 'value', 'unit', 'mfu_pct', 'capture_s', 'batch',
              'dtype', 'device', 'card', 'batch_s_median', 'batch_s_min',
              'batch_s_max', 'iters', 'device_ms_median'}
 ROWS = ('greedy_cap_s', 'updown_beam5_cap_s', 'xe_img_s',
-        'scst_fused_s_iter')
+        'scst_fused_s_iter', 'xe_img_s_bf16', 'scst_fused_s_iter_bf16')
 
 
 def _lines(capsys):
@@ -43,6 +44,10 @@ def test_bench_prints_the_headline_and_the_suite(capsys):
     assert rows['scst_fused_s_iter']['dtype'] == 'float32'
     assert rows['scst_fused_s_iter']['unit'] == 's/iter'
     assert rows['xe_img_s']['batch'] == [4, 5, bench.XE_LEN]
+    assert rows['xe_img_s_bf16']['dtype'] == 'bfloat16'
+    assert rows['scst_fused_s_iter_bf16']['dtype'] == 'bfloat16'
+    assert rows['xe_img_s_bf16']['batch'] == rows['xe_img_s']['batch']
+    assert set(rows['xe_img_s_bf16']) == set(rows['xe_img_s'])
 
 
 def test_a_failing_row_is_printed_and_fails_the_bench(capsys, monkeypatch):
@@ -54,6 +59,7 @@ def test_a_failing_row_is_printed_and_fails_the_bench(capsys, monkeypatch):
     _, rows, rc = bench.main(ARGS)
     assert rc == 1
     assert 'broken step' in rows['scst_fused_s_iter']['error']
+    assert 'broken step' in rows['scst_fused_s_iter_bf16']['error']
     printed = {r['row']: r for r in _lines(capsys)[1:]}
     assert printed['scst_fused_s_iter'] == dict(
         row='scst_fused_s_iter', **rows['scst_fused_s_iter'])

@@ -14,7 +14,12 @@ dropout 0):
   the optax layout, infos, loader state) and its first step matches the
   other package's straight run (the loss within 1e-4);
 * a val ``eval_split`` between two steps changes nothing the next step
-  reads."""
+  reads;
+* ``--compute_dtype bfloat16`` trains XE then SCST with float32 masters:
+  the ``model.npz`` it writes is float32 and the masters bit for bit, the
+  JAX ``eval_split`` in float32 on it gives the port's float32 captions,
+  and a JAX bf16 run's checkpoint (optimizer state too) resumes in the
+  port."""
 
 import os
 import pickle
@@ -267,6 +272,41 @@ def test_profile_train_steps_on_the_cpu(model, monkeypatch):
         pt.main(['--model', model])
 
 
+@pytest.mark.parametrize('model', ['updown', 'transformer'])
+def test_profile_train_bf16_steps_on_the_cpu(model, monkeypatch):
+    """``profile_train.make_step(..., dtype='bfloat16')`` at tiny widths:
+    a bf16 captioner with float32 masters whose steps lower the loss, and
+    ``--compute_dtype`` among the entry point's options."""
+    import torch
+
+    from captioning_tpu_torch.tools import profile_decode as pd
+    from captioning_tpu_torch.tools import profile_train as pt
+    monkeypatch.setattr(pd, 'V', 40)
+    monkeypatch.setattr(pd, 'FEAT', 12)
+    monkeypatch.setattr(pd, 'REGIONS', 5)
+    monkeypatch.setattr(pd, 'MODELS', {
+        'transformer': dict(input_encoding_size=16, rnn_size=32,
+                            num_layers=2, att_hid_size=8, N_enc=1, N_dec=1,
+                            d_model=16, d_ff=32, num_att_heads=4),
+        'updown': dict(input_encoding_size=24, rnn_size=24, num_layers=2,
+                       att_hid_size=8)})
+    model_kw, opt_kw, ss_prob, _ = pt.TRAIN[model]
+    monkeypatch.setitem(pt.TRAIN, model,
+                        (model_kw, opt_kw, ss_prob, lambda it: 1e-2))
+    tr, step, gen = pt.make_step(model, 'cpu', dtype='bfloat16')
+    assert tr.captioner.cfg.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in tr.named_params.values())
+    first_state = gen.get_state()
+    first = float(step(1))
+    for it in range(2, 6):
+        step(it)
+    gen.set_state(first_state)
+    assert float(step(6)) < first
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(SystemExit, match='CUDA'):
+        pt.main(['--model', model, '--compute_dtype', 'bfloat16'])
+
+
 @pytest.mark.parametrize('model,mode', [('updown', 'scst'),
                                         ('transformer', 'scst'),
                                         ('updown', 'struc'),
@@ -316,7 +356,6 @@ def test_profile_rl_steps_on_the_cpu(model, mode, monkeypatch):
 
 @pytest.mark.parametrize('flag,value,match', [
     ('mesh_shape', 'data:2', 'A7'), ('dist_auto', 1, 'A7'),
-    ('compute_dtype', 'bfloat16', 'float32 master'),
     ('train_beam_size', 2, 'train-mode sampling by beam')])
 def test_unported_training_raises(ds, tmp_path, monkeypatch, flag, value,
                                   match):
@@ -537,3 +576,113 @@ def test_rl_stage_resumes_across_packages(ds, tmp_path, monkeypatch):
     hist = _histories(ckpt)['loss_history']
     assert sorted(hist) == list(range(1, iters[2] + 1))
     assert all(np.isfinite(v) for v in hist.values())
+
+
+def test_bf16_xe_then_scst_saves_the_float32_masters(ds, tmp_path,
+                                                      monkeypatch):
+    """One XE epoch, then one SCST epoch (the fused step, the CIDEr-D
+    reward on the device), at --compute_dtype bfloat16: the checkpoint
+    holds what ``Captioner.jax_variables`` held at the save, the float32
+    masters (values a bf16 copy cannot hold), which a bf16 captioner loads
+    and writes back bit for bit."""
+    import torch
+
+    from captioning_tpu_torch.models import api
+    from captioning_tpu_torch.models.api import setup
+    from captioning_tpu_torch.utils.misc import _flatten_tree, load_pytree
+    saved = []
+    jax_variables = api.Captioner.jax_variables
+
+    def record(self):
+        assert all(p.dtype == torch.float32
+                   for p in self.module.parameters())
+        out = jax_variables(self)
+        saved.append(_flatten_tree(out))
+        return out
+
+    monkeypatch.setattr(api.Captioner, 'jax_variables', record)
+    monkeypatch.chdir(tmp_path)
+    ckpt = str(tmp_path / 'bf16')
+    _train_port(_rl_args(ds, ckpt, 2, compute_dtype='bfloat16',
+                         self_critical_after=1))
+    hist = _histories(ckpt)
+    assert sorted(hist['loss_history']) == [1, 2, 3, 4]
+    assert all(np.isfinite(v) for v in hist['loss_history'].values())
+    infos = _load(os.path.join(ckpt, 'infos_tr.pkl'))
+    assert infos['opt'].compute_dtype == 'bfloat16'
+    got = _flatten_tree(load_pytree(os.path.join(ckpt, 'model.npz')))
+    assert sorted(got) == sorted(saved[-1])
+    below_bf16 = 0
+    for key, value in got.items():
+        assert value.dtype == np.float32, key
+        np.testing.assert_array_equal(value, saved[-1][key], err_msg=key)
+        bits = value.view(np.uint32)
+        below_bf16 += int(np.count_nonzero(bits & 0xFFFF))
+    assert below_bf16 > 0.9 * sum(v.size for v in got.values())
+    monkeypatch.undo()
+    cap = setup(infos['opt'], infos['vocab'], device='cpu').load_params(
+        os.path.join(ckpt, 'model.npz'))
+    assert cap.cfg.dtype == torch.bfloat16
+    back = _flatten_tree(cap.jax_variables())
+    for key, value in got.items():
+        np.testing.assert_array_equal(back[key], value, err_msg=key)
+
+
+def test_jax_eval_reads_a_bf16_trained_checkpoint(ds, tmp_path, monkeypatch):
+    """A bf16 run's ``model.npz`` decoded in float32 (its infos' compute
+    dtype set to float32) by the JAX ``eval_split`` and by
+    tools/eval_torch.py: the same captions."""
+    import importlib.util
+
+    from captioning_tpu.data.dataset import DataLoader
+    from captioning_tpu.models import setup as jax_setup
+    from captioning_tpu.utils import eval_utils
+    from captioning_tpu.utils.misc import load_pytree
+    monkeypatch.chdir(tmp_path)
+    ckpt = str(tmp_path / 'bf16')
+    _train_port(_args(ds, ckpt, 1, compute_dtype='bfloat16'))
+    infos = _load(os.path.join(ckpt, 'infos_tr.pkl'))
+    infos['opt'].compute_dtype = 'float32'
+    infos_path = os.path.join(ckpt, 'infos_tr-f32.pkl')
+    with open(infos_path, 'wb') as f:
+        pickle.dump(infos, f)
+    spec = importlib.util.spec_from_file_location(
+        'eval_torch', os.path.join(REPO, 'tools', 'eval_torch.py'))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.main(['--device', 'cpu', '--model', os.path.join(ckpt, 'model.npz'),
+              '--infos_path', infos_path, '--split', 'val',
+              '--num_images', '4', '--language_eval', '0', '--force', '1',
+              '--beam_size', '3', '--max_length', '6', '--id', 'tr'])
+    got = _load(tmp_path / 'eval_results' / '.saved_pred_tr_val.pkl')[0]
+    loader = DataLoader(infos['opt'])
+    cap = jax_setup(infos['opt'], loader.get_vocab())
+    variables = load_pytree(os.path.join(ckpt, 'model.npz'))
+    kw = {'split': 'val', 'num_images': 4, 'language_eval': 0,
+          'verbose': False, 'id': 'tr_jax', 'max_length': 6,
+          'beam_size': 3, 'verbose_loss': 1}
+    _, want, _ = eval_utils.eval_split(cap, variables, loader, kw)
+    assert len(want) == 4
+    assert [p['caption'] for p in got] == [p['caption'] for p in want]
+
+
+def test_port_resumes_a_jax_bf16_run(ds, tmp_path, monkeypatch):
+    """A JAX bf16 run's step-2 checkpoint (model, optimizer.npz in the
+    optax layout, infos) resumes in the port at bf16: adam's step count
+    carries on, and the port's step 3 is the JAX run's within 1e-2."""
+    import shutil
+    monkeypatch.chdir(tmp_path)
+    straight, resumed = str(tmp_path / 'straight'), str(tmp_path / 'res')
+    _train_jax(_args(ds, straight, 2, save_history_ckpt=1,
+                     compute_dtype='bfloat16'))
+    os.makedirs(resumed)
+    for name in ('model%s.npz', 'optimizer%s.npz', 'infos_tr%s.pkl'):
+        shutil.copy(os.path.join(straight, name % '-2'),
+                    os.path.join(resumed, name % ''))
+    _train_port(_args(ds, resumed, 2, start_from=resumed,
+                      compute_dtype='bfloat16'))
+    want, got = _losses(straight), _losses(resumed)
+    assert len(want) == 4 and len(got) == 2      # steps 3 and 4
+    np.testing.assert_allclose(got, want[2:], rtol=1e-2)
+    with np.load(os.path.join(resumed, 'optimizer.npz')) as f:
+        assert int(f['#1/#0/#0']) == 4

@@ -25,8 +25,10 @@ The checkpoints keep the JAX package's contract (``model[-best|-<iter>].npz``, `
 layout, ``infos_<id>*.pkl``, ``histories_<id>*.pkl``): tools/eval.py and
 tools/train.py read them, and this script resumes theirs.
 
-bf16 training, a mesh and multi-host runs raise and name their ROADMAP.md
-item.
+``--compute_dtype bfloat16`` trains with float32 master weights: the model
+computes in bf16 at the JAX package's cast sites, while the parameters,
+their gradients, the optimizer state and the checkpoints stay float32.  A
+mesh and multi-host runs raise and name their ROADMAP.md item.
 
     python tools/train_torch.py --cfg configs/updown/updown.yml \\
         --id updown --checkpoint_path log_updown [--device cpu]
@@ -72,12 +74,9 @@ def _refuse_unported(opt):
             getattr(opt, 'dist_auto', 0) or \
             getattr(opt, 'dist_nproc', -1) not in (None, -1, 1):
         raise NotImplementedError('a mesh and multi-host training are not '
-                                  'ported yet; see ROADMAP.md A7')
-    if getattr(opt, 'compute_dtype', 'float32') != 'float32':
-        raise NotImplementedError('training in %s needs float32 master '
-                                  'weights, not ported yet; see ROADMAP.md '
-                                  '(train with --compute_dtype float32)'
-                                  % opt.compute_dtype)
+                                  'ported yet (one device: leave '
+                                  '--mesh_shape and the --dist_* options '
+                                  'unset); see ROADMAP.md A7')
 
 
 def train(opt, device='cuda'):
