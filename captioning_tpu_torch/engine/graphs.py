@@ -48,6 +48,7 @@ what the eager step would.
 
 from __future__ import annotations
 
+import gc
 import time
 from types import SimpleNamespace
 from typing import Dict, List
@@ -87,8 +88,17 @@ class CudaRecorder:
         graph = torch.cuda.CUDAGraph()
         for g in generators:
             graph.register_generator_state(g)
-        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
-            fn()
+        # the cyclic collector waits until the capture ends: an earlier
+        # graph held by a dead reference cycle, freed mid-capture, would
+        # reset on the capturing stream and invalidate the capture
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+                fn()
+        finally:
+            if collecting:
+                gc.enable()
         return graph
 
 

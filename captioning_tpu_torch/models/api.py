@@ -1,9 +1,11 @@
 """Captioner: a ported model bound into the decode engine's protocol.
 
 Port of ``captioning_tpu/models/api.py``: ``setup`` builds the
-transformer, AoANet (``models/aoa.py``) or one of the RNN captioners of
-``harness.MODELS`` (``bert`` and ``m2transformer`` raise), ``bind``
-returns the ``DecodeModel`` the engine drives, ``sample_beam`` /
+transformer, the BERT captioner (``models/bert_cap.py``), the
+Meshed-Memory Transformer (``models/m2.py``), AoANet (``models/aoa.py``)
+or one of the RNN captioners of ``harness.MODELS``: every
+``caption_model`` key of the JAX package.  ``bind`` returns the
+``DecodeModel`` the engine drives, ``sample_beam`` /
 ``sample_stats`` / ``sample`` / ``forward_tf`` are the eager entry points,
 ``sample_beam_graphed`` / ``sample_stats_graphed`` their CUDA-graph
 counterparts (the JAX ``sample_beam_jit`` / ``sample_stats_jit``, with
@@ -28,10 +30,16 @@ from ..engine.graphs import CudaRecorder, GraphDecode
 from ..ops.logit_topk import logit_topk
 from . import harness
 from .aoa import AoACaptioner
+from .bert_cap import BertCaptioner
 from .config import ModelConfig, config_from_opt
 from .harness import AttCaptioner
 from .layers import MaskedBatchNorm, compute_param, sync_compute_copies
+from .m2 import M2Captioner
 from .transformer import TransformerCaptioner
+
+# the module of each key but the RNN captioners' (harness.AttCaptioner)
+_MODULES = {'transformer': TransformerCaptioner, 'bert': BertCaptioner,
+            'm2transformer': M2Captioner, 'aoa': AoACaptioner}
 
 
 def _vocab_indices(vocab: Optional[Dict[str, str]], vocab_size: int):
@@ -68,17 +76,13 @@ class Captioner:
                 and not torch.cuda.is_available()):
             raise RuntimeError("device 'cuda': no CUDA device is available "
                                "(pass device='cpu' to run the plain twins)")
-        if cfg.caption_model == 'transformer':
-            self.module_cls = TransformerCaptioner
-        elif cfg.caption_model == 'aoa':
-            self.module_cls = AoACaptioner
+        if cfg.caption_model in _MODULES:
+            self.module_cls = _MODULES[cfg.caption_model]
         elif cfg.caption_model in harness.MODELS:
             self.module_cls = AttCaptioner
         else:
-            raise NotImplementedError(
-                'caption model %r is not ported yet (transformer, aoa, %s '
-                'are); see ROADMAP.md' % (cfg.caption_model,
-                                          ', '.join(harness.MODELS)))
+            raise ValueError('caption model not supported: %r'
+                             % cfg.caption_model)
         self.cfg = cfg
         self.bad_endings_ix, self.unk_idx = _vocab_indices(vocab,
                                                            cfg.vocab_size)
@@ -412,6 +416,6 @@ class Captioner:
 
 def setup(opt, vocab: Optional[Dict[str, str]] = None,
           device='cuda') -> Captioner:
-    """Model factory: the transformer, AoANet and the RNN captioners of
-    ``harness.MODELS``; ``bert`` and ``m2transformer`` are not ported."""
+    """Model factory: the transformer, bert, m2transformer, AoANet and
+    the RNN captioners of ``harness.MODELS``."""
     return Captioner(config_from_opt(opt, opt.vocab_size), vocab, device)

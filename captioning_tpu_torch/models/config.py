@@ -1,8 +1,8 @@
 """Model configuration (port of ``captioning_tpu/models/harness.py:35-126``).
 
-Only the fields the ported models read are kept (the transformer, the
-RNN attention harness, ShowTell and AoANet); the compute dtype is a torch
-dtype.  ``use_pallas``
+Only the fields the ported models read are kept (the transformer, bert
+and M2, the RNN attention harness, ShowTell and AoANet); the compute
+dtype is a torch dtype.  ``use_pallas``
 chooses, for CPU tensors only, which JAX branch the RNN attention head
 mirrors (the fused kernel's twin or the plain jnp math); CUDA tensors
 always take the CUDA kernels.  Its "auto" value (None / -1) resolves as
@@ -37,7 +37,7 @@ class ModelConfig:
     eos_idx: int = 0
     pad_idx: int = 0
     unk_idx: Optional[int] = None
-    # transformer family
+    # transformer family (bert and m2transformer too)
     N_enc: int = 6
     N_dec: int = 6
     d_model: int = 512

@@ -28,7 +28,10 @@ written at its own slot, the ancestry attend masked per row
 (``_attend_rows``).  A train-mode step at a uniform ``t`` (the RL
 sampling pass and its recompute) runs the same layers with the cache
 written at slot t by a select, as the JAX ``uniform_t`` branch writes it
-by a dynamic slice: no host read, so a CUDA graph holds it.
+by a dynamic slice: no host read, so a CUDA graph holds it.  These
+three step bodies are ``CachedDecoder``'s, shared with ``bert_cap`` and
+``m2`` with the folded cross-attention (``fold_query``, ``lazy_cross``),
+which take their block's weights as arguments.
 
 ``forward_tf`` and ``prepare_feature`` also run in train mode, given a
 generator ``gen`` (None is eval): dropout at the JAX sites (the att embed
@@ -183,39 +186,241 @@ class DecoderLayer(nn.Module):
         self.norm1, self.norm2, self.norm3 = (RefLayerNorm(D)
                                               for _ in range(3))
 
-    def lazy_cross(self, y, mem, att_masks, h: int, p: float = 0.0,
-                   gen=None):
-        """Decode-step cross-attention over the raw encoder memory, with
-        the K/V projections folded around the attention.
 
-        y: [B, D] with B = nb * bw (bw lanes of a beam block share one
-        memory row); mem: [nb, M, D]; att_masks: [nb, M] or None.  In train
-        mode the probabilities take dropout p, and the folded V bias is
-        weighted by their dropped sums, as the JAX module computes it."""
-        B, D = y.shape
-        dk = D // h
-        nb = mem.shape[0]
-        bw = B // nb
-        q = linear(y, self.c_wq).view(B, h, dk)
-        wk = compute_param(self.c_wk, 'weight').to(mem.dtype).view(h, dk, D)
-        qt = torch.einsum('bhk,hkd->bhd', q, wk)
-        scores = (qt.reshape(nb, bw * h, D) @ mem.transpose(1, 2)
-                  / sqrt_in(dk, q.dtype))
-        if att_masks is not None:
-            scores = scores.masked_fill(att_masks[:, None, :] == 0, _NEG_INF)
-        pr = dropout(_softmax_f32(scores, q.dtype), p, gen)
-        ctx = pr @ mem                                      # [nb, bw*h, D]
-        wv = compute_param(self.c_wv, 'weight').to(mem.dtype).view(h, dk, D)
-        out = torch.einsum('bhd,hkd->bhk', ctx.reshape(B, h, D), wv)
-        bv = compute_param(self.c_wv, 'bias').to(mem.dtype).view(1, h, dk)
-        if gen is not None and p > 0:
-            out = out + bv * pr.sum(-1).reshape(B, h, 1)
-        else:
-            out = out + bv
-        return linear(out.reshape(B, D), self.c_wo)
+def fold_query(y, wq: nn.Linear, wk: nn.Linear, h: int, dtype):
+    """The query of the folded cross-attention: each head's q W_k, [B, h,
+    D], with W_k in ``dtype`` (the memory's).  One fold serves every
+    memory the block attends (M2's encoder levels)."""
+    B, D = y.shape
+    q = linear(y, wq).view(B, h, D // h)
+    w = compute_param(wk, 'weight').to(dtype).view(h, D // h, D)
+    return torch.einsum('bhk,hkd->bhd', q, w)
 
 
-class TransformerCaptioner(nn.Module):
+def lazy_cross(qt, mem, att_masks, wv: nn.Linear, wo: nn.Linear, h: int,
+               p: float = 0.0, gen=None):
+    """Decode-step cross-attention over the raw encoder memory, with the
+    K/V projections folded around the attention (the JAX
+    ``_lazy_cross_attend``): the K bias drops out of the softmax, V's
+    projection applies to the attended memory and its bias is added once.
+
+    qt: [B, h, D] (``fold_query``) with B = nb * bw (bw lanes of a beam
+    block share one memory row); mem: [nb, M, D]; att_masks: [nb, M] or
+    None; ``wv`` / ``wo`` the block's V and output projections.  Returns
+    the block's output [B, D].  In train mode the probabilities take
+    dropout p, and the folded V bias is weighted by their dropped sums, as
+    the JAX module computes it."""
+    B, _, D = qt.shape
+    dk = D // h
+    nb = mem.shape[0]
+    bw = B // nb
+    scores = (qt.reshape(nb, bw * h, D) @ mem.transpose(1, 2)
+              / sqrt_in(dk, qt.dtype))
+    if att_masks is not None:
+        scores = scores.masked_fill(att_masks[:, None, :] == 0, _NEG_INF)
+    pr = dropout(_softmax_f32(scores, qt.dtype), p, gen)
+    ctx = pr @ mem                                      # [nb, bw*h, D]
+    w = compute_param(wv, 'weight').to(mem.dtype).view(h, dk, D)
+    out = torch.einsum('bhd,hkd->bhk', ctx.reshape(B, h, D), w)
+    bv = compute_param(wv, 'bias').to(mem.dtype).view(1, h, dk)
+    if gen is not None and p > 0:
+        out = out + bv * pr.sum(-1).reshape(B, h, 1)
+    else:
+        out = out + bv
+    return linear(out.reshape(B, D), wo)
+
+
+def pos_rows(table, t):
+    """Row ``t`` of a position table (``t`` a host int) or rows ``t`` (a
+    [N] tensor), clamped to its last row as the JAX gather clamps."""
+    n = table.shape[0] - 1
+    return table[t.clamp(max=n) if torch.is_tensor(t) else min(t, n)]
+
+
+def _b1_attend(kc, vc, anc, t0: int, bw: int, h: int):
+    """The uniform eval step's self-attention: B1 writes the new K/V at
+    slot t0 of the caches, in place, and attends through the ancestry."""
+    def attend(q, k_new, v_new):
+        return attend_write_merged(q, kc, vc, k_new, v_new, anc, t0, bw=bw,
+                                   h=h)
+    return attend
+
+
+class CachedDecoder(nn.Module):
+    """The decode step of the merged-lane decoders: the transformer here,
+    ``bert_cap.BertCaptioner`` and ``m2.M2Captioner``.
+
+    The state holds per-layer caches ``[N, Tp, D]`` and the step ``t``.
+    ``step`` takes one of three bodies, which share the model's decoder
+    layer ``_layer(i, x, attend, feats, gen)``; ``attend(q, k_new, v_new)``
+    is the self-attention over layer i's cache, with the new entries
+    written, returning the merged-head contexts [N, D]:
+
+    * ``_step_eval``, the uniform eval step: B1 (``attend_write_merged``)
+      writes and attends in one kernel;
+    * ``_step_train``, train mode at a uniform host-int ``t``: position t
+      of each cache written out of place by a select over a one-hot of t,
+      a fixed sequence of kernels that reads nothing on the host;
+    * ``_step_rows``, each row at its own ``t`` (an int or a [N] tensor),
+      eval or train: the K/V written by ``index_put`` at each row's slot,
+      a row past the cache writing nothing (the JAX scatter drops an
+      update out of bounds), the attend masked per row (``_attend_rows``).
+
+    A subclass gives ``_embed_step(it, t, gen)`` (the tokens at position
+    ``t`` with the embedding's dropout), ``_layer`` and ``_out(x)`` (the
+    hidden the vocab projection ``generator`` reads)."""
+
+    def _out(self, x):
+        return x
+
+    def init_state(self, batch_size: int, beam: bool = False) -> Dict:
+        """Per-layer merged-lane caches [N, Tp, D] and the step ``t`` as a
+        Python int (the host decode loop owns it; a per-row step makes it a
+        [N] tensor).  ``beam`` (single-group beam search) is the JAX
+        module's layout hint: one layout serves every route here."""
+        cfg = self.cfg
+        Tp = -(-(cfg.seq_length + 1) // 8) * 8
+        dev = self.generator.weight.device
+        state = {'t': 0}
+        for i in range(cfg.N_dec):
+            for kv in 'kv':
+                state['%s%d' % (kv, i)] = torch.zeros(
+                    batch_size, Tp, cfg.d_model, dtype=cfg.dtype, device=dev)
+        return state
+
+    def step(self, it, feats, state, logsoftmax: bool = True,
+             uniform_t: bool = True, beam_width: int = 0,
+             return_hidden: bool = False, gen=None):
+        """One cached decoder step at the uniform position ``state['t']``.
+
+        The per-layer caches (and ``state['anc']``) are updated IN PLACE;
+        the returned state is a new dict over the same buffers with t + 1.
+        ``beam_width > 0`` attends through ``state['anc']`` (rows grouped
+        in blocks of ``beam_width`` physical slots); 0 is plain decoding.
+        Train mode (``gen``, dropout drawn from it) at a uniform host-int
+        ``t`` takes ``_step_train``; rows at their own ``t``
+        (``uniform_t=False``, or a [N] ``t``) take ``_step_rows``.
+        """
+        if (gen is not None and uniform_t and not beam_width
+                and not torch.is_tensor(state['t'])):
+            return self._step_train(it, feats, state, logsoftmax,
+                                    return_hidden, gen)
+        if gen is not None or not uniform_t:
+            return self._step_rows(it, feats, state, logsoftmax, beam_width,
+                                   return_hidden, gen)
+        return self._step_eval(it, feats, state, logsoftmax, beam_width,
+                               return_hidden)
+
+    def _step_eval(self, it, feats, state, logsoftmax: bool,
+                   beam_width: int, return_hidden: bool):
+        h = self.cfg.num_att_heads
+        t0 = int(state['t'])
+        B = it.shape[0]
+        x = self._embed_step(it, t0, None)
+        new_state = dict(state, t=t0 + 1)
+        anc, bw = None, 1
+        if beam_width:
+            anc, bw = state['anc'], beam_width
+            # this step's entry lives in the row's own slot
+            anc[:, t0] = torch.arange(B, device=anc.device,
+                                      dtype=anc.dtype) % beam_width
+        for i in range(self.cfg.N_dec):
+            x = self._layer(i, x, _b1_attend(state['k%d' % i],
+                                             state['v%d' % i], anc, t0, bw,
+                                             h), feats, None)
+        return self._logits(x, new_state, logsoftmax, return_hidden)
+
+    def _logits(self, x, state, logsoftmax: bool, return_hidden: bool):
+        x = self._out(x)
+        if return_hidden:
+            return x, state
+        logits = linear(x, self.generator).float()
+        if logsoftmax:
+            return torch.log_softmax(logits, dim=-1), state
+        return logits, state
+
+    def _rows_attend(self, i, state, new_state, write, anc, time_mask,
+                     beam_width: int, gen):
+        """Layer i's self-attention of the plain steps: the K/V written by
+        ``write(cache, new)`` (in place or out of place; returns the cache
+        to attend, which ``new_state`` takes), attended per row."""
+        cfg = self.cfg
+
+        def attend(q, k_new, v_new):
+            kc = write(state['k%d' % i], k_new)
+            vc = write(state['v%d' % i], v_new)
+            new_state['k%d' % i], new_state['v%d' % i] = kc, vc
+            return _attend_rows(q, kc, vc, anc, time_mask, beam_width,
+                                cfg.num_att_heads, cfg.dropout, gen)
+        return attend
+
+    def _step_train(self, it, feats, state, logsoftmax: bool,
+                    return_hidden: bool, gen):
+        """The train-mode step at the uniform host-int ``state['t']`` (the
+        JAX ``uniform_t`` branch): position t of each layer's cache is
+        written out of place by a select over a one-hot of t, a fixed
+        sequence of kernels that reads nothing on the host.  Its dropout
+        sites and their order are ``_step_rows``'s (``_layer``), so the
+        same generator state draws the same masks and the logprobs are
+        ``_step_rows``'s."""
+        B = it.shape[0]
+        Tp = state['k0'].shape[1]
+        t = int(state['t'])
+        x = self._embed_step(it, t, gen)
+        new_state = dict(state, t=t + 1)
+        pos = torch.arange(Tp, device=it.device)
+        at_t = (pos == t)[None, :, None]
+        time_mask = (pos <= t)[None].expand(B, Tp)
+
+        def write(kc, new):
+            return torch.where(at_t, new[:, None], kc)
+
+        for i in range(self.cfg.N_dec):
+            x = self._layer(i, x, self._rows_attend(
+                i, state, new_state, write, None, time_mask, 0, gen),
+                feats, gen)
+        return self._logits(x, new_state, logsoftmax, return_hidden)
+
+    def _step_rows(self, it, feats, state, logsoftmax: bool,
+                   beam_width: int, return_hidden: bool, gen=None):
+        """The plain step: each row at its own ``state['t']`` (an int or a
+        [N] tensor), in eval or in train mode (``gen``).  Eval writes the
+        caches in place; train writes new ones (the returned state holds
+        them), so the graph keeps every step's entries.  A row past the
+        cache (a diverse group frozen after its finish) writes nothing,
+        as the JAX scatter drops an update out of bounds."""
+        B = it.shape[0]
+        Tp = state['k0'].shape[1]
+        t = state['t']
+        t_rows = (t if torch.is_tensor(t) else
+                  torch.full((B,), t, dtype=torch.long, device=it.device))
+        x = self._embed_step(it, t_rows, gen)
+        new_state = dict(state, t=t_rows + 1)
+        ok = t_rows < Tp
+        rows = torch.arange(B, device=it.device)[ok]
+        slots = t_rows[ok]
+        time_mask = (torch.arange(Tp, device=it.device)[None]
+                     <= t_rows[:, None])
+        anc = None
+        if beam_width:
+            # this step's entry lives in the row's own slot
+            anc = state['anc'].index_put(
+                (rows, slots), (rows % beam_width).to(state['anc'].dtype))
+            new_state['anc'] = anc
+
+        def write(kc, new):
+            if gen is None:
+                return kc.index_put_((rows, slots), new[ok])
+            return kc.index_put((rows, slots), new[ok])
+
+        for i in range(self.cfg.N_dec):
+            x = self._layer(i, x, self._rows_attend(
+                i, state, new_state, write, anc, time_mask, beam_width, gen),
+                feats, gen)
+        return self._logits(x, new_state, logsoftmax, return_hidden)
+
+
+class TransformerCaptioner(CachedDecoder):
     """Encoder-decoder captioner exposing the engine step protocol."""
 
     def __init__(self, cfg: ModelConfig):
@@ -235,15 +440,9 @@ class TransformerCaptioner(nn.Module):
         V1 = cfg.vocab_size + 1
         self.tgt_embed = nn.Parameter(torch.zeros(V1, D))
         self.generator = _Lin(D, V1)
-        # sinusoidal PE table, float32 as the JAX module builds it
-        max_len = max(cfg.seq_length + 4, 64)
-        pe = np.zeros((max_len, D), np.float32)
-        position = np.arange(0, max_len)[:, None].astype(np.float32)
-        div_term = np.exp(np.arange(0, D, 2).astype(np.float32) *
-                          -(np.log(10000.0) / D))
-        pe[:, 0::2] = np.sin(position * div_term)
-        pe[:, 1::2] = np.cos(position * div_term)
-        self.register_buffer('pe', torch.from_numpy(pe), persistent=False)
+        self.register_buffer('pe', torch.from_numpy(
+            sinusoid_table(max(cfg.seq_length + 4, 64), D)),
+            persistent=False)
 
     # -- parameters ----------------------------------------------------------
     def init_weights(self, generator: torch.Generator):
@@ -286,177 +485,33 @@ class TransformerCaptioner(nn.Module):
 
     def prepare_feature(self, fc_feats, att_feats, att_masks, gen=None):
         # decode steps attend the raw memory with the K/V projections folded
-        # around the attention (DecoderLayer.lazy_cross)
+        # around the attention (lazy_cross)
         return {'memory': self.encode(att_feats, att_masks, gen),
                 'att_masks': att_masks}
 
-    def init_state(self, batch_size: int, beam: bool = False) -> Dict:
-        """Per-layer merged-lane caches [N, Tp, D] and the step ``t`` as a
-        Python int (the host decode loop owns it; a per-row step makes it a
-        [N] tensor).  ``beam`` (single-group beam search) is the JAX
-        module's layout hint: one layout serves every route here."""
-        cfg = self.cfg
-        Tp = -(-(cfg.seq_length + 1) // 8) * 8
-        dev = self.pe.device
-        state = {'t': 0}
-        for i in range(cfg.N_dec):
-            for kv in 'kv':
-                state['%s%d' % (kv, i)] = torch.zeros(
-                    batch_size, Tp, cfg.d_model, dtype=cfg.dtype, device=dev)
-        return state
-
     # -- decode step -----------------------------------------------------------
-    def step(self, it, feats, state, logsoftmax: bool = True,
-             uniform_t: bool = True, beam_width: int = 0,
-             return_hidden: bool = False, gen=None):
-        """One cached decoder step at the uniform position ``state['t']``.
+    def _embed_step(self, it, t, gen):
+        x = self._embed(it) + pos_rows(self.pe, t).to(self.cfg.dtype)
+        return dropout(x, self.cfg.dropout, gen)
 
-        The per-layer caches (and ``state['anc']``) are updated IN PLACE;
-        the returned state is a new dict over the same buffers with t + 1.
-        ``beam_width > 0`` attends through ``state['anc']`` (rows grouped
-        in blocks of ``beam_width`` physical slots); 0 is plain decoding.
-        Train mode (``gen``, dropout drawn from it) at a uniform host-int
-        ``t`` takes ``_step_train``; rows at their own ``t``
-        (``uniform_t=False``, or a [N] ``t``) take ``_step_rows``.
-        """
-        if (gen is not None and uniform_t and not beam_width
-                and not torch.is_tensor(state['t'])):
-            return self._step_train(it, feats, state, logsoftmax,
-                                    return_hidden, gen)
-        if gen is not None or not uniform_t:
-            return self._step_rows(it, feats, state, logsoftmax, beam_width,
-                                   return_hidden, gen)
-        cfg = self.cfg
-        h, dt, D = cfg.num_att_heads, cfg.dtype, cfg.d_model
-        t0 = int(state['t'])
-        B = it.shape[0]
-        x = self._embed(it)
-        x = x + self.pe[t0].to(dt)
+    def _out(self, x):
+        return self.dec_final_norm(x)
 
-        new_state = dict(state, t=t0 + 1)
-        mem, am = feats['memory'], feats['att_masks']
-        anc, bw = None, 1
-        if beam_width:
-            anc, bw = state['anc'], beam_width
-            # this step's entry lives in the row's own slot
-            anc[:, t0] = torch.arange(B, device=anc.device,
-                                      dtype=anc.dtype) % beam_width
-        for i, layer in enumerate(self.dec):
-            y = layer.norm1(x)
-            ctx = attend_write_merged(
-                linear(y, layer.s_wq), state['k%d' % i], state['v%d' % i],
-                linear(y, layer.s_wk), linear(y, layer.s_wv), anc, t0,
-                bw=bw, h=h)
-            x = x + linear(ctx, layer.s_wo)
-            x = x + layer.lazy_cross(layer.norm2(x), mem, am, h)
-            x = x + linear(torch.relu(linear(layer.norm3(x), layer.w1)),
-                           layer.w2)
-        return self._logits(x, new_state, logsoftmax, return_hidden)
-
-    def _logits(self, x, state, logsoftmax: bool, return_hidden: bool):
-        x = self.dec_final_norm(x)
-        if return_hidden:
-            return x, state
-        logits = linear(x, self.generator).float()
-        if logsoftmax:
-            return torch.log_softmax(logits, dim=-1), state
-        return logits, state
-
-    def _step_train(self, it, feats, state, logsoftmax: bool,
-                    return_hidden: bool, gen):
-        """The train-mode step at the uniform host-int ``state['t']`` (the
-        JAX ``uniform_t`` branch): position t of each layer's cache is
-        written out of place by a select over a one-hot of t, a fixed
-        sequence of kernels that reads nothing on the host.  Its dropout
-        sites and their order are ``_step_rows``'s (``_layer_rows``), so the
-        same generator state draws the same masks and the logprobs are
-        ``_step_rows``'s."""
-        cfg = self.cfg
-        dt, D, p = cfg.dtype, cfg.d_model, cfg.dropout
-        B = it.shape[0]
-        Tp = state['k0'].shape[1]
-        t = int(state['t'])
-        x = self._embed(it)
-        x = dropout(x + self.pe[min(t, self.pe.shape[0] - 1)].to(dt), p, gen)
-        new_state = dict(state, t=t + 1)
-        pos = torch.arange(Tp, device=it.device)
-        at_t = (pos == t)[None, :, None]
-        time_mask = (pos <= t)[None].expand(B, Tp)
-
-        def write(kc, new):
-            return torch.where(at_t, new[:, None], kc)
-
-        for i, layer in enumerate(self.dec):
-            x, new_state['k%d' % i], new_state['v%d' % i] = self._layer_rows(
-                layer, x, state['k%d' % i], state['v%d' % i], write, None,
-                time_mask, 0, feats, gen)
-        return self._logits(x, new_state, logsoftmax, return_hidden)
-
-    def _layer_rows(self, layer, x, kc, vc, write, anc, time_mask,
-                    beam_width: int, feats, gen):
-        """One decoder layer of the plain step: K/V written by
-        ``write(cache, new)`` (in place or out of place; returns the cache
-        to attend), the self-attention masked per row, the folded
-        cross-attention, the feed-forward.  Returns (x, k cache, v
-        cache)."""
-        cfg = self.cfg
-        h, p = cfg.num_att_heads, cfg.dropout
+    def _layer(self, i, x, attend, feats, gen):
+        """Decoder layer i of a step (pre-LN): the self-attention through
+        ``attend``, the folded cross-attention, the feed-forward."""
+        h, p = self.cfg.num_att_heads, self.cfg.dropout
+        layer = self.dec[i]
         y = layer.norm1(x)
-        kc = write(kc, linear(y, layer.s_wk))
-        vc = write(vc, linear(y, layer.s_wv))
-        ctx = _attend_rows(linear(y, layer.s_wq), kc, vc, anc, time_mask,
-                           beam_width, h, p, gen)
+        ctx = attend(linear(y, layer.s_wq), linear(y, layer.s_wk),
+                     linear(y, layer.s_wv))
         x = x + dropout(linear(ctx, layer.s_wo), p, gen)
-        x = x + dropout(layer.lazy_cross(layer.norm2(x), feats['memory'],
-                                         feats['att_masks'], h, p, gen),
-                        p, gen)
-        x = x + dropout(linear(dropout(torch.relu(
+        mem = feats['memory']
+        qt = fold_query(layer.norm2(x), layer.c_wq, layer.c_wk, h, mem.dtype)
+        x = x + dropout(lazy_cross(qt, mem, feats['att_masks'], layer.c_wv,
+                                   layer.c_wo, h, p, gen), p, gen)
+        return x + dropout(linear(dropout(torch.relu(
             linear(layer.norm3(x), layer.w1)), p, gen), layer.w2), p, gen)
-        return x, kc, vc
-
-    def _step_rows(self, it, feats, state, logsoftmax: bool,
-                   beam_width: int, return_hidden: bool, gen=None):
-        """The plain step: each row at its own ``state['t']`` (an int or a
-        [N] tensor), in eval or in train mode (``gen``).  Eval writes the
-        caches in place; train writes new ones (the returned state holds
-        them), so the graph keeps every step's entries.  A row past the
-        cache (a diverse group frozen after its finish) writes nothing,
-        as the JAX scatter drops an update out of bounds."""
-        cfg = self.cfg
-        dt, D, p = cfg.dtype, cfg.d_model, cfg.dropout
-        B = it.shape[0]
-        Tp = state['k0'].shape[1]
-        t = state['t']
-        t_rows = (t if torch.is_tensor(t) else
-                  torch.full((B,), t, dtype=torch.long, device=it.device))
-        x = self._embed(it)
-        x = x + self.pe[t_rows.clamp(max=self.pe.shape[0] - 1)].to(dt)
-        x = dropout(x, p, gen)
-        new_state = dict(state, t=t_rows + 1)
-        ok = t_rows < Tp
-        rows = torch.arange(B, device=it.device)[ok]
-        slots = t_rows[ok]
-        time_mask = (torch.arange(Tp, device=it.device)[None]
-                     <= t_rows[:, None])
-        anc = None
-        if beam_width:
-            # this step's entry lives in the row's own slot
-            anc = state['anc'].index_put(
-                (rows, slots), (rows % beam_width).to(state['anc'].dtype))
-            new_state['anc'] = anc
-
-        def write(kc, new):
-            if gen is None:
-                return kc.index_put_((rows, slots), new[ok])
-            return kc.index_put((rows, slots), new[ok])
-
-        for i, layer in enumerate(self.dec):
-            x, kc, vc = self._layer_rows(
-                layer, x, state['k%d' % i], state['v%d' % i], write, anc,
-                time_mask, beam_width, feats, gen)
-            if gen is not None:
-                new_state['k%d' % i], new_state['v%d' % i] = kc, vc
-        return self._logits(x, new_state, logsoftmax, return_hidden)
 
     # -- teacher forcing ---------------------------------------------------------
     def forward_tf(self, fc_feats, att_feats, seq, att_masks, gen=None,
@@ -466,23 +521,19 @@ class TransformerCaptioner(nn.Module):
         given ``gen``.  ``ss_prob`` is unused: the JAX transformer takes no
         scheduled sampling either."""
         cfg = self.cfg
-        h, dt, p = cfg.num_att_heads, cfg.dtype, cfg.dropout
+        h, p = cfg.num_att_heads, cfg.dropout
         if seq.dim() == 3:
             seq = seq.reshape(-1, seq.shape[2])
         memory = self.encode(att_feats, att_masks, gen)
         nb = memory.shape[0]
         s = seq.shape[0] // nb        # seq_per_img rows share one memory row
         T = seq.shape[1]
-        seq_mask = (seq != cfg.eos_idx) & (seq != cfg.pad_idx)
-        seq_mask[:, 0] = True
-        causal = torch.tril(torch.ones(T, T, dtype=torch.bool,
-                                       device=seq.device))
-        tgt_mask = seq_mask[:, None, None, :] & causal[None, None]
+        tgt_mask = tf_masks(seq, cfg)
         src_mask = (None if att_masks is None
                     else att_masks[:, None, None, None, :])
 
         x = self._embed(seq)
-        x = dropout(x + self.pe[:T][None].to(dt), p, gen)
+        x = dropout(x + self.pe[:T][None].to(cfg.dtype), p, gen)
         for layer in self.dec:
             y = layer.norm1(x)
             q = _split_heads(linear(y, layer.s_wq), h)
@@ -505,3 +556,26 @@ class TransformerCaptioner(nn.Module):
         x = self.dec_final_norm(x)
         return torch.log_softmax(linear(x, self.generator).float(), dim=-1)
 
+
+def sinusoid_table(max_len: int, D: int) -> np.ndarray:
+    """The sinusoidal position table [max_len, D], float32 as the JAX
+    modules build it."""
+    pe = np.zeros((max_len, D), np.float32)
+    position = np.arange(0, max_len)[:, None].astype(np.float32)
+    div_term = np.exp(np.arange(0, D, 2).astype(np.float32) *
+                      -(np.log(10000.0) / D))
+    pe[:, 0::2] = np.sin(position * div_term)
+    pe[:, 1::2] = np.cos(position * div_term)
+    return pe
+
+
+def tf_masks(seq, cfg: ModelConfig):
+    """The teacher-forcing self-attention mask [N, 1, T, T]: the reference
+    seq_mask ((seq != eos) & (seq != pad), position 0 forced on) ANDed
+    with the causal mask."""
+    T = seq.shape[1]
+    seq_mask = (seq != cfg.eos_idx) & (seq != cfg.pad_idx)
+    seq_mask[:, 0] = True
+    causal = torch.tril(torch.ones(T, T, dtype=torch.bool,
+                                   device=seq.device))
+    return seq_mask[:, None, None, :] & causal[None, None]

@@ -3,11 +3,13 @@
 take the device time.
 
     python -m captioning_tpu_torch.tools.profile_decode \\
-        [--model transformer|updown|stackatt|newfc|aoa|att2in|show_tell]
+        [--model transformer|bert|m2transformer|updown|stackatt|newfc|aoa|
+                 att2in|show_tell]
         [--mode beam5|greedy|...]
 
 The model is built at the flagship widths (``MODELS``: the transformer of
-``configs/transformer/transformer.yml``, UpDown of
+``configs/transformer/transformer.yml``, and bert and m2transformer at its
+widths (they have no config of their own), UpDown of
 ``configs/updown/updown.yml``, StackAtt at the ``opts.py`` widths, NewFC
 of ``configs/fc.yml``, AoANet of ``configs/aoa.yml``, att2in and
 ShowTell at the ``opts.py`` widths; COCO vocab 9487 + 1, 36 x 2048
@@ -72,6 +74,8 @@ MODELS = {
     'show_tell': dict(input_encoding_size=512, rnn_size=512, num_layers=1,
                       drop_prob_lm=0.5, att_hid_size=512, rnn_type='lstm'),
 }
+# bert and m2transformer have no config: the transformer's widths
+MODELS['bert'] = MODELS['m2transformer'] = MODELS['transformer']
 BEAM = {'beam_size': 5, 'sample_n': 1, 'group_size': 1, 'suppress_UNK': 1}
 GREEDY = {'sample_method': 'greedy', 'beam_size': 1, 'sample_n': 1}
 DBS = {'beam_size': 6, 'group_size': 3, 'diversity_lambda': 0.5,

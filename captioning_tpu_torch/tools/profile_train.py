@@ -3,7 +3,8 @@
 kernels that take the device time.
 
     python -m captioning_tpu_torch.tools.profile_train \\
-        [--model updown|stackatt|transformer|aoa|att2in|show_tell]
+        [--model updown|stackatt|transformer|bert|m2transformer|aoa|att2in|
+                 show_tell]
         [--mode xe|scst|scst_grad|struc] [--route eager|graph]
         [--compute_dtype float32|bfloat16]
 
@@ -14,15 +15,16 @@ options (``TRAIN``: UpDown of ``configs/updown/updown.yml`` and StackAtt
 at adam 5e-4, the scheduled-sampling ramp's maximum 0.25 and the
 ``opts.py`` dropout 0.5; the transformer of
 ``configs/transformer/transformer.yml`` with noam, warmup 20000, dropout
-0.1; clip by value 0.1) on one seeded batch of 10 images x 5 captions of
+0.1, and bert and m2transformer at its widths and options; clip by value
+0.1) on one seeded batch of 10 images x 5 captions of
 label length 16, as ``chip_smoke.py`` phase 9 trains them; AoANet of
 ``configs/aoa.yml`` at adam 2e-4 with label smoothing 0.2, att2in and
 ShowTell as UpDown.  ``--mode scst`` takes the fused SCST step instead (``Trainer.sc_fused_step``), and
 ``--mode struc`` the fused structure step (``struc_fused_step``,
 new_self_critical), with the SCST stages' options (``RL``: UpDown of
 ``configs/updown/updown_sc.yml`` and the transformer of
-``configs/transformer/transformer_sc.yml`` and AoANet of
-``configs/aoa_sc.yml``, adam at their rates,
+``configs/transformer/transformer_sc.yml`` (bert and m2transformer too)
+and AoANet of ``configs/aoa_sc.yml``, adam at their rates,
 ``train_sample_n`` 5 sampled against a greedy baseline, max length 20):
 their rewards against 5 references of label length 16 an image, scored on
 the card with a df table built as ``scripts/prepro_ngrams.py`` builds it
@@ -70,6 +72,8 @@ TRAIN = {
                     {'noamopt': True, 'noamopt_warmup': 20000}, 0.0,
                     lambda it: noam_rate(it, 512, 1.0, 20000)),
 }
+# bert and m2transformer have no config: the transformer's
+TRAIN['bert'] = TRAIN['m2transformer'] = TRAIN['transformer']
 
 
 # per model: the captioner's option overrides and the trainer's, of the
@@ -81,6 +85,7 @@ RL = {
     'transformer': ({'drop_prob_lm': 0.5, 'dropout': 0.1},
                     {'learning_rate': 1e-5}),
 }
+RL['bert'] = RL['m2transformer'] = RL['transformer']
 CORPUS_IMAGES, CORPUS_REFS = 5000, 5
 
 

@@ -11,7 +11,10 @@ the port's modules carry the JAX names (``core/attention/h2att/kernel`` ->
 ``core.attention.h2att.weight``, ``logit_hidden_0`` -> ``logit_hidden.0``,
 ``batch_stats/att_bn_in/mean`` -> ``att_bn_in.mean``); so does AoANet
 (``refiner/attn_0/q/kernel`` -> ``refiner.attn_0.q.weight``,
-``refiner/norm_out/a_2`` -> ``refiner.norm_out.a_2``).  Every JAX key is
+``refiner/norm_out/a_2`` -> ``refiner.norm_out.a_2``), and so do the BERT
+captioner and M2 (``enc_self_0/wq/kernel`` -> ``enc_self_0.wq.weight``,
+``dec_gates_1_0/bias`` -> ``dec_gates_1_0.bias``, ``word_embed`` ->
+``word_embed``).  Every JAX key is
 consumed exactly once; a key left over or one the port needs but does not
 find raises.  ``jax_from_state_dict`` is the inverse: the flat JAX tree
 (``params/...`` and, with use_bn, ``batch_stats/...``), so a ``model.npz``
@@ -29,7 +32,9 @@ import torch
 
 from ..models import harness
 from ..models.aoa import AoACaptioner
+from ..models.bert_cap import BertCaptioner
 from ..models.config import ModelConfig
+from ..models.m2 import M2Captioner
 from .misc import _flatten_tree
 
 # stacked JAX prefix -> (port layer list, attribute)
@@ -42,7 +47,8 @@ _DEC = {'dec_self_wq': 's_wq', 'dec_self_wk': 's_wk', 'dec_self_wv': 's_wv',
 _NORMS = {'enc': ('norm1', 'norm2'), 'dec': ('norm1', 'norm2', 'norm3')}
 # the models whose port carries the JAX names, and their module classes
 _ONE_TO_ONE = dict({m: harness.AttCaptioner for m in harness.MODELS},
-                   aoa=AoACaptioner)
+                   aoa=AoACaptioner, bert=BertCaptioner,
+                   m2transformer=M2Captioner)
 
 
 def _flat(tree_or_flat) -> Dict[str, np.ndarray]:
@@ -59,13 +65,12 @@ def _flat(tree_or_flat) -> Dict[str, np.ndarray]:
 def state_dict_from_jax(tree_or_flat, cfg: ModelConfig,
                         params_only: bool = False
                         ) -> Dict[str, torch.Tensor]:
-    """The port's TransformerCaptioner / AttCaptioner / AoACaptioner
-    state_dict from JAX params."""
+    """The port's captioner's state_dict from JAX params."""
     if cfg.caption_model in _ONE_TO_ONE:
         return _harness_state_dict(_flat(tree_or_flat), cfg, params_only)
     if cfg.caption_model != 'transformer':
-        raise NotImplementedError('weight bridge: %r is not ported; see '
-                                  'ROADMAP.md' % cfg.caption_model)
+        raise ValueError('weight bridge: unknown caption model %r'
+                         % cfg.caption_model)
     flat = _flat(tree_or_flat)
     out: Dict[str, torch.Tensor] = {}
 
@@ -133,8 +138,8 @@ def jax_from_state_dict(state_dict, cfg: ModelConfig,
                         else value)
         return out
     if cfg.caption_model != 'transformer':
-        raise NotImplementedError('weight bridge: %r is not ported; see '
-                                  'ROADMAP.md' % cfg.caption_model)
+        raise ValueError('weight bridge: unknown caption model %r'
+                         % cfg.caption_model)
 
     def take(name):
         if name not in sd:

@@ -17,7 +17,7 @@ import torch
 
 from captioning_tpu_torch.models.harness import SHARED_FEATS
 from tests.torch_port_util import (NO_ATT_MODELS, RNN_MODELS, inputs,
-                                   jax_and_port, tiny_rnn_opt)
+                                   jax_and_port, tiny_opt, tiny_rnn_opt)
 
 ATOL = 1e-5
 
@@ -168,11 +168,20 @@ def _check_forward_tf(opt):
     _close(got, want)
 
 
-def test_unported_models_raise():
+@pytest.mark.parametrize('model', ['bert', 'm2transformer'])
+def test_bert_and_m2_build(model):
+    """bert and m2transformer build on the CPU and decode a step; on
+    'cuda' without a GPU they raise, as every key does."""
     from captioning_tpu_torch.models.api import setup
-    for model in ('bert', 'm2transformer'):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            setup(tiny_rnn_opt(model, vocab_size=29), device='cpu')
+    cap = setup(tiny_opt(caption_model=model), device='cpu').init_params(
+        torch.Generator().manual_seed(0))
+    assert cap.module.cfg.caption_model == model
+    fc, att, am = (torch.from_numpy(a) for a in inputs(B=2))
+    seq, _ = cap.sample_stats(fc, att, am, None, {'sample_method': 'greedy'})
+    assert tuple(seq.shape) == (2, cap.cfg.seq_length)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match='no CUDA device'):
+            setup(tiny_opt(caption_model=model), device='cuda')
 
 
 @pytest.mark.parametrize('model,kw', [('show_tell', {}),

@@ -19,7 +19,9 @@ dropout 0):
   the ``model.npz`` it writes is float32 and the masters bit for bit, the
   JAX ``eval_split`` in float32 on it gives the port's float32 captions,
   and a JAX bf16 run's checkpoint (optimizer state too) resumes in the
-  port."""
+  port;
+* bert and m2transformer train an XE epoch and the JAX ``eval_split``
+  decodes the port's checkpoint to tools/eval_torch.py's captions."""
 
 import os
 import pickle
@@ -231,7 +233,7 @@ def test_eval_split_between_steps_leaves_training_unchanged(ds, tmp_path,
 
 
 @pytest.mark.parametrize('model', ['updown', 'stackatt', 'transformer',
-                                   'aoa'])
+                                   'aoa', 'bert', 'm2transformer'])
 def test_profile_train_steps_on_the_cpu(model, monkeypatch):
     """``tools/profile_train.py``'s set-up (the one ``chip_smoke.py`` phase
     9 trains with) at tiny widths on the CPU: its config's options, one
@@ -244,10 +246,12 @@ def test_profile_train_steps_on_the_cpu(model, monkeypatch):
     monkeypatch.setattr(pd, 'V', 40)
     monkeypatch.setattr(pd, 'FEAT', 12)
     monkeypatch.setattr(pd, 'REGIONS', 5)
-    monkeypatch.setattr(pd, 'MODELS', {
-        'transformer': dict(input_encoding_size=16, rnn_size=32,
+    tiny_transformer = dict(input_encoding_size=16, rnn_size=32,
                             num_layers=2, att_hid_size=8, N_enc=1, N_dec=1,
-                            d_model=16, d_ff=32, num_att_heads=4),
+                            d_model=16, d_ff=32, num_att_heads=4)
+    monkeypatch.setattr(pd, 'MODELS', {
+        'transformer': tiny_transformer, 'bert': tiny_transformer,
+        'm2transformer': tiny_transformer,
         'updown': dict(input_encoding_size=24, rnn_size=24, num_layers=2,
                        att_hid_size=8),
         'stackatt': dict(input_encoding_size=16, rnn_size=24, num_layers=1,
@@ -516,6 +520,55 @@ def test_aoa_xe_then_scst_through_the_configs(ds, tmp_path, monkeypatch):
     loader = DataLoader(opt)
     cap = jax_setup(opt, loader.get_vocab())
     variables = load_pytree(os.path.join(sc, 'model.npz'))
+    _, want, _ = eval_utils.eval_split(cap, variables, loader, {
+        'split': 'val', 'num_images': 4, 'language_eval': 0,
+        'verbose': False, 'id': 'tr_jax', 'max_length': 6, 'beam_size': 3})
+    assert len(want) == 4
+    assert [p['caption'] for p in got] == [p['caption'] for p in want]
+
+
+@pytest.mark.parametrize('model', ['bert', 'm2transformer'])
+def test_bert_and_m2_train_then_decode_in_both_packages(ds, tmp_path,
+                                                        monkeypatch, model):
+    """One XE epoch of ``--caption_model bert|m2transformer`` at the
+    transformer's option names cut by --set_cfgs (2 + 2 layers, d_model 16
+    in 4 heads, d_ff 32); the JAX ``eval_split`` on the port's
+    ``model.npz`` gives tools/eval_torch.py's beam-3 captions."""
+    import importlib.util
+
+    from captioning_tpu.data.dataset import DataLoader
+    from captioning_tpu.models import setup as jax_setup
+    from captioning_tpu.utils import eval_utils
+    from captioning_tpu.utils.misc import load_pytree
+    monkeypatch.chdir(tmp_path)
+    ckpt = str(tmp_path / 'ckpt')
+    _train_port(_args(ds, ckpt, 1, caption_model=model, rnn_size=None,
+                      input_encoding_size=None, att_hid_size=None) +
+                ['--set_cfgs', 'N_enc', '2', 'N_dec', '2', 'd_model', '16',
+                 'd_ff', '32', 'num_att_heads', '4'])
+    infos = _load(os.path.join(ckpt, 'infos_tr.pkl'))
+    assert infos['opt'].caption_model == model
+    assert (infos['opt'].N_enc, infos['opt'].d_model) == (2, 16)
+    hist = _losses(ckpt)
+    assert len(hist) == 2 and all(np.isfinite(hist))
+
+    run = tmp_path / 'eval'
+    run.mkdir()
+    monkeypatch.chdir(run)
+    spec = importlib.util.spec_from_file_location(
+        'eval_torch', os.path.join(REPO, 'tools', 'eval_torch.py'))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.main(['--device', 'cpu', '--model', os.path.join(ckpt, 'model.npz'),
+              '--infos_path', os.path.join(ckpt, 'infos_tr.pkl'), '--split',
+              'val', '--num_images', '4', '--language_eval', '0',
+              '--force', '1', '--beam_size', '3', '--max_length', '6',
+              '--id', 'tr'])
+    got = _load(run / 'eval_results' / '.saved_pred_tr_val.pkl')[0]
+    opt = infos['opt']
+    loader = DataLoader(opt)
+    cap = jax_setup(opt, loader.get_vocab())
+    variables = load_pytree(os.path.join(ckpt, 'model.npz'))
     _, want, _ = eval_utils.eval_split(cap, variables, loader, {
         'split': 'val', 'num_images': 4, 'language_eval': 0,
         'verbose': False, 'id': 'tr_jax', 'max_length': 6, 'beam_size': 3})

@@ -14,7 +14,8 @@ from tests.torch_port_util import (inputs, jax_and_port, tiny_aoa_opt,
 
 
 def model_opt(model, **kw):
-    opt = (tiny_opt() if model == 'transformer' else
+    opt = (tiny_opt(caption_model=model)
+           if model in ('transformer', 'bert', 'm2transformer') else
            tiny_aoa_opt() if model == 'aoa' else tiny_rnn_opt(model))
     return train_opt(opt, **kw)
 

@@ -5,10 +5,10 @@ the eval options on the training opts exactly as tools/eval.py does, and
 evaluates with ``captioning_tpu_torch.utils.eval_utils.eval_split`` on
 ``--device`` (cuda by default; the CUDA kernels build at first use;
 ``--device cpu`` runs the kernels' plain twins).  With ``--device cuda``
-and no GPU it raises: it never carries on on the CPU.  The ported models
-are the transformer, updown / topdown, att2in2, att2all2, stackatt,
-denseatt, adaatt, adaattmo, newfc, fc and language_model; the others
-raise ``NotImplementedError``.  Every decode option of tools/eval.py
+and no GPU it raises: it never carries on on the CPU.  Every
+``caption_model`` key of the JAX package is ported (the transformer,
+bert, m2transformer, aoa and the RNN captioners).  Every decode option of
+tools/eval.py
 reaches the decode: beam search with diverse groups (``--group_size``,
 ``--diversity_lambda``), the constraints, the sample methods, and
 ``--sample_n`` captions an image by ``--sample_n_method`` (``bs``,
