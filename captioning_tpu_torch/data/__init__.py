@@ -1,3 +1,4 @@
 """Port of ``captioning_tpu.data`` (see the package docstring): copies of
-``dataset.py``, ``hybrid_loader.py`` and ``native_io.py``.  The raw-image
-loader (``dataloaderraw.py``) needs the JAX ResNet and is not ported."""
+``dataset.py``, ``hybrid_loader.py`` and ``native_io.py``, and the
+raw-image loader ``dataloaderraw.py`` over the port's ResNet
+(``models/resnet.py``)."""

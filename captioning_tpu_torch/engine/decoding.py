@@ -108,19 +108,24 @@ def repeat_tree(n: int, tree):
 
 def reorder_state(tree, idx):
     """Beam-reorder every tensor leaf's leading dim by ``idx`` (a row
-    gather; the JAX engine's one-hot matmul is an exact TPU substitute)."""
-    return {k: v.index_select(0, idx) if torch.is_tensor(v) else v
+    gather; the JAX engine's one-hot matmul is an exact TPU substitute),
+    nested states (an ensemble's member states) included."""
+    return {k: reorder_state(v, idx) if isinstance(v, dict)
+            else v.index_select(0, idx) if torch.is_tensor(v) else v
             for k, v in tree.items()}
 
 
 def _where_tree(mask, new, old):
     """Per-row select between two states: ``new`` where ``mask`` [N].  A
     leaf that a step updated in place (the same tensor in both) is kept;
-    a host-int leaf of ``old`` broadcasts."""
+    a host-int leaf of ``old`` broadcasts; a nested state (an ensemble's
+    member states) is selected leaf by leaf."""
     out = {}
     for k, v in new.items():
         o = old[k]
-        if v is o or not torch.is_tensor(v):
+        if isinstance(v, dict):
+            out[k] = _where_tree(mask, v, o)
+        elif v is o or not torch.is_tensor(v):
             out[k] = v
         else:
             m = mask.view((-1,) + (1,) * (v.dim() - 1))

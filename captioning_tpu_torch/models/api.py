@@ -6,7 +6,9 @@ Meshed-Memory Transformer (``models/m2.py``), AoANet (``models/aoa.py``)
 or one of the RNN captioners of ``harness.MODELS``: every
 ``caption_model`` key of the JAX package.  ``bind`` returns the
 ``DecodeModel`` the engine drives, ``sample_beam`` /
-``sample_stats`` / ``sample`` / ``forward_tf`` are the eager entry points,
+``sample_stats`` / ``sample`` / ``forward_tf`` are the eager entry points
+(the decodes and their graph counterparts in ``DecodeEntries``, which
+``models.ensemble.EnsembleCaptioner`` shares),
 ``sample_beam_graphed`` / ``sample_stats_graphed`` their CUDA-graph
 counterparts (the JAX ``sample_beam_jit`` / ``sample_stats_jit``, with
 ``_graph_cache`` for ``_jit_cache``), which ``eval_split`` calls where the
@@ -65,7 +67,134 @@ def _is_cache(name: str) -> bool:
     return name[:1] in ('k', 'v') and name[1:].isdigit()
 
 
-class Captioner:
+class DecodeEntries:
+    """The eval decode entry points over ``self.bind()``, shared by
+    ``Captioner`` and ``models.ensemble.EnsembleCaptioner``: the eager
+    ``sample_beam`` / ``sample`` / ``sample_stats`` and their CUDA-graph
+    counterparts ``sample_beam_graphed`` / ``sample_stats_graphed`` with
+    ``graph_route`` and ``graph_launches``.  A subclass sets ``device``,
+    ``_graph_cache`` (a dict) and ``graph_recorder``, and gives ``bind``
+    and ``_graph_dtype`` (the compute dtype part of a graph's cache
+    key)."""
+
+    @torch.inference_mode()
+    def sample_beam(self, fc_feats, att_feats, att_masks, rng,
+                    opt: Dict[str, Any], want_logps: bool = False):
+        """(seq, {'ent_sum', 'lp_sum'} or with ``want_logps`` the winners'
+        replayed distributions [N, L, V+1], done) — see
+        decoding.sample_beam."""
+        return decoding.sample_beam(self.bind(), fc_feats, att_feats,
+                                    att_masks, rng, opt, want_logps)
+
+    @torch.inference_mode()
+    def sample(self, fc_feats, att_feats, att_masks, rng,
+               opt: Dict[str, Any]):
+        """(seq, the per-step distributions [N, L, V+1]; [N, L] sampled
+        logprobs for diverse groups) — see decoding.sample.  ``rng``: a
+        ``torch.Generator`` on ``self.device`` for the sampling draws (or
+        a ``draw`` callable, or None for seed 0)."""
+        return decoding.sample(self.bind(), fc_feats, att_feats, att_masks,
+                               rng, opt, return_stats=False)
+
+    @torch.inference_mode()
+    def sample_stats(self, fc_feats, att_feats, att_masks, rng,
+                     opt: Dict[str, Any]):
+        """(seq, {'ent_sum', 'lp_sum'}) for the sample family (greedy,
+        sample, gumbel, top-k, top-p): the sums carried, with the exact
+        early exit.  ``rng`` as in ``sample``."""
+        return decoding.sample(self.bind(), fc_feats, att_feats, att_masks,
+                               rng, opt, return_stats=True)
+
+    # -- graph decodes ----------------------------------------------------------
+    def graph_route(self, kind: str, opt: Dict[str, Any]) -> str:
+        """'' when ``kind`` ('beam' or 'stats') with ``opt`` takes a graph
+        decode, else what keeps it on the eager entry (``sample_beam`` /
+        ``sample_stats``).  The graphs take the single-group beam
+        (``decoding.beam_program``) without the replay, and greedy stats
+        without the step constraints (``decoding.sample_program``)."""
+        if kind == 'beam':
+            if not decoding.beam_fast(opt):
+                return ('the general beam body (diverse groups, '
+                        'decoding_constraint, remove_bad_endings)')
+            bdash = int(opt.get('beam_size', 10) or 10)
+            if int(opt.get('sample_n', 1) or 1) not in (1, bdash):
+                return 'sample_n other than 1 or the beam size'
+            return ''
+        method = opt.get('sample_method', 'greedy') or 'greedy'
+        if (int(opt.get('beam_size', 1) or 1) > 1
+                and method in ('greedy', 'beam_search')):
+            return 'beam search (sample_beam_graphed)'
+        if int(opt.get('group_size', 1) or 1) > 1:
+            return 'diverse sampling groups'
+        if method != 'greedy':
+            return 'the sampling method %r, which draws noise' % method
+        if any(int(opt.get(k, 0) or 0) for k in (
+                'decoding_constraint', 'block_trigrams',
+                'remove_bad_endings')):
+            return 'the step constraints'
+        return ''
+
+    @torch.inference_mode()
+    def sample_beam_graphed(self, fc_feats, att_feats, att_masks, rng,
+                            opt: Dict[str, Any]):
+        """The counterpart of the JAX ``sample_beam_jit(...,
+        want_logps=False)``: (seq, {'ent_sum', 'lp_sum'}, done) as
+        ``sample_beam`` gives them, from a CUDA-graph decode
+        (``engine.graphs``) cached in ``_graph_cache`` by the options, B,
+        the feature shapes and dtypes, the compute dtype
+        (``_graph_dtype``) and want_logps False.  Temperature,
+        ``suppress_UNK`` and the length penalty are in the key: they are
+        host arguments of B2 and of the penalty, baked into the graphs (the
+        JAX key leaves them out as traced operands).
+        The outputs are fresh tensors.  Options the graphs do not take
+        (``graph_route``) raise: ``sample_beam`` decodes them.  On a CPU
+        captioner the same program runs eagerly: CUDA graphs do not exist
+        there.  ``rng`` is unused, as in beam decoding."""
+        return self._graphed('beam', decoding.beam_program, fc_feats,
+                             att_feats, att_masks, opt)
+
+    @torch.inference_mode()
+    def sample_stats_graphed(self, fc_feats, att_feats, att_masks, rng,
+                             opt: Dict[str, Any]):
+        """The counterpart of the JAX ``sample_stats_jit`` on its greedy
+        route: (seq, {'ent_sum', 'lp_sum'}) as ``sample_stats`` gives them,
+        from a cached CUDA-graph decode, as ``sample_beam_graphed``.  The
+        sampling methods, diverse groups and the step constraints raise
+        (``graph_route``): ``sample_stats`` decodes them.  Greedy draws
+        nothing: ``rng`` is unused."""
+        return self._graphed('stats', decoding.sample_program, fc_feats,
+                             att_feats, att_masks, opt)
+
+    def _graphed(self, kind, make, fc, att, am, opt):
+        why = self.graph_route(kind, opt)
+        if why:
+            raise ValueError('no graph decode for %s: call %s' % (
+                why, {'beam': 'sample_beam', 'stats': 'sample_stats'}[kind]))
+        if self.graph_recorder is None and self.device.type != 'cuda':
+            prog = make(self.bind(), opt)
+            return prog.result(decoding.run_eager(prog, fc, att, am))
+        key = (kind, freeze_opt(opt), self._graph_dtype(), False) + tuple(
+            None if x is None else (tuple(x.shape), x.dtype)
+            for x in (fc, att, am))
+        entry = self._graph_cache.get(key)
+        if entry is None:
+            recorder = (self.graph_recorder or CudaRecorder)(self.device)
+            entry = GraphDecode(make(self.bind(), opt), fc, att, am,
+                                recorder)
+            self._graph_cache[key] = entry
+        return entry(fc, att, am)
+
+    def graph_launches(self) -> Dict[str, int]:
+        """Kernel wrapper name -> the launches that the replays of every
+        cached graph decode ran."""
+        out: Dict[str, int] = {}
+        for entry in self._graph_cache.values():
+            for name, n in entry.launches().items():
+                out[name] = out.get(name, 0) + n
+        return out
+
+
+class Captioner(DecodeEntries):
     """A model module + static decode metadata, on one device: the GPU
     unless ``device='cpu'`` is asked for (the plain twins of the kernels).
     Without a CUDA device, ``device='cuda'`` raises."""
@@ -84,6 +213,7 @@ class Captioner:
             raise ValueError('caption model not supported: %r'
                              % cfg.caption_model)
         self.cfg = cfg
+        self.vocab = vocab
         self.bad_endings_ix, self.unk_idx = _vocab_indices(vocab,
                                                            cfg.vocab_size)
         if self.unk_idx is None:
@@ -222,6 +352,9 @@ class Captioner:
                            shared_beam_feats=True, step_topk=step_topk,
                            **common)
 
+    def _graph_dtype(self):
+        return self.cfg.dtype
+
     # -- entry points ------------------------------------------------------------
     def forward_tf(self, fc_feats, att_feats, seq, att_masks,
                    train: bool = False, ss_prob: float = 0.0,
@@ -244,25 +377,6 @@ class Captioner:
         with torch.enable_grad():
             return self.module.forward_tf(fc_feats, att_feats, seq,
                                           att_masks, generator, ss_prob)
-
-    @torch.inference_mode()
-    def sample_beam(self, fc_feats, att_feats, att_masks, rng,
-                    opt: Dict[str, Any], want_logps: bool = False):
-        """(seq, {'ent_sum', 'lp_sum'} or with ``want_logps`` the winners'
-        replayed distributions [N, L, V+1], done) — see
-        decoding.sample_beam."""
-        return decoding.sample_beam(self.bind(), fc_feats, att_feats,
-                                    att_masks, rng, opt, want_logps)
-
-    @torch.inference_mode()
-    def sample(self, fc_feats, att_feats, att_masks, rng,
-               opt: Dict[str, Any]):
-        """(seq, the per-step distributions [N, L, V+1]; [N, L] sampled
-        logprobs for diverse groups) — see decoding.sample.  ``rng``: a
-        ``torch.Generator`` on ``self.device`` for the sampling draws (or
-        a ``draw`` callable, or None for seed 0)."""
-        return decoding.sample(self.bind(), fc_feats, att_feats, att_masks,
-                               rng, opt, return_stats=False)
 
     def sample_train(self, fc_feats, att_feats, att_masks, rng,
                      opt: Dict[str, Any], generator: torch.Generator,
@@ -294,102 +408,6 @@ class Captioner:
             with torch.no_grad():
                 for b, v in saved:
                     b.copy_(v)
-
-    @torch.inference_mode()
-    def sample_stats(self, fc_feats, att_feats, att_masks, rng,
-                     opt: Dict[str, Any]):
-        """(seq, {'ent_sum', 'lp_sum'}) for the sample family (greedy,
-        sample, gumbel, top-k, top-p): the sums carried, with the exact
-        early exit.  ``rng`` as in ``sample``."""
-        return decoding.sample(self.bind(), fc_feats, att_feats, att_masks,
-                               rng, opt, return_stats=True)
-
-    # -- graph decodes ----------------------------------------------------------
-    def graph_route(self, kind: str, opt: Dict[str, Any]) -> str:
-        """'' when ``kind`` ('beam' or 'stats') with ``opt`` takes a graph
-        decode, else what keeps it on the eager entry (``sample_beam`` /
-        ``sample_stats``).  The graphs take the single-group beam
-        (``decoding.beam_program``) without the replay, and greedy stats
-        without the step constraints (``decoding.sample_program``)."""
-        if kind == 'beam':
-            if not decoding.beam_fast(opt):
-                return ('the general beam body (diverse groups, '
-                        'decoding_constraint, remove_bad_endings)')
-            bdash = int(opt.get('beam_size', 10) or 10)
-            if int(opt.get('sample_n', 1) or 1) not in (1, bdash):
-                return 'sample_n other than 1 or the beam size'
-            return ''
-        method = opt.get('sample_method', 'greedy') or 'greedy'
-        if (int(opt.get('beam_size', 1) or 1) > 1
-                and method in ('greedy', 'beam_search')):
-            return 'beam search (sample_beam_graphed)'
-        if int(opt.get('group_size', 1) or 1) > 1:
-            return 'diverse sampling groups'
-        if method != 'greedy':
-            return 'the sampling method %r, which draws noise' % method
-        if any(int(opt.get(k, 0) or 0) for k in (
-                'decoding_constraint', 'block_trigrams',
-                'remove_bad_endings')):
-            return 'the step constraints'
-        return ''
-
-    @torch.inference_mode()
-    def sample_beam_graphed(self, fc_feats, att_feats, att_masks, rng,
-                            opt: Dict[str, Any]):
-        """The counterpart of the JAX ``sample_beam_jit(...,
-        want_logps=False)``: (seq, {'ent_sum', 'lp_sum'}, done) as
-        ``sample_beam`` gives them, from a CUDA-graph decode
-        (``engine.graphs``) cached in ``_graph_cache`` by the options, B,
-        the feature shapes and dtypes, the compute dtype and want_logps
-        False.  Temperature, ``suppress_UNK`` and the length penalty are in
-        the key: they are host arguments of B2 and of the penalty, baked
-        into the graphs (the JAX key leaves them out as traced operands).
-        The outputs are fresh tensors.  Options the graphs do not take
-        (``graph_route``) raise: ``sample_beam`` decodes them.  On a CPU
-        captioner the same program runs eagerly: CUDA graphs do not exist
-        there.  ``rng`` is unused, as in beam decoding."""
-        return self._graphed('beam', decoding.beam_program, fc_feats,
-                             att_feats, att_masks, opt)
-
-    @torch.inference_mode()
-    def sample_stats_graphed(self, fc_feats, att_feats, att_masks, rng,
-                             opt: Dict[str, Any]):
-        """The counterpart of the JAX ``sample_stats_jit`` on its greedy
-        route: (seq, {'ent_sum', 'lp_sum'}) as ``sample_stats`` gives them,
-        from a cached CUDA-graph decode, as ``sample_beam_graphed``.  The
-        sampling methods, diverse groups and the step constraints raise
-        (``graph_route``): ``sample_stats`` decodes them.  Greedy draws
-        nothing: ``rng`` is unused."""
-        return self._graphed('stats', decoding.sample_program, fc_feats,
-                             att_feats, att_masks, opt)
-
-    def _graphed(self, kind, make, fc, att, am, opt):
-        why = self.graph_route(kind, opt)
-        if why:
-            raise ValueError('no graph decode for %s: call %s' % (
-                why, {'beam': 'sample_beam', 'stats': 'sample_stats'}[kind]))
-        if self.graph_recorder is None and self.device.type != 'cuda':
-            prog = make(self.bind(), opt)
-            return prog.result(decoding.run_eager(prog, fc, att, am))
-        key = (kind, freeze_opt(opt), self.cfg.dtype, False) + tuple(
-            None if x is None else (tuple(x.shape), x.dtype)
-            for x in (fc, att, am))
-        entry = self._graph_cache.get(key)
-        if entry is None:
-            recorder = (self.graph_recorder or CudaRecorder)(self.device)
-            entry = GraphDecode(make(self.bind(), opt), fc, att, am,
-                                recorder)
-            self._graph_cache[key] = entry
-        return entry(fc, att, am)
-
-    def graph_launches(self) -> Dict[str, int]:
-        """Kernel wrapper name -> the launches that the replays of every
-        cached graph decode ran."""
-        out: Dict[str, int] = {}
-        for entry in self._graph_cache.values():
-            for name, n in entry.launches().items():
-                out[name] = out.get(name, 0) + n
-        return out
 
     def scan_logprobs(self, fc_feats, att_feats, att_masks, gen_seq,
                       generator: Optional[torch.Generator] = None,

@@ -104,23 +104,31 @@ MODES = {
 }
 
 
-def make_captioner(model: str, dtype_name: str, device: str, seed: int = 0):
-    """A ``Captioner`` at the flagship widths, its weights from the port's
-    own init with a seeded generator; the COCO vocab's last entry is
-    UNK."""
-    from ..models.api import setup
+def model_opt(model: str, dtype_name: str) -> SimpleNamespace:
+    """The options of ``model`` at the flagship widths (``MODELS``), COCO
+    vocab, 36 x 2048 features, max length 20."""
+    return SimpleNamespace(caption_model=model, vocab_size=V,
+                           fc_feat_size=FEAT, att_feat_size=FEAT,
+                           max_length=20, compute_dtype=dtype_name,
+                           **MODELS[model])
+
+
+def coco_vocab():
+    """A COCO-sized vocab whose last entry is UNK and every fourth word a
+    function word (``remove_bad_endings`` bans them before EOS)."""
     from ..models.harness import BAD_ENDINGS
-    opt = SimpleNamespace(caption_model=model, vocab_size=V,
-                          fc_feat_size=FEAT, att_feat_size=FEAT,
-                          max_length=20, compute_dtype=dtype_name,
-                          **MODELS[model])
-    # every fourth word a function word (remove_bad_endings bans them
-    # before EOS)
     vocab = {str(i): BAD_ENDINGS[i // 4 % len(BAD_ENDINGS)] if i % 4 == 0
              else 'w%d' % i for i in range(1, V + 1)}
     vocab[str(V)] = 'UNK'
-    return setup(opt, vocab, device).init_params(
-        torch.Generator().manual_seed(seed))
+    return vocab
+
+
+def make_captioner(model: str, dtype_name: str, device: str, seed: int = 0):
+    """A ``Captioner`` at the flagship widths, its weights from the port's
+    own init with a seeded generator, over ``coco_vocab``."""
+    from ..models.api import setup
+    return setup(model_opt(model, dtype_name), coco_vocab(),
+                 device).init_params(torch.Generator().manual_seed(seed))
 
 
 def features(B: int, device: str, seed: int):
@@ -165,11 +173,18 @@ def decode(cap, mode: str, fc, att, am, rng=None, graphed=False):
 def profiled(cap, mode, fc, att, am, graphed):
     """One profiled batch: its wall, device busy, idle share and top
     kernels."""
+    return profile_call(lambda: decode(cap, mode, fc, att, am,
+                                       graphed=graphed))
+
+
+def profile_call(fn):
+    """``profiled`` of one call of ``fn``, whatever it runs on the
+    card."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.time()
-        decode(cap, mode, fc, att, am, graphed=graphed)
+        fn()
         torch.cuda.synchronize()
         wall = 1000 * (time.time() - t)
     events = [e for e in prof.key_averages()

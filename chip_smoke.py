@@ -147,8 +147,9 @@ Phases, in order; any failure raises and exits non-zero:
    over one ``sc_decode`` at 10 x 5.  For each: 3 steps a route with the
    sampled and greedy sequences identical, loss and reward within 1e-6
    relative, then every parameter and Adam moment within 1e-5 of its
-   tensor's largest magnitude; 10 timed steps a route in turns (blocks
-   of 5: eager, graph, graph, eager), their medians by host wall and CUDA events, the routes' peak
+   tensor's largest magnitude; timed steps in turns (blocks of 2
+   eager, 5 graph, 5 graph, 2 eager), their medians by host wall and
+   CUDA events, the routes' peak
    memory and the graph's pool; one profiled step a route (device busy,
    idle share); the kernels the graph holds required (B3 17 a step for
    UpDown XE, B3 34 and B5 51 for StackAtt, none for the transformer; B3
@@ -199,7 +200,23 @@ Phases, in order; any failure raises and exits non-zero:
    its f32 agreement at B = 8; the XE and fused SCST steps of each at 10
    x 5, graph against eager bit for bit over 3 steps (the graph holding
    B1 120 and B2 20 a SCST step, nothing on XE); one float32 XE step of
-   each, card against CPU by phase 9's rules.
+   each, card against CPU by phase 9's rules;
+17. the ensemble and the raw-image route: (a) the transformer and UpDown
+   of phases 4 and 6 (their own seeded inits) as an ``EnsembleCaptioner``
+   at weights 1:1, beam 5 and greedy at B = 1024, bf16, through
+   ``eval_utils.eval_split`` over seeded random 36 x 2048 features, eager
+   and graphed in turns as phase 14 runs them (B1, B3 and the top-k
+   required on beam, B1 and B3 on greedy; graph captions equal to eager),
+   cap/s, busy and idle share on a line of their own; one graph batch at
+   weights 1:3; float32 at B = 8, the card's tokens equal to the CPU's;
+   (b) a seeded random torchvision-format resnet101, 16 seeded images at
+   COCO-like sizes (JPEG, or binary PPM read by a numpy reader of this
+   script's where PIL is missing) and a full-width transformer checkpoint
+   with its infos pickle: ``tools/eval_torch.py --image_folder
+   --beam_size 5 --batch_size 16`` as a subprocess (a caption for every
+   image, B1 and B2 required); the ResNet's ms per image; the fc and att
+   features of two images, card against CPU, within 1e-4 of each
+   tensor's largest magnitude (float32, TF32 off).
 
 Each decode mode requires the kernels its path runs: the top-k only in
 beam (the RNN plain-step route; the transformer's fused route selects in
@@ -1800,9 +1817,10 @@ def graph_train_case(torch, kind, model, B, scorer, wrappers, exact=False):
     from one init, batch and generator seeds.  3 steps each, held against
     each other (sequences identical, loss and reward within 1e-6
     relative, then every parameter and optimizer moment within 1e-5 of
-    its tensor's largest magnitude; with ``exact``, bit for bit); 10
-    timed steps a route in turns, blocks of 5 (eager, graph, graph,
-    eager), each ending in a
+    its tensor's largest magnitude; with ``exact``, bit for bit); timed
+    steps in turns, blocks of 2 eager, 5 graph, 5 graph, 2 eager (the
+    host-paced eager step, up to 3 s, is timed 4 times, the graph 10),
+    each ending in a
     synchronize (host wall and CUDA events), with each route's peak
     memory over what was allocated before (the graph's temporaries live
     in its pool, whose size is given); one profiled step a route (device
@@ -1863,13 +1881,13 @@ def graph_train_case(torch, kind, model, B, scorer, wrappers, exact=False):
     replays_before = entry.replays
     eager_launches = dict.fromkeys(wrappers, 0)
     it = 4
-    for graphed in (False, True, True, False):
+    for graphed, steps in ((False, 2), (True, 5), (True, 5), (False, 2)):
         step = sg if graphed else se
         before = {n: fn.launches for n, fn in wrappers.items()}
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        for _ in range(5):
+        for _ in range(steps):
             _, wall, dev = timed(torch, lambda: step(it))
             walls[graphed].append(wall)
             events[graphed].append(dev)
@@ -1883,7 +1901,8 @@ def graph_train_case(torch, kind, model, B, scorer, wrappers, exact=False):
         if not graphed:
             for n, d in delta.items():
                 eager_launches[n] += d
-    eager_per_step = {n: c // 10 for n, c in eager_launches.items() if c}
+    eager_per_step = {n: c // len(walls[False])
+                      for n, c in eager_launches.items() if c}
     if eager_per_step != want:
         raise AssertionError('%s: the eager step launched %s a step, the '
                              'graph holds %s' % (what, eager_per_step, want))
@@ -1976,20 +1995,90 @@ PHASE14 = {'aoa': ([], ['topk_lastdim']),
 PHASE14_TRAIN = [('xe', 'aoa', 10), ('scst', 'aoa', 10)]
 
 
-def new_key_decodes(torch, model, wrappers, table=PHASE14):
-    """Beam 5 and greedy of ``model`` at B = 1024, bf16, eager and graphed:
-    the eager path with the counters set to 0 just before its first batch
-    and its kernels required just after; the graph's capture (time, MiB)
-    and held kernels (required); 3 batches a route in turns (eager, graph,
-    graph, eager, eager, graph) with no wrapper launch on a graph batch;
-    the replays' launches (required); graph tokens equal to eager
-    (required); cap/s at each route's median; one profiled batch a route
-    (device busy, idle share).  Then float32 at B = 8: the card's tokens
-    equal to the CPU's (required).  ``table``: model -> (the kernels its
-    decodes run in both modes, in beam only).  Returns (record,
-    launches)."""
+def graph_turns(torch, wrappers, cap, decode, required, what, n):
+    """The eager and graph routes of one decode of ``n`` captions, as
+    phases 14, 16 and 17 run them; ``decode(graphed)`` decodes one batch
+    through ``cap``'s eager or graph entry.  The counters set to 0 just
+    before the eager warm-up and ``required`` (kernels by the wrappers'
+    names) required just after; the graphs' capture (time, MiB) and held
+    kernels (required); 3 batches a route in turns (eager, graph, graph,
+    eager, eager, graph) with no wrapper launch on a graph batch; the
+    replays' launches (required); cap/s at each route's median; one
+    profiled batch a route (device busy, idle share).  Returns (record,
+    {graphed: that route's last output}, {kernel: the launches of the
+    eager batches and of the replays})."""
     from captioning_tpu_torch.tools import profile_decode as pd
     short = {fn.__name__: name for name, fn in wrappers.items()}
+    for fn in wrappers.values():
+        fn.launches = 0
+    decode(False)                                      # eager warm-up
+    torch.cuda.synchronize()
+    for name in required:
+        if wrappers[name].launches <= 0:
+            raise AssertionError('%s was never launched on the eager %s '
+                                 'path' % (name, what))
+    t = time.time()
+    decode(True)
+    torch.cuda.synchronize()
+    first_s = time.time() - t
+    entry = list(cap._graph_cache.values())[-1]
+    held = {short.get(k, k): c for k, c in entry.held().items()}
+    for name in required:
+        if held.get(name, 0) <= 0:
+            raise AssertionError('%s is not among the %s graphs\' captures '
+                                 '%s' % (name, what, held))
+    before = cap.graph_launches()
+    walls = {False: [], True: []}
+    outs = {}
+    for graphed in (False, True, True, False, False, True):
+        base = {k: fn.launches for k, fn in wrappers.items()}
+        outs[graphed], wall, dev = timed(torch, lambda: decode(graphed))
+        walls[graphed].append([round(wall, 3), round(dev, 3)])
+        delta = {k: fn.launches - base[k] for k, fn in wrappers.items()}
+        if graphed and any(delta.values()):
+            raise AssertionError('a %s graph batch launched kernels outside '
+                                 'its graphs: %s' % (what, delta))
+    prof = {name: pd.profile_call(lambda g=g: decode(g))
+            for name, g in (('eager', False), ('graph', True))}
+    replayed = {short.get(k, k): c - before.get(k, 0)
+                for k, c in cap.graph_launches().items()
+                if c - before.get(k, 0)}
+    for name in required:
+        if replayed.get(name, 0) <= 0:
+            raise AssertionError('the %s graphs never ran %s' % (what, name))
+    rate = {name: n / (sorted(w[0] for w in walls[g])[1] / 1000)
+            for name, g in (('eager', False), ('graph', True))}
+    rec = {'capture_s': round(entry.capture_s, 3),
+           'first_call_s': round(first_s, 3),
+           'graph_cache_mib': entry.bytes_reserved / 2 ** 20,
+           'held': held, 'replay_launches': replayed,
+           'eager_ms_events': walls[False], 'graph_ms_events': walls[True],
+           'cap_s': rate,
+           'busy_ms': {k: v['device_busy_ms'] for k, v in prof.items()},
+           'idle_share': {k: v['idle_share'] for k, v in prof.items()},
+           'top_kernels_graph': [(k['name'][:60], round(k['ms'], 3))
+                                 for k in prof['graph']['kernels'][:6]]}
+    log('  cap/s %s: eager %.1f, graph %.1f; busy eager %.2f / graph %.2f '
+        'ms a batch, idle eager %.3f / graph %.3f' % (
+            what, rate['eager'], rate['graph'], rec['busy_ms']['eager'],
+            rec['busy_ms']['graph'], rec['idle_share']['eager'],
+            rec['idle_share']['graph']))
+    log('  %s: capture %.2f s (first call %.2f s), graph cache %.1f MiB; '
+        'walls [host ms, event ms] eager %s, graph %s; held %s, replays ran '
+        '%s' % (what, entry.capture_s, first_s, rec['graph_cache_mib'],
+                walls[False], walls[True], held, replayed))
+    launches = {k: fn.launches + replayed.get(k, 0)
+                for k, fn in wrappers.items()}
+    return rec, outs, launches
+
+
+def new_key_decodes(torch, model, wrappers, table=PHASE14):
+    """Beam 5 and greedy of ``model`` at B = 1024, bf16, eager and graphed
+    (``graph_turns``), graph tokens equal to eager (required).  Then
+    float32 at B = 8: the card's tokens equal to the CPU's (required).
+    ``table``: model -> (the kernels its decodes run in both modes, in
+    beam only).  Returns (record, launches)."""
+    from captioning_tpu_torch.tools import profile_decode as pd
     both, beam_only = table[model]
     launches = dict.fromkeys(wrappers, 0)
     record = {}
@@ -1998,78 +2087,17 @@ def new_key_decodes(torch, model, wrappers, table=PHASE14):
     B = 1024
     fc, att, am = pd.features(B, 'cuda', seed=1)
     for mode in ('beam5', 'greedy'):
-        required = both + (beam_only if mode == 'beam5' else [])
-        for fn in wrappers.values():
-            fn.launches = 0
-        pd.decode(cap, mode, fc, att, am)                  # eager warm-up
-        torch.cuda.synchronize()
-        counts = {n: fn.launches for n, fn in wrappers.items()}
-        for name in required:
-            if counts[name] <= 0:
-                raise AssertionError('%s was never launched on the eager '
-                                     '%s %s path' % (name, model, mode))
-        t = time.time()
-        pd.decode(cap, mode, fc, att, am, graphed=True)
-        torch.cuda.synchronize()
-        first_s = time.time() - t
-        entry = list(cap._graph_cache.values())[-1]
-        held = {short.get(k, k): n for k, n in entry.held().items()}
-        for name in required:
-            if held.get(name, 0) <= 0:
-                raise AssertionError('%s is not among the %s %s graphs\' '
-                                     'captures %s' % (name, model, mode,
-                                                      held))
-        before = cap.graph_launches()
-        walls = {False: [], True: []}
-        outs = {}
-        for graphed in (False, True, True, False, False, True):
-            base = {n: fn.launches for n, fn in wrappers.items()}
-            outs[graphed], wall, dev = timed(torch, lambda: pd.decode(
-                cap, mode, fc, att, am, graphed=graphed))
-            walls[graphed].append([round(wall, 3), round(dev, 3)])
-            delta = {n: fn.launches - base[n] for n, fn in wrappers.items()}
-            if graphed and any(delta.values()):
-                raise AssertionError('a %s %s graph batch launched kernels '
-                                     'outside its graphs: %s'
-                                     % (model, mode, delta))
-        prof = {name: pd.profiled(cap, mode, fc, att, am, graphed)
-                for name, graphed in (('eager', False), ('graph', True))}
-        replayed = {short.get(k, k): n - before.get(k, 0)
-                    for k, n in cap.graph_launches().items()
-                    if n - before.get(k, 0)}
-        for name in required:
-            if replayed.get(name, 0) <= 0:
-                raise AssertionError('the %s %s graphs never ran %s'
-                                     % (model, mode, name))
+        rec, outs, counts = graph_turns(
+            torch, wrappers, cap, lambda g, mode=mode: pd.decode(
+                cap, mode, fc, att, am, graphed=g),
+            both + (beam_only if mode == 'beam5' else []),
+            '%s %s B=1024 bf16' % (model, mode), B)
         (sg, stg), (se, ste) = outs[True], outs[False]
         check_output(torch, sg, stg, B, 20, pd.V)
         same = (sg == se).all(1).float().mean().item()
-        rate = {name: B / (sorted(w[0] for w in walls[g])[1] / 1000)
-                for name, g in (('eager', False), ('graph', True))}
-        rec = {'capture_s': round(entry.capture_s, 3),
-               'first_call_s': round(first_s, 3),
-               'graph_cache_mib': entry.bytes_reserved / 2 ** 20,
-               'held': held, 'replay_launches': replayed,
-               'eager_ms_events': walls[False],
-               'graph_ms_events': walls[True], 'cap_s': rate,
-               'busy_ms': {k: v['device_busy_ms'] for k, v in prof.items()},
-               'idle_share': {k: v['idle_share'] for k, v in prof.items()},
-               'top_kernels_graph': [(k['name'][:60], round(k['ms'], 3))
-                                     for k in prof['graph']['kernels'][:6]],
-               'bf16_tokens_identical': same}
-        log('  cap/s %s %s: eager %.1f, graph %.1f' % (
-            model, mode, rate['eager'], rate['graph']))
-        log('  %s %s B=1024 bf16: capture %.2f s (first call %.2f s), '
-            'graph cache %.1f MiB; walls [host ms, event ms] eager %s, '
-            'graph %s; busy eager %.2f / graph %.2f ms, idle eager %.3f / '
-            'graph %.3f; graph tokens identical to eager %.4f; held %s, '
-            'replays ran %s' % (model, mode, entry.capture_s, first_s,
-                                rec['graph_cache_mib'], walls[False],
-                                walls[True], rec['busy_ms']['eager'],
-                                rec['busy_ms']['graph'],
-                                rec['idle_share']['eager'],
-                                rec['idle_share']['graph'], same, held,
-                                replayed))
+        rec['bf16_tokens_identical'] = same
+        log('  %s %s: graph tokens identical to eager %.4f'
+            % (model, mode, same))
         if same < 1:
             raise AssertionError('bf16 %s %s: graph and eager tokens differ '
                                  '(%.4f identical): %s' % (
@@ -2078,8 +2106,8 @@ def new_key_decodes(torch, model, wrappers, table=PHASE14):
                                                     se, sg))))
         # the mode's eager batches (the warm-up, the walls, the profiled
         # one) and its graphs' replays
-        for n, fn in wrappers.items():
-            launches[n] += fn.launches + replayed.get(n, 0)
+        for n, c in counts.items():
+            launches[n] += c
         record['%s %s' % (model, mode)] = rec
     del cap, outs, sg, se
     torch.cuda.empty_cache()
@@ -2501,6 +2529,390 @@ def phase_bf16_train(torch, wrappers, scorer=None):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the ensemble and the raw-image route
+# ---------------------------------------------------------------------------
+
+# the ensemble's members (profile_decode.MODELS) and, by mode, the kernels
+# its eval decodes must run: B1 (the transformer's self-attention), B3
+# (UpDown's attention) and, in beam, the candidate selection (row 7): the
+# ensemble's vocab epilogue is the plain-step route, so no B2
+PHASE17_MEMBERS = ('transformer', 'updown')
+PHASE17 = {'beam5': ['attend_write_merged', 'additive_attention',
+                     'topk_lastdim'],
+           'greedy': ['attend_write_merged', 'additive_attention']}
+# COCO-like image sizes (H, W), 16 images
+PHASE17_SIZES = [(480, 640), (640, 480), (375, 500), (640, 427),
+                 (427, 640), (500, 375), (480, 640), (512, 640),
+                 (333, 500), (640, 425), (424, 640), (500, 333),
+                 (480, 640), (640, 480), (360, 640), (612, 612)]
+# the raw-image subprocess: tools/eval_torch.py run as ``__main__`` with
+# its eval_split wrapped to read the graph decodes' replays, then every
+# kernel wrapper's launches (its own eager ones and the replays) on the
+# last line; with ``ppm`` first, the loader reads the P6 files by
+# ``read_ppm``
+PHASE17_DRIVER = r'''
+import json, os, runpy, sys
+repo = sys.argv[1]
+sys.path.insert(0, repo)
+from captioning_tpu_torch.ops import _build
+from captioning_tpu_torch.utils import eval_utils
+if sys.argv[2] == 'ppm':
+    from captioning_tpu_torch.data import dataloaderraw
+    from chip_smoke import read_ppm
+    dataloaderraw._load_image = read_ppm
+replays = {}
+split = eval_utils.eval_split
+
+
+def eval_split(captioner, loader, kwargs):
+    out = split(captioner, loader, kwargs)
+    replays.update(captioner.graph_launches())
+    return out
+
+
+eval_utils.eval_split = eval_split
+sys.argv = ['eval_torch.py'] + sys.argv[3:]
+runpy.run_path(os.path.join(repo, 'tools', 'eval_torch.py'),
+               run_name='__main__')
+print('launches ' + json.dumps({n: f.launches + replays.get(n, 0)
+                                for n, f in _build.COUNTED.items()}))
+'''
+
+
+class FeatureLoader:
+    """The loader ``eval_split`` reads: one batch of seeded random region
+    features (numpy, as a loader gives them), no labels."""
+
+    def __init__(self, fc, att, am, vocab):
+        self.batch = {'fc_feats': fc, 'att_feats': att, 'att_masks': am,
+                      'labels': None, 'masks': None,
+                      'infos': [{'id': i, 'file_path': ''}
+                                for i in range(fc.shape[0])],
+                      'bounds': {'it_pos_now': 0, 'it_max': fc.shape[0],
+                                 'wrapped': True}}
+        self.vocab = vocab
+
+    def reset_iterator(self, split):
+        pass
+
+    def get_vocab(self):
+        return self.vocab
+
+    def get_batch(self, split):
+        return self.batch
+
+
+class EagerRoute:
+    """A captioner whose graph route declines every decode, so that
+    ``eval_split`` takes its eager entries."""
+
+    def __init__(self, captioner):
+        self._captioner = captioner
+
+    def __getattr__(self, name):
+        return getattr(self._captioner, name)
+
+    def graph_route(self, kind, opt):
+        return 'the eager turn'
+
+
+def ensemble_decodes(torch, wrappers):
+    """Phase 17 (a): the transformer and UpDown at full width (their own
+    seeded inits), weights 1:1, beam 5 and greedy at B = 1024, bf16,
+    through ``eval_utils.eval_split`` over seeded random 36 x 2048
+    features, eager and graphed (``graph_turns``), graph captions equal
+    to eager (required); one graph batch at weights 1:3; then float32 at
+    B = 8, the card's tokens equal to the CPU's (required).  Returns
+    (record, launches)."""
+    import math
+
+    from captioning_tpu_torch.models.ensemble import EnsembleCaptioner
+    from captioning_tpu_torch.tools import profile_decode as pd
+    from captioning_tpu_torch.utils import eval_utils
+    launches = dict.fromkeys(wrappers, 0)
+    record = {}
+    torch.cuda.empty_cache()
+    members = [pd.make_captioner(m, 'bfloat16', 'cuda', seed=i)
+               for i, m in enumerate(PHASE17_MEMBERS)]
+    ens = EnsembleCaptioner(members, [1.0, 1.0])
+    B = 1024
+    fc, att, am = (x.numpy() for x in pd.features(B, 'cpu', seed=3))
+    loader = FeatureLoader(fc, att, am, pd.coco_vocab())
+    kws = {mode: dict(opt, split='test', num_images=B, language_eval=0,
+                      verbose=False, max_length=20, id='phase17')
+           for mode, opt in (('beam5', {'beam_size': 5, 'suppress_UNK': 1}),
+                             ('greedy', {'beam_size': 1,
+                                         'sample_method': 'greedy'}))}
+    for mode, required in PHASE17.items():
+        kw = kws[mode]
+        rec, outs, counts = graph_turns(
+            torch, wrappers, ens, lambda g, kw=kw: eval_utils.eval_split(
+                ens if g else EagerRoute(ens), loader, kw)[1],
+            required, 'ensemble %s (eval_split) B=1024 bf16' % mode, B)
+        got, want = outs[True], outs[False]
+        if len(got) != B or not all(
+                math.isfinite(p['perplexity']) for p in got):
+            raise AssertionError('ensemble %s: %d predictions, or a '
+                                 'perplexity not finite' % (mode, len(got)))
+        same = sum(a['caption'] == b['caption']
+                   for a, b in zip(got, want)) / B
+        rec['graph_captions_identical'] = same
+        log('  ensemble %s: graph captions identical to eager %.4f'
+            % (mode, same))
+        if same < 1:
+            raise AssertionError('bf16 ensemble %s: graph and eager captions '
+                                 'differ (%.4f identical)' % (mode, same))
+        for n, c in counts.items():
+            launches[n] += c
+        record['ensemble %s' % mode] = rec
+        ens._graph_cache.clear()
+        torch.cuda.empty_cache()
+    # weights 1:3, one graph batch (its warm-up's eager launches and its
+    # replays)
+    for fn in wrappers.values():
+        fn.launches = 0
+    skew = EnsembleCaptioner(members, [1.0, 3.0])
+    preds, wall, _ = timed(torch, lambda: eval_utils.eval_split(
+        skew, loader, kws['beam5'])[1])
+    replayed = skew.graph_launches()
+    for name in PHASE17['beam5']:
+        if replayed.get(wrappers[name].__name__, 0) <= 0:
+            raise AssertionError('the 1:3 ensemble beam never ran %s' % name)
+    for n, fn in wrappers.items():
+        launches[n] += fn.launches + replayed.get(fn.__name__, 0)
+    record['ensemble beam5 1:3'] = {'first_call_ms': round(wall, 3),
+                                    'captions': len(preds)}
+    log('  ensemble beam5 at weights 1:3 (capture and one batch): %.1f ms, '
+        '%d captions' % (wall, len(preds)))
+    del ens, skew, members
+    torch.cuda.empty_cache()
+    torch.set_num_threads(min(8, os.cpu_count() or 1))
+    ens = {dev: EnsembleCaptioner([
+        pd.make_captioner(m, 'float32', dev, seed=i)
+        for i, m in enumerate(PHASE17_MEMBERS)], [1.0, 3.0])
+        for dev in ('cuda', 'cpu')}
+    fc, att, am = pd.features(8, 'cpu', seed=4)
+    for fn in wrappers.values():
+        fn.launches = 0
+    for mode in PHASE17:
+        out = {}
+        for dev, cap in ens.items():
+            x = [t.to(dev) for t in (fc, att, am)]
+            if mode == 'beam5':
+                seq, stats, _ = cap.sample_beam(*x, None, pd.BEAM)
+            else:
+                seq, stats = cap.sample_stats(*x, None, pd.GREEDY)
+            out[dev] = (seq.cpu(), stats['lp_sum'].cpu())
+        same = (out['cuda'][0] == out['cpu'][0]).all(1).float().mean().item()
+        err = (out['cuda'][1] - out['cpu'][1]).abs().max().item()
+        record['ensemble %s f32 B=8' % mode] = {
+            'card_cpu_tokens_identical': same, 'lp_sum_max_diff': err}
+        log('  ensemble f32 %s B=8: card tokens identical to the CPU\'s '
+            '%.3f, max lp_sum diff %.2e' % (mode, same, err))
+        if same < 1:
+            raise AssertionError('f32 ensemble %s: card and CPU tokens '
+                                 'differ (%.3f identical)' % (mode, same))
+    for n, fn in wrappers.items():
+        launches[n] += fn.launches
+        fn.launches = 0
+    del ens
+    torch.cuda.empty_cache()
+    return record, launches
+
+
+def read_ppm(path):
+    """A binary PPM (P6) as ``_write_images`` writes it, as the loader's
+    ``_load_image`` gives an image: [H, W, 3] float32 in [0, 1]."""
+    import numpy as np
+    with open(path, 'rb') as f:
+        _, size, _, pixels = f.read().split(b'\n', 3)
+    w, h = map(int, size.split())
+    return np.frombuffer(pixels, np.uint8).reshape(h, w, 3).astype(
+        'float32') / 255.0
+
+
+def _write_images(torch, folder, ppm):
+    """The 16 seeded images of ``PHASE17_SIZES`` in ``folder``: JPEG by
+    PIL, or binary PPM (P6) without it.  Smooth random colour fields with
+    noise, so that the JPEG codec has real work.  Returns their paths."""
+    os.makedirs(folder, exist_ok=True)
+    g = torch.Generator().manual_seed(17)
+    paths = []
+    for i, (h, w) in enumerate(PHASE17_SIZES):
+        low = torch.rand(1, 3, h // 16 + 1, w // 16 + 1, generator=g)
+        img = torch.nn.functional.interpolate(low, (h, w), mode='bilinear',
+                                              align_corners=False)[0]
+        img = img + 0.1 * torch.rand(3, h, w, generator=g)
+        arr = (img.clamp(0, 1) * 255).to(torch.uint8).permute(1, 2, 0)
+        arr = arr.contiguous().numpy()
+        path = os.path.join(folder, 'img%02d.%s' % (i, 'ppm' if ppm
+                                                    else 'jpg'))
+        if ppm:
+            with open(path, 'wb') as f:
+                f.write(b'P6\n%d %d\n255\n' % (w, h) + arr.tobytes())
+        else:
+            from PIL import Image
+            Image.fromarray(arr).save(path, quality=90)
+        paths.append(path)
+    return paths
+
+
+def raw_image_route(torch, wrappers, root):
+    """Phase 17 (b) in ``root``: a seeded random torchvision-format
+    resnet101 at ``data/imagenet_weights/resnet101.pth``, 16 seeded images
+    at COCO-like sizes, a full-width transformer checkpoint (the port's
+    seeded init through ``Captioner.jax_variables``, bf16 compute) with
+    its infos pickle; ``tools/eval_torch.py --image_folder --beam_size 5
+    --batch_size 16`` from ``root`` as a subprocess: a caption for every
+    image and B1 and B2 launched (required); the ResNet's ms per image on
+    the card (the extractor alone, and the loader's batch with the image
+    reads); the fc and att features of two images, card against CPU,
+    within 1e-4 of each tensor's largest magnitude (float32, TF32 off).
+    Returns (record, launches)."""
+    from captioning_tpu_torch.data import dataloaderraw
+    from captioning_tpu_torch.models import resnet
+    from captioning_tpu_torch.tools import profile_decode as pd
+    from captioning_tpu_torch.utils import misc
+    try:
+        import PIL  # noqa: F401
+        ppm = False
+    except ImportError:
+        ppm = True
+    record = {'image_format': 'ppm (no PIL: numpy P6 reader)' if ppm
+              else 'jpeg (PIL)'}
+    launches = dict.fromkeys(wrappers, 0)
+    wdir = os.path.join(root, 'data', 'imagenet_weights')
+    os.makedirs(wdir, exist_ok=True)
+    weights = os.path.join(wdir, 'resnet101.pth')
+    torch.save(resnet.random_state_dict('resnet101',
+                                        torch.Generator().manual_seed(5)),
+               weights)
+    paths = _write_images(torch, os.path.join(root, 'imgs'), ppm)
+    opt = pd.model_opt('transformer', 'bfloat16')
+    opt.id = 'phase17'
+    vocab = pd.coco_vocab()
+    cap = pd.make_captioner('transformer', 'float32', 'cpu', seed=6)
+    misc.save_pytree(cap.jax_variables(), os.path.join(root, 'model.npz'))
+    with open(os.path.join(root, 'infos_phase17.pkl'), 'wb') as f:
+        misc.pickle_dump({'opt': opt, 'vocab': vocab}, f)
+    del cap
+    log('  phase 17 (b): images as %s' % record['image_format'])
+    t = time.time()
+    proc = subprocess.run(
+        [sys.executable, '-c', PHASE17_DRIVER, HERE,
+         'ppm' if ppm else 'pil', '--model', 'model.npz', '--infos_path',
+         'infos_phase17.pkl', '--image_folder', 'imgs', '--beam_size', '5',
+         '--batch_size', '16', '--language_eval', '0', '--force', '1',
+         '--dump_images', '0'], cwd=root, capture_output=True, text=True,
+        timeout=600)
+    record['eval_subprocess_s'] = round(time.time() - t, 1)
+    if proc.returncode:
+        raise AssertionError('tools/eval_torch.py --image_folder failed: %s'
+                             % proc.stderr[-3000:])
+    ran = json.loads([ln for ln in proc.stdout.splitlines()
+                      if ln.startswith('launches ')][-1][len('launches '):])
+    with open(os.path.join(root, 'vis', 'vis.json')) as f:
+        preds = json.load(f)
+    ids = sorted(int(p['image_id']) for p in preds)
+    if ids != list(range(1, len(paths) + 1)) or not all(
+            p['caption'] for p in preds):
+        raise AssertionError('--image_folder: captions for images %s of %d'
+                             % (ids, len(paths)))
+    for name in ('attend_write_merged', 'logit_topk'):
+        if ran.get(name, 0) <= 0:
+            raise AssertionError('--image_folder never launched %s: %s'
+                                 % (name, ran))
+    for name, fn in wrappers.items():
+        launches[name] += ran.get(fn.__name__, 0)
+    record['launches'] = {k: v for k, v in ran.items() if v}
+    record['captions'] = [p['caption'] for p in preds[:2]]
+    log('  --image_folder (subprocess %.1f s): %d captions, e.g. %s; '
+        'kernel launches %s' % (record['eval_subprocess_s'], len(preds),
+                                json.dumps(record['captions']),
+                                record['launches']))
+    # the extractor alone, and the loader's batch of 16 with its reads
+    if ppm:
+        dataloaderraw._load_image = read_ppm
+    imgs = [dataloaderraw._load_image(p) for p in paths]
+    model = resnet.load_resnet(weights, 'resnet101', 'cuda')
+    # each image twice: its size's first call (cuDNN's choice of
+    # algorithms), then a call at a size seen before
+    ms = {}
+    for turn in ('first', 'again'):
+        ms[turn] = [timed(torch, lambda img=img: resnet.resnet_features(
+            model, img))[2] for img in imgs]
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        loader = dataloaderraw.DataLoaderRaw({'folder_path': 'imgs',
+                                              'batch_size': 16})
+        loader.get_batch('test')
+        t = time.time()
+        loader.get_batch('test')
+        batch_ms = 1000 * (time.time() - t) / 16
+    finally:
+        os.chdir(cwd)
+    record['resnet101_ms_per_image'] = dict(
+        {'extractor_%s' % turn: [sorted(v)[len(v) // 2], min(v), max(v)]
+         for turn, v in ms.items()}, loader_batch_of_16=batch_ms)
+    log('  resnet101 float32 (TF32 off) on the card, ms per image at '
+        'COCO-like sizes (CUDA events, median / min / max): the extractor '
+        'at a size seen before %.2f / %.2f / %.2f, at its size\'s first '
+        'call %.2f / %.2f / %.2f; the loader\'s batch of 16 with the image '
+        'reads %.2f (host wall)' % tuple(
+            record['resnet101_ms_per_image']['extractor_again']
+            + record['resnet101_ms_per_image']['extractor_first']
+            + [batch_ms]))
+    cpu_model = resnet.load_resnet(weights, 'resnet101', 'cpu')
+    errs = []
+    for img in imgs[:2]:
+        got = resnet.resnet_features(model, img)
+        want = resnet.resnet_features(cpu_model, img)
+        for g_, w_ in zip(got, want):
+            err = ((g_.cpu() - w_).abs().max() / w_.abs().max()).item()
+            errs.append(err)
+            if not err <= 1e-4:
+                raise AssertionError('resnet101 features, card against CPU: '
+                                     '%.3g of the largest magnitude' % err)
+    record['resnet_card_cpu_rel_err'] = max(errs)
+    log('  resnet101 features card against CPU (two images, fc and att): '
+        'worst %.3g of each tensor\'s largest magnitude (limit 1e-4)'
+        % max(errs))
+    del model, cpu_model
+    torch.cuda.empty_cache()
+    return record, launches
+
+
+def phase_ensemble_raw(torch, wrappers):
+    """Phase 17: the ensemble (``ensemble_decodes``) and the raw-image
+    route (``raw_image_route``), in a scratch directory under ``build/``
+    that ``eval_split`` writes its predictions into.  Returns the
+    launches of the phase."""
+    import shutil
+    root = os.path.join(HERE, 'build', 'phase17')
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    cwd = os.getcwd()
+    os.chdir(root)
+    launches = dict.fromkeys(wrappers, 0)
+    try:
+        t = time.time()
+        rec, counts = ensemble_decodes(torch, wrappers)
+        log('  ensemble: %.1f s' % (time.time() - t))
+        t = time.time()
+        raw, raw_counts = raw_image_route(torch, wrappers, root)
+        log('  raw-image route: %.1f s' % (time.time() - t))
+    finally:
+        os.chdir(cwd)
+    shutil.rmtree(root, ignore_errors=True)
+    rec['raw images'] = raw
+    log('  ensemble / raw-image record: %s' % json.dumps(rec))
+    for n in launches:
+        launches[n] += counts[n] + raw_counts[n]
+    return launches
+
+
 def main():
     import torch
     wall = time.time()
@@ -2685,6 +3097,13 @@ def main():
     for name, n in phase_bert_m2(torch, wrappers, scorer).items():
         launches[name] += n
     log('phase 16: %.1f s' % (time.time() - t))
+
+    log('phase 17: the ensemble through eval_split, and the raw-image route '
+        '(ResNet, tools/eval_torch.py --image_folder)')
+    t = time.time()
+    for name, n in phase_ensemble_raw(torch, wrappers).items():
+        launches[name] += n
+    log('phase 17: %.1f s' % (time.time() - t))
 
     bad = [m for m in sys.modules
            if m.split('.')[0] in ('jax', 'flax', 'optax', 'captioning_tpu')]

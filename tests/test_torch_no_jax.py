@@ -7,8 +7,10 @@ second through a recorder and the graph cache), an XE train step and a
 fused SCST step (its reward on ``ops/cider_device.py``) run, for the
 transformer and for RNN captioners of each family (UpDown, StackAtt,
 NewFC, LM, AdaAttMO).  An AST scan of the port's
-sources, ``chip_smoke.py``, ``tools/eval_torch.py`` and
-``tools/train_torch.py`` finds no such import either, lazy ones included.
+sources, ``chip_smoke.py``, ``tools/eval_torch.py``,
+``tools/eval_ensemble_torch.py``, ``tools/train_torch.py`` and
+``scripts/prepro_feats_torch.py`` finds no such import either, lazy ones
+included.
 The entry points default to the GPU."""
 
 import ast
@@ -131,7 +133,9 @@ def test_rnn_port_runs_without_jax(model):
 def _sources():
     out = [os.path.join(REPO, 'chip_smoke.py'),
            os.path.join(REPO, 'tools', 'eval_torch.py'),
-           os.path.join(REPO, 'tools', 'train_torch.py')]
+           os.path.join(REPO, 'tools', 'eval_ensemble_torch.py'),
+           os.path.join(REPO, 'tools', 'train_torch.py'),
+           os.path.join(REPO, 'scripts', 'prepro_feats_torch.py')]
     for root, _, files in os.walk(PKG):
         out += [os.path.join(root, f) for f in files if f.endswith('.py')]
     return sorted(out)

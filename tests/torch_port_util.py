@@ -160,3 +160,39 @@ def jax_draws(seed, steps):
         fn = jax.random.uniform if kind == 'uniform' else jax.random.gumbel
         return torch.from_numpy(np.array(fn(keys[t, 1], tuple(shape))))
     return draw
+
+
+def port_cli_beside(argv, cwd, jax_side):
+    """Run the port's script ``argv`` (a path, then its arguments) as a
+    subprocess in ``cwd`` while ``jax_side()`` runs the JAX package's
+    counterpart in this process (its JAX import and compiles shared with
+    the other tests); the subprocess must exit 0."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo, OMP_NUM_THREADS='1')
+    with open(os.path.join(cwd, 'port_stderr.txt'), 'w') as err, \
+            open(os.path.join(cwd, 'port_stdout.txt'), 'w') as out:
+        proc = subprocess.Popen([sys.executable] + list(argv), cwd=cwd,
+                                env=env, stdout=out, stderr=err)
+        try:
+            jax_side()
+        finally:
+            rc = proc.wait(timeout=300)
+    with open(os.path.join(cwd, 'port_stderr.txt')) as f:
+        assert rc == 0, f.read()[-3000:]
+
+
+def jax_tool_main(path, argv, monkeypatch):
+    """``main()`` of the JAX package's script at ``path`` in this process,
+    with ``sys.argv`` set to ``argv``."""
+    import importlib.util
+    import sys
+
+    spec = importlib.util.spec_from_file_location('jax_tool', path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    monkeypatch.setattr(sys, 'argv', [path] + list(argv))
+    mod.main()

@@ -16,12 +16,19 @@ reaches the decode: beam search with diverse groups (``--group_size``,
 scored with the diversity metrics.  The options, the data loader and the
 metrics are the port's own copies of the JAX package's host-only modules
 (``captioning_tpu_torch/utils``, ``captioning_tpu_torch/data``).
+``--image_folder`` captions a folder of raw images (or the ``--coco_json``
+list in it): ``data/dataloaderraw.DataLoaderRaw`` runs the ResNet
+``--cnn_model`` of ``./data/imagenet_weights/<cnn_model>.pth`` (a
+torchvision ``state_dict``) on ``--device`` for each image's features.
 
     python tools/eval_torch.py --model log/model-best.npz \\
         --infos_path log/infos_<id>-best.pkl --beam_size 5 --split test
     python tools/eval_torch.py --model log/model-best.npz \\
         --infos_path log/infos_<id>-best.pkl --beam_size 1 --sample_n 5 \\
         --sample_n_method top0.9 --language_eval 1 --split test
+    python tools/eval_torch.py --model log/model-best.npz \
+        --infos_path log/infos_<id>-best.pkl --image_folder photos \
+        --beam_size 5 --batch_size 16
 """
 
 from __future__ import annotations
@@ -99,14 +106,20 @@ def main(argv=None):
                                        opt.split))
         return
 
-    if opt.image_folder:
-        raise NotImplementedError('--image_folder (raw images through the '
-                                  'CNN) is not ported yet; see ROADMAP.md')
     opt.vocab_size = len(vocab)
     captioner = setup(opt, vocab, device=opt.device).load_params(opt.model)
 
-    from captioning_tpu_torch.data.dataset import DataLoader
-    loader = DataLoader(opt)
+    if len(opt.image_folder) == 0:
+        from captioning_tpu_torch.data.dataset import DataLoader
+        loader = DataLoader(opt)
+    else:
+        from captioning_tpu_torch.data.dataloaderraw import DataLoaderRaw
+        loader = DataLoaderRaw({'folder_path': opt.image_folder,
+                                'coco_json': opt.coco_json,
+                                'batch_size': opt.batch_size,
+                                'cnn_model': opt.cnn_model,
+                                'device': opt.device})
+    # the vocab of the infos file (reference eval.py:109-111)
     loader.dataset.ix_to_word = infos['vocab']
 
     opt.dataset = opt.annfile or opt.input_json
