@@ -432,7 +432,8 @@ def sample_program(dm: DecodeModel, opt: Dict[str, Any], rng=None,
     sample_method = opt.get('sample_method', 'greedy') or 'greedy'
     temperature = float(opt.get('temperature', 1.0) or 1.0)
     sample_n = _flag(opt, 'sample_n', 1)
-    output_logsoftmax = _flag(opt, 'output_logsoftmax', 1)
+    # 0 (the margin losses' logits) must stay 0: no ``_flag``
+    output_logsoftmax = int(opt.get('output_logsoftmax', 1))
     decoding_constraint = _flag(opt, 'decoding_constraint')
     block_trigrams = _flag(opt, 'block_trigrams')
     remove_bad_endings = _flag(opt, 'remove_bad_endings')
@@ -613,8 +614,10 @@ def beam_program(dm: DecodeModel, opt: Dict[str, Any]) -> StepProgram:
             # lane 0's top-bdash is the global top-bdash
             c['tv_c'] = torch.where(lane0, tv0[:, None, :], NEG).reshape(
                 NBG, bdash)
+            # its own buffer: at B = 1 the reshape would be a view with a
+            # stride of 0, which the step's write-back cannot fill
             c['ti_c'] = ti0[:, None, :].expand(B, bdash, bdash).reshape(
-                NBG, bdash)
+                NBG, bdash).contiguous()
         else:
             c['cand'] = (lsm0[:, None, :] + torch.where(lane0, 0.0, NEG)
                          ).reshape(NBG, lsm0.shape[1])

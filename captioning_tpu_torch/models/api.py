@@ -260,6 +260,16 @@ class Captioner(DecodeEntries):
         self._graph_cache = {}     # its graphs read the old module
         return self
 
+    def replicate(self):
+        """Rank 0's parameters and BatchNorm statistics on every rank of
+        the data axis, and the compute-dtype copies rewritten from them
+        (the JAX package's ``globalize_replicated``): after an init or a
+        load, so that the ranks start equal.  One rank: nothing."""
+        from ..parallel import mesh
+        mesh.broadcast_module(self.module)
+        self.sync_compute_weights()
+        return self
+
     def sync_compute_weights(self):
         """Rewrite the compute-dtype copies from the float32 masters, in
         place (the trainer calls it after each optimizer step, inside a

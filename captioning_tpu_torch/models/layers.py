@@ -158,10 +158,15 @@ class MLPEmbed(nn.Module):
 
 class MaskedBatchNorm(nn.Module):
     """BatchNorm1d over ragged att features (use_bn).  Train mode
-    normalises with the statistics of the valid (mask 1) positions and
-    folds them into the running ones (momentum 0.9; the unbiased variance,
-    as torch's BatchNorm1d accumulates it), in place and outside the
-    autograd graph; eval mode normalises with the running ones."""
+    normalises with the statistics of the valid (mask 1) positions, every
+    position without a mask, and folds them into the running ones
+    (momentum 0.9; the unbiased variance, as torch's BatchNorm1d
+    accumulates it), in place and outside the autograd graph; eval mode
+    normalises with the running ones.  ``reduce`` sums the count, the sums
+    and the centred squares over the batch's holders before they are
+    divided: the identity on one device; under a data axis the trainer
+    sets a differentiable sum over the ranks, so the statistics are the
+    global batch's, as under the JAX package's ``pjit``."""
 
     momentum = 0.9
 
@@ -172,21 +177,20 @@ class MaskedBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer('mean', torch.zeros(c))
         self.register_buffer('var', torch.ones(c))
+        self.reduce = _same
 
     def forward(self, x, mask: Optional[torch.Tensor] = None,
                 train: bool = False):
         if train:
-            if mask is None:
-                # a fill, not a copy from the host: a graph holds it
-                n = torch.full((), float(x.shape[0] * x.shape[1]),
-                               device=x.device)
-                mean = x.mean((0, 1))
-                var = x.var((0, 1), unbiased=False)
-            else:
-                m = mask[..., None].to(x.dtype)
-                n = m.sum().clamp_min(1.0)
-                mean = (x * m).sum((0, 1)) / n
-                var = (((x - mean) ** 2) * m).sum((0, 1)) / n
+            # float32 statistics (a bf16 x promotes, as in JAX); no mask:
+            # ones, a fill on the device that a graph holds
+            m = (torch.ones_like(x[..., :1], dtype=torch.float32)
+                 if mask is None else mask[..., None].float())
+            s = self.reduce(torch.cat([(x * m).sum((0, 1)),
+                                       m.sum().reshape(1)]))
+            n = s[-1].clamp_min(1.0)
+            mean = s[:-1] / n
+            var = self.reduce((((x - mean) ** 2) * m).sum((0, 1))) / n
             with torch.no_grad():
                 unbiased = var * (n / (n - 1.0).clamp_min(1.0))
                 self.mean.copy_(self.momentum * self.mean
@@ -197,6 +201,10 @@ class MaskedBatchNorm(nn.Module):
             mean, var = self.mean, self.var
         y = (x - mean) * torch.rsqrt(var + self.eps)
         return y * self.scale + self.bias
+
+
+def _same(x):
+    return x
 
 
 def additive_attention(h, att_feats, p_att_feats, att_masks,

@@ -5,6 +5,12 @@ ones (the SCST policy gradient, the structure-loss family and clip-PPO),
 each with the ``reduction='none'`` per-sequence form that drop-worst
 reads.  Rewards and scores come in as tensors (``ops/cider_device.py`` or
 ``utils/rewards.py``) and take no gradient.
+
+Under a data axis the JAX losses are means over the global batch.  Given
+``denom`` (``parallel.mesh.all_reduce_sum``), a mean divides by its
+denominator (a mask sum, a count of rows or groups) summed over the ranks,
+so each scalar a criterion returns is this rank's share of the global
+value and the shares sum to it.  The per-sequence forms need none.
 """
 
 from __future__ import annotations
@@ -19,6 +25,23 @@ def _gather_tokens(logprobs, seq):
     return torch.gather(logprobs, 2, seq.long()[..., None])[..., 0]
 
 
+def _mean(x, denom=None):
+    """x.mean(), or this rank's share of the mean over the data axis."""
+    if denom is None:
+        return x.mean()
+    return x.sum() / denom(torch.full((), float(x.numel()),
+                                      device=x.device))
+
+
+def _masked_sum(o, mask, denom=None):
+    """o.sum() / mask.sum(), the mask summed over the data axis where
+    ``denom`` is given."""
+    den = mask.sum()
+    if denom is not None:
+        den = denom(den)
+    return o.sum() / den.clamp_min(1e-8)
+
+
 def _reward_mask(seq):
     """(seq > 0) shifted right with a leading 1: the generated tokens and
     the first EOS (reference losses.py:28-29)."""
@@ -26,7 +49,8 @@ def _reward_mask(seq):
     return torch.cat([torch.ones_like(m[:, :1]), m[:, :-1]], 1)
 
 
-def language_model_criterion(logprobs, target, mask, reduction='mean'):
+def language_model_criterion(logprobs, target, mask, reduction='mean',
+                             denom=None):
     """Masked NLL over [N, L, V] log-probs (reference losses.py:204-224)."""
     if target.dim() == 3:
         target = target.reshape(-1, target.shape[2])
@@ -37,11 +61,11 @@ def language_model_criterion(logprobs, target, mask, reduction='mean'):
     out = -_gather_tokens(logprobs, target) * mask
     if reduction == 'none':
         return out.sum(1) / mask.sum(1).clamp_min(1e-8)
-    return out.sum() / mask.sum().clamp_min(1e-8)
+    return _masked_sum(out, mask, denom)
 
 
 def label_smoothing_criterion(logprobs, target, mask, smoothing: float,
-                              reduction='mean'):
+                              reduction='mean', denom=None):
     """KLDiv against the smoothed one-hot (reference losses.py:227-265):
     ``1 - smoothing`` on the target, ``smoothing / (V - 1)`` elsewhere."""
     if target.dim() == 3:
@@ -60,17 +84,18 @@ def label_smoothing_criterion(logprobs, target, mask, smoothing: float,
     if reduction == 'none':
         return (kl.reshape(N, L).sum(1)
                 / mask.reshape(N, L).sum(1).clamp_min(1e-8))
-    return kl.sum() / mask.sum().clamp_min(1e-8)
+    return _masked_sum(kl, mask, denom)
 
 
-def reward_criterion(sample_logprobs, seq, reward, reduction='mean'):
+def reward_criterion(sample_logprobs, seq, reward, reduction='mean',
+                     denom=None):
     """SCST policy gradient (reference losses.py:18-37)."""
     N, L = sample_logprobs.shape[:2]
     mask = _reward_mask(seq)
     out = -_gather_tokens(sample_logprobs, seq) * reward.reshape(N, L) * mask
     if reduction == 'none':
         return out.sum(1) / mask.sum(1).clamp_min(1e-8)
-    return out.sum() / mask.sum().clamp_min(1e-8)
+    return _masked_sum(out, mask, denom)
 
 
 def _log_softmax_ce(inp, target):
@@ -81,7 +106,7 @@ def _log_softmax_ce(inp, target):
 def structure_loss(input_lp, seq, scores, loss_type: str, seq_per_img: int,
                    entropy_reward_weight: float = 0.0,
                    self_cider_scores=None, self_cider_weight: float = 0.0,
-                   reduction='mean') -> Dict[str, torch.Tensor]:
+                   reduction='mean', denom=None) -> Dict[str, torch.Tensor]:
     """The structured-prediction loss family (reference losses.py:40-202):
     seqnll, risk, max_margin, multi_margin, softmax_margin,
     real_softmax_margin, new_self_critical and best_of_n.
@@ -114,27 +139,28 @@ def structure_loss(input_lp, seq, scores, loss_type: str, seq_per_img: int,
     def token_mean(o):
         if reduction == 'none':
             return o.sum(1) / mask.sum(1).clamp_min(1e-8)
-        return o.sum() / mask.sum().clamp_min(1e-8)
+        return _masked_sum(o, mask, denom)
 
     if loss_type == 'seqnll':
         ce = _log_softmax_ce(seq_mean(tok_lp), torch.argmin(costs, 1))
-        output = ce.mean() if reduction == 'mean' else ce
+        output = _mean(ce, denom) if reduction == 'mean' else ce
     elif loss_type == 'risk':
         inp = (tok_lp * mask).sum(1).reshape(-1, seq_per_img)
-        output = (torch.softmax(torch.exp(inp), 1) * costs).sum(1).mean()
+        output = _mean((torch.softmax(torch.exp(inp), 1) * costs).sum(1),
+                       denom)
     elif loss_type in ('max_margin', 'multi_margin'):
         inp = seq_mean(tok_lp)
         star = torch.argmin(costs, 1, keepdim=True)
         viol = torch.relu(costs - torch.gather(costs, 1, star)
                           - torch.gather(inp, 1, star) + inp)
         if loss_type == 'max_margin':
-            output = (viol.max(1).values / 2).mean()
+            output = _mean(viol.max(1).values / 2, denom)
         else:
-            output = viol.mean()
+            output = _mean(viol, denom)
     elif loss_type in ('softmax_margin', 'real_softmax_margin'):
         ce = _log_softmax_ce(seq_mean(tok_lp) + costs,
                              torch.argmin(costs, 1))
-        output = ce.mean() if reduction == 'mean' else ce
+        output = _mean(ce, denom) if reduction == 'mean' else ce
     elif loss_type == 'new_self_critical':
         # leave-one-out mean baseline (reference losses.py:168-187)
         baseline = (scores.sum(1, keepdim=True) - scores) / (
@@ -153,15 +179,15 @@ def structure_loss(input_lp, seq, scores, loss_type: str, seq_per_img: int,
     return out
 
 
-def masked_mean(tensor, mask, dim=None):
+def masked_mean(tensor, mask, dim=None, denom=None):
     if dim is None:
-        return (tensor * mask).sum() / mask.sum().clamp_min(1e-8)
+        return _masked_sum(tensor * mask, mask, denom)
     return (tensor * mask).sum(dim) / mask.sum(dim).clamp_min(1e-8)
 
 
 def ppo_loss(new_logprobs, old_logprobs, seq, scores, seq_per_img: int,
              cliprange: float = 0.2, kl_coef: float = 0.02,
-             reduction='mean') -> Dict[str, torch.Tensor]:
+             reduction='mean', denom=None) -> Dict[str, torch.Tensor]:
     """clip-PPO plus the KL to the frozen old policy (reference
     losses.py:267-357).  new / old_logprobs: [N, L, V] log-softmax tables
     over the sampled seq; the old one takes no gradient."""
@@ -180,10 +206,10 @@ def ppo_loss(new_logprobs, old_logprobs, seq, scores, seq_per_img: int,
 
     # KL(old || new) summed over the vocab (F.kl_div(log_target=True))
     kl = (torch.exp(old_logprobs) * (old_logprobs - new_logprobs)).sum(-1)
-    out['pg_loss'] = masked_mean(pg_loss, mask)
-    out['kl_loss'] = masked_mean(kl, mask)
+    out['pg_loss'] = masked_mean(pg_loss, mask, denom=denom)
+    out['kl_loss'] = masked_mean(kl, mask, denom=denom)
     out['clipfrac'] = masked_mean(
-        ((ratio - 1.0).abs() > cliprange).float(), mask)
+        ((ratio - 1.0).abs() > cliprange).float(), mask, denom=denom)
     if reduction == 'none':
         out['loss'] = masked_mean(pg_loss + kl_coef * kl, mask, dim=1)
     else:

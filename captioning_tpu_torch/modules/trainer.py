@@ -48,6 +48,19 @@ and scorer it reads.  ``graph_route`` says why a step stays eager.  The
 fused SCST body runs the greedy baseline for all ``seq_length`` steps:
 a graph cannot read the exit flag, and the steps after every row has
 finished only write pads, so the tokens are the early exit's.
+
+Under a data axis (``parallel.mesh``, world > 1) each rank steps on its
+slice of the global batch, and the step is the one-device step over the
+global batch, as under the JAX package's ``pjit``: the losses divide by
+their denominators summed over the ranks (``losses``' ``denom``), so each
+rank's loss is its share of the global loss; after the backward one SUM
+all-reduce of the flat gradient (with the step's reported shares) gives
+every rank the global gradient, which the clip then sees; drop-worst
+selects from the global loss vector; the BatchNorm statistics are the
+global batch's (the trainer gives each ``models.layers.MaskedBatchNorm``
+the sum over the ranks as its ``reduce``).  The reported losses
+are global and equal on every rank; the RL steps' per-row tokens and
+rewards stay this rank's rows.  These steps run eagerly (``graph_route``).
 """
 
 from __future__ import annotations
@@ -58,6 +71,8 @@ import torch
 
 from ..engine import decoding
 from ..engine.graphs import CudaRecorder, GraphTrainStep
+from ..models.layers import MaskedBatchNorm
+from ..parallel import mesh
 from ..utils import optimizers as optim_utils
 from . import losses
 
@@ -88,6 +103,14 @@ class Trainer:
             getattr(opt, 'structure_loss_type', '') == 'softmax_margin' or
             'margin' not in getattr(opt, 'structure_loss_type', ''))
         self.label_smoothing = float(getattr(opt, 'label_smoothing', 0) or 0)
+        # the data axis: the losses' denominators and the BatchNorm
+        # statistics are summed over it
+        self.world = mesh.world_size()
+        self._denom = mesh.all_reduce_sum if self.world > 1 else None
+        if self.world > 1:
+            for m in captioner.module.modules():
+                if isinstance(m, MaskedBatchNorm):
+                    m.reduce = mesh.all_reduce_grad
         self.named_params = dict(captioner.module.named_parameters())
         params = list(self.named_params.values())
         cuda = self.captioner.device.type == 'cuda'
@@ -143,26 +166,65 @@ class Trainer:
             else:
                 self._ss = float(ss_prob)
 
-    def _apply_updates(self, loss):
+    def _apply_updates(self, loss, **shares):
+        """Backward, clip, step.  Returns {'loss': the loss, **shares}
+        detached: under a data axis summed over the ranks with the gradient
+        (one SUM all-reduce of one flat buffer), so the clip sees the
+        global gradient and the returned values are the global ones."""
         self.optimizer.zero_grad(set_to_none=False)
         loss.backward()
-        self.clip(list(self.named_params.values()))
+        out = dict(loss=loss.detach(), **shares)
+        params = list(self.named_params.values())
+        if self.world > 1:
+            grads = [p.grad for p in params]
+            flat = torch.cat([g.reshape(-1) for g in grads] +
+                             [v.reshape(1).to(grads[0].dtype)
+                              for v in out.values()])
+            flat = mesh.all_reduce_sum(flat)
+            at = 0
+            for g in grads:
+                g.copy_(flat[at:at + g.numel()].view_as(g))
+                at += g.numel()
+            out = {k: flat[at + i].to(v.dtype)
+                   for i, (k, v) in enumerate(out.items())}
+        self.clip(params)
         self.optimizer.step()
         # the compute-dtype copies follow the masters, at their addresses
         self.captioner.sync_compute_weights()
+        return out
 
     def _crit(self, logprobs, target, mask, reduction):
         if self.label_smoothing > 0:
             return losses.label_smoothing_criterion(
-                logprobs, target, mask, self.label_smoothing, reduction)
+                logprobs, target, mask, self.label_smoothing, reduction,
+                denom=self._denom)
         return losses.language_model_criterion(logprobs, target, mask,
-                                               reduction)
+                                               reduction, denom=self._denom)
 
-    @staticmethod
-    def _drop_worst(loss_vec, drop_worst_rate):
-        """The mean of the k = int(N * (1 - rate)) smallest losses."""
-        k = int(loss_vec.shape[0] * (1 - drop_worst_rate))
-        return torch.topk(loss_vec, k, largest=False).values.mean()
+    def _mean(self, x):
+        """x.mean(), under a data axis this rank's share of the global
+        mean (a reported value that ``_apply_updates`` sums)."""
+        return losses._mean(x, self._denom)
+
+    def _drop_worst(self, loss_vec, drop_worst_rate):
+        """The mean of the k = int(N * (1 - rate)) smallest losses; under
+        a data axis N and the selection are the global batch's, and this
+        rank's share is the sum of its selected rows over k."""
+        if self.world == 1:
+            k = int(loss_vec.shape[0] * (1 - drop_worst_rate))
+            return torch.topk(loss_vec, k, largest=False).values.mean()
+        n = loss_vec.shape[0]
+        rows = torch.zeros(self.world, device=loss_vec.device)
+        rows[mesh.rank()] = n
+        rows = mesh.all_reduce_sum(rows).long().tolist()
+        start = sum(rows[:mesh.rank()])
+        every = loss_vec.new_zeros(sum(rows))
+        every[start:start + n] = loss_vec.detach()
+        every = mesh.all_reduce_sum(every)
+        k = int(every.shape[0] * (1 - drop_worst_rate))
+        pick = torch.topk(every, k, largest=False).indices
+        mine = pick[(pick >= start) & (pick < start + n)] - start
+        return loss_vec[mine].sum() / k
 
     # -- graphed steps ------------------------------------------------------
     def graph_route(self, kind: str) -> str:
@@ -171,6 +233,9 @@ class Trainer:
         it stays on the eager method."""
         if kind not in KINDS:
             raise ValueError('unknown train step kind %r' % kind)
+        if self.world > 1:
+            return ('data-parallel (world > 1): the gradient all-reduce '
+                    'runs between backward and step')
         why = optim_utils.graph_route(self.opt)
         if why:
             return why
@@ -273,8 +338,7 @@ class Trainer:
         if drop_worst_flag:
             loss = self._drop_worst(
                 loss, float(getattr(self.opt, 'drop_worst_rate', 0)))
-        self._apply_updates(loss)
-        return {'loss': loss.detach()}
+        return self._apply_updates(loss)
 
     # -- options of the RL passes -------------------------------------------
     def _sc_opt(self):
@@ -345,7 +409,7 @@ class Trainer:
             return losses.ppo_loss(lp, lp_old, gen_seq, scores, sample_n,
                                    cliprange=float(opt.ppo_cliprange),
                                    kl_coef=float(opt.ppo_kl_coef),
-                                   reduction=reduction)
+                                   reduction=reduction, denom=self._denom)
         return losses.structure_loss(
             lp, gen_seq, scores, opt.structure_loss_type, sample_n,
             entropy_reward_weight=float(
@@ -353,7 +417,7 @@ class Trainer:
             self_cider_scores=self_cider_scores,
             self_cider_weight=float(
                 getattr(opt, 'self_cider_reward_weight', 0)),
-            reduction=reduction)
+            reduction=reduction, denom=self._denom)
 
     # -- SCST -----------------------------------------------------------------
     def sc_decode(self, fc, att, am, rng_greedy, rng_sample, generator):
@@ -391,12 +455,12 @@ class Trainer:
                       drop_worst_flag):
         lp = self._recompute(fc, att, am, gen_seq, generator)
         loss = losses.reward_criterion(
-            lp, gen_seq, reward, 'none' if drop_worst_flag else 'mean')
+            lp, gen_seq, reward, 'none' if drop_worst_flag else 'mean',
+            denom=self._denom)
         if drop_worst_flag:
             loss = self._drop_worst(
                 loss, float(getattr(self.opt, 'drop_worst_rate', 0)))
-        self._apply_updates(loss)
-        return {'loss': loss.detach()}
+        return self._apply_updates(loss)
 
     def sc_fused_step(self, fc, att, am, refs, ref_mask, lr, rng_greedy,
                       rng_sample, generator, device_scorer):
@@ -438,10 +502,11 @@ class Trainer:
             reward = device_scorer.self_critical_reward(
                 greedy_seq, gen_seq, refs, ref_mask,
                 *self._reward_weights())
-        loss = losses.reward_criterion(gen_lp, gen_seq, reward)
-        self._apply_updates(loss)
-        return {'loss': loss.detach(), 'reward': reward[:, 0].mean(),
-                'greedy': greedy_seq, 'sampled': gen_seq}
+        loss = losses.reward_criterion(gen_lp, gen_seq, reward,
+                                       denom=self._denom)
+        out = self._apply_updates(loss, reward=self._mean(reward[:, 0]))
+        out.update(greedy=greedy_seq, sampled=gen_seq)
+        return out
 
     # -- structure losses / PPO ----------------------------------------------
     def struc_fused_step(self, fc, att, labels, masks, am, refs, ref_mask,
@@ -492,10 +557,11 @@ class Trainer:
         struc = self._struc(gen_lp, lp_old, gen_seq, scores, sc_scores,
                             'mean')
         loss = (1 - w) * lm_loss + w * struc['loss']
-        self._apply_updates(loss)
-        out = {k: v.detach() for k, v in struc.items()}
-        out.update(loss=loss.detach(), lm_loss=lm_loss.detach(),
-                   struc_loss=struc['loss'].detach())
+        out = self._apply_updates(
+            loss, lm_loss=lm_loss.detach(), struc_loss=struc['loss'].detach(),
+            **{k: v.detach() for k, v in struc.items()
+               if k not in ('loss', 'reward')})
+        out['reward'] = struc['reward']
         return out
 
     def struc_decode(self, fc, att, am, rng, generator):
@@ -553,16 +619,25 @@ class Trainer:
             struc_loss = struc['loss']
             out.update({k: v.detach() for k, v in struc.items()
                         if k != 'loss'})
+            reward = out.pop('reward')
         else:
             # structure_loss_weight 0 (pure XE through the structure path)
             # still reports the scores as its reward
             struc_loss = torch.zeros((), device=self.captioner.device)
-            out['reward'] = scores.reshape(-1, int(opt.train_sample_n))
+            reward = scores.reshape(-1, int(opt.train_sample_n))
+        # the reported terms: this rank's shares of the global means
+        shares = {k: self._mean(x.detach()) if x.dim() else x.detach()
+                  for k, x in (('lm_loss', lm_loss),
+                               ('struc_loss', struc_loss))}
+        if drop_worst_flag and not struc_loss.dim():
+            # a structure loss that is one mean (margin, risk) enters every
+            # row as the global batch's mean, its gradient shared by the
+            # ranks
+            struc_loss = mesh.all_reduce_grad(struc_loss)
         loss = (1 - w) * lm_loss + w * struc_loss
         if drop_worst_flag:
             loss = self._drop_worst(
                 loss, float(getattr(opt, 'drop_worst_rate', 0)))
-        self._apply_updates(loss)
-        out.update(loss=loss.detach(), lm_loss=lm_loss.detach().mean(),
-                   struc_loss=struc_loss.detach().mean())
+        out = self._apply_updates(loss, **shares, **out)
+        out['reward'] = reward
         return out

@@ -1,0 +1,77 @@
+"""Start the ranks of a data axis on this host, one process each.
+
+``tools/train_torch.py --mesh_shape data:N`` (and ``tools/train_pl_torch.py``
+over several GPUs) runs the script again as N processes that join one
+group through ``--dist_coordinator 127.0.0.1:<free port> --dist_nproc N
+--dist_pid i``, and waits for them.  A rank that fails fails the run: the
+others are stopped, never left waiting in a collective."""
+
+from __future__ import annotations
+
+import socket
+import subprocess
+import sys
+import time
+
+import torch
+
+from .mesh import parse_mesh_shape
+
+
+def free_port() -> int:
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+def ranks_to_start(opt, device: str) -> int:
+    """How many rank processes a launch of the train script starts: 1 (this
+    process trains) under ``--dist_*`` or on one device; the data axis of
+    ``--mesh_shape``; else, on several GPUs, the largest count that
+    divides ``batch_size`` (tools/train.py ``_maybe_mesh``)."""
+    if getattr(opt, 'dist_coordinator', '') or int(
+            getattr(opt, 'dist_auto', 0) or 0):
+        return 1
+    cuda = torch.device(device).type == 'cuda'
+    n_gpus = torch.cuda.device_count() if cuda else 0
+    mesh_shape = getattr(opt, 'mesh_shape', '') or ''
+    if mesh_shape:
+        n = dict(parse_mesh_shape(mesh_shape)).get('data', 1)
+        if cuda and n > n_gpus:
+            raise ValueError('mesh_shape %r: %d ranks, one a GPU, but %d '
+                             'GPUs are visible' % (mesh_shape, n, n_gpus))
+        return n
+    d = n_gpus
+    while d > 1 and opt.batch_size % d:
+        d -= 1
+    return max(d, 1)
+
+
+def run_ranks(script: str, argv, n: int, poll: float = 0.2) -> int:
+    """Run ``script argv`` as ranks 0..n-1 of one group; 0 when every rank
+    exits 0, else the first failing rank's code after the others are
+    stopped."""
+    coord = '127.0.0.1:%d' % free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, script] + list(argv) +
+        ['--dist_coordinator', coord, '--dist_nproc', str(n),
+         '--dist_pid', str(i)]) for i in range(n)]
+    print('launched %d ranks (coordinator %s)' % (n, coord), flush=True)
+    try:
+        while True:
+            codes = [p.poll() for p in procs]
+            rc = next((c for c in codes if c not in (None, 0)), 0)
+            if rc or None not in codes:
+                break
+            time.sleep(poll)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.terminate()
+        for p in procs:
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+    return rc

@@ -9,7 +9,10 @@ methods through the per-step tables), truncates to ``num_images`` and runs
 adds ``sample_n`` captions an image, which ``language_eval`` scores with
 the diversity suite of ``eval_multi``.  One batch stays in flight: a
 batch's captions are post-processed after the next batch's decode has been
-issued.  The mesh and multi-host branches of the JAX loop are not ported.
+issued.  Under a data axis of several ranks (``parallel.mesh``) the eval
+is cooperative, as the JAX loop's multi-host branch: every rank walks the
+same loader state and decodes its slice of each global batch, and every
+rank ends with the same merged predictions, val loss and metrics.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import numpy as np
 import torch
 
 from ..modules import losses
+from ..parallel import mesh
 from . import misc as utils
 from .coco_eval import AnnotationDB, evaluate_captions
 
@@ -172,7 +176,16 @@ def eval_split(captioner, loader, eval_kwargs=None):
     'slow' route: diverse groups, whose group 0 is reported, and any other
     method); with ``sample_n > 1`` each batch also goes through
     ``eval_split_n``.  Sampling draws from one generator on the device,
-    seeded from ``seed``.  Returns (val_loss, predictions, lang_stats)."""
+    seeded from ``seed`` (plus the rank under a data axis).
+
+    Cooperative under a data axis (world > 1): each global batch is padded
+    to a multiple of the world (pad rows repeat row 0 with zero masks, as
+    the JAX ``_globalize_batch``), each rank decodes its
+    ``local_batch_slice`` and keeps its real rows, the val loss divides the
+    summed numerators by the summed mask, ``gather_predictions`` merges the
+    ranks' captions in rank order, and rank 0's ``language_eval`` of the
+    merged list reaches every rank.  Returns (val_loss, predictions,
+    lang_stats)."""
     eval_kwargs = eval_kwargs or {}
     verbose = eval_kwargs.get('verbose', True)
     verbose_loss = eval_kwargs.get('verbose_loss', 1)
@@ -187,6 +200,17 @@ def eval_split(captioner, loader, eval_kwargs=None):
         eval_kwargs.get('remove_bad_endings', 0))
     label_smoothing = float(eval_kwargs.get('label_smoothing', 0) or 0)
     device = captioner.device
+    world, main = mesh.world_size(), mesh.is_main_process()
+    global_denom = mesh.all_reduce_sum if world > 1 else None
+    if world == 1 and int(eval_kwargs.get('device_mesh', 0) or 0) and \
+            device.type == 'cuda' and torch.cuda.device_count() > 1:
+        raise NotImplementedError(
+            '--device_mesh 1: one process over several GPUs is not ported '
+            '(ROADMAP.md A7); launch one process a GPU instead '
+            '(tools/train_torch.py --mesh_shape data:N, or torchrun with '
+            '--dist_auto 1)')
+    if world > 1 and main:
+        print('eval_split: cooperative decode over %d ranks' % world)
 
     loader.reset_iterator(split)
     vocab = loader.get_vocab()
@@ -204,8 +228,8 @@ def eval_split(captioner, loader, eval_kwargs=None):
     stats_route = not beam and group_size == 1 and _sample_family(method)
     sample_beam = decode_entry(captioner, 'beam', sample_opt)
     sample_stats = decode_entry(captioner, 'stats', sample_opt)
-    rng = torch.Generator(device).manual_seed(int(eval_kwargs.get('seed',
-                                                                  0)))
+    rng = torch.Generator(device).manual_seed(
+        int(eval_kwargs.get('seed', 0)) + mesh.rank())
 
     def dev(x, dtype=None):
         return None if x is None else torch.as_tensor(
@@ -221,8 +245,8 @@ def eval_split(captioner, loader, eval_kwargs=None):
     def _process(rec):
         """Post-process one issued batch, strictly in batch order."""
         nonlocal loss, loss_sum, loss_evals
-        data = rec['data']
-        real_rows = len(data['infos'])
+        data, rows = rec['data'], rec['rows']
+        real_rows = len(rows)
         if rec['loss_dev'] is not None:
             loss = float(rec['loss_dev'])
             loss_sum += loss
@@ -261,14 +285,19 @@ def eval_split(captioner, loader, eval_kwargs=None):
                 flat = beams[i].reshape(-1, beams.shape[-1])
                 print('\n'.join(utils.decode_sequence(vocab, flat)))
                 print('--' * 10)
+        entries = []
         for k, sent in enumerate(utils.decode_sequence(vocab, seq)):
-            entry = {'image_id': data['infos'][k]['id'], 'caption': sent,
+            info = data['infos'][rows[k]]
+            entry = {'image_id': info['id'], 'caption': sent,
                      'perplexity': float(perplexity[k]),
                      'entropy': float(entropy[k])}
             if eval_kwargs.get('dump_path', 0) == 1:
-                entry['file_name'] = data['infos'][k]['file_path']
+                entry['file_name'] = info['file_path']
+            entries.append(entry)
+        # the ranks' rows in rank order: the global batch's real rows
+        for k, entry in enumerate(mesh.gather_predictions(entries)):
             predictions.append(entry)
-            if eval_kwargs.get('dump_images', 0) == 1:
+            if eval_kwargs.get('dump_images', 0) == 1 and main:
                 # copy the source image for the vis/index.html viewer
                 src = os.path.join(eval_kwargs.get('image_root', ''),
                                    data['infos'][k].get('file_path', ''))
@@ -277,14 +306,17 @@ def eval_split(captioner, loader, eval_kwargs=None):
                     dst = 'vis/imgs/img%d.jpg' % len(predictions)
                     print('cp "%s" %s' % (src, dst))
                     shutil.copyfile(src, dst)
-            if verbose:
+            if verbose and main:
                 print('image %s: %s' % (entry['image_id'], entry['caption']))
         if sample_n > 1:
-            eval_split_n(captioner, n_predictions, rec['inputs'] + [data],
-                         vocab, rng, eval_kwargs)
+            entries = []
+            eval_split_n(captioner, entries, rec['inputs'] + [
+                dict(data, infos=[data['infos'][i] for i in rows])],
+                vocab, rng, eval_kwargs)
+            n_predictions.extend(mesh.gather_predictions(entries))
         for _ in range(rec['n'] - rec['ix1']):
             predictions.pop()
-        if verbose:
+        if verbose and main:
             print('evaluating validation preformance... %d/%d (%f)'
                   % (rec['n'], rec['ix1'], loss))
 
@@ -292,11 +324,15 @@ def eval_split(captioner, loader, eval_kwargs=None):
     while True:
         data = loader.get_batch(split)
         n = n + len(data['infos'])
-        fc = dev(data['fc_feats'], torch.float32)
-        att = dev(data['att_feats'], torch.float32)
-        am = dev(data['att_masks'], torch.float32)
-        labels = dev(data.get('labels'), torch.long)
-        masks = dev(data.get('masks'), torch.float32)
+        arrays = {k: data.get(k) for k in _BATCH_KEYS}
+        rows = range(len(data['infos']))     # the global rows decoded here
+        if world > 1:
+            arrays, rows = local_rows(arrays, len(data['infos']))
+        fc = dev(arrays['fc_feats'], torch.float32)
+        att = dev(arrays['att_feats'], torch.float32)
+        am = dev(arrays['att_masks'], torch.float32)
+        labels = dev(arrays['labels'], torch.long)
+        masks = dev(arrays['masks'], torch.float32)
 
         loss_dev = None
         if labels is not None and verbose_loss:
@@ -304,13 +340,16 @@ def eval_split(captioner, loader, eval_kwargs=None):
             if label_smoothing > 0:
                 loss_dev = losses.label_smoothing_criterion(
                     logprobs, labels[..., 1:], masks[..., 1:],
-                    label_smoothing)
+                    label_smoothing, denom=global_denom)
             else:
                 loss_dev = losses.language_model_criterion(
-                    logprobs, labels[..., 1:], masks[..., 1:])
+                    logprobs, labels[..., 1:], masks[..., 1:],
+                    denom=global_denom)
+            # the ranks' shares sum to the global batch's loss
+            loss_dev = mesh.all_reduce_sum(loss_dev)
 
-        rec = {'data': data, 'loss_dev': loss_dev, 'done': None,
-               'inputs': [fc, att, am]}
+        rec = {'data': data, 'rows': rows, 'loss_dev': loss_dev,
+               'done': None, 'inputs': [fc, att, am]}
         if beam:
             seq, stats, done = sample_beam(fc, att, am, rng, sample_opt)
             rec.update(kind='beam', seq=seq, stats=stats, done=done)
@@ -337,16 +376,38 @@ def eval_split(captioner, loader, eval_kwargs=None):
 
     if len(n_predictions) > 0 and 'perplexity' in n_predictions[0]:
         n_predictions = sorted(n_predictions, key=lambda x: x['perplexity'])
-    os.makedirs('eval_results', exist_ok=True)
-    with open(os.path.join('eval_results/', '.saved_pred_'
-                           + eval_kwargs.get('id', '') + '_' + split +
-                           '.pkl'), 'wb') as f:
-        pickle.dump((predictions, n_predictions), f)
     lang_stats = None
-    if lang_eval == 1:
-        lang_stats = language_eval(dataset, predictions, n_predictions,
-                                   eval_kwargs, split)
+    if main:
+        os.makedirs('eval_results', exist_ok=True)
+        with open(os.path.join('eval_results/', '.saved_pred_'
+                               + eval_kwargs.get('id', '') + '_' + split +
+                               '.pkl'), 'wb') as f:
+            pickle.dump((predictions, n_predictions), f)
+        if lang_eval == 1:
+            lang_stats = language_eval(dataset, predictions, n_predictions,
+                                       eval_kwargs, split)
+    lang_stats = mesh.broadcast_object(lang_stats)
     return loss_sum / loss_evals, predictions, lang_stats
+
+
+_BATCH_KEYS = ('fc_feats', 'att_feats', 'att_masks', 'labels', 'masks')
+
+
+def local_rows(arrays, real: int):
+    """This rank's part of a global batch (numpy arrays by ``_BATCH_KEYS``;
+    None stays None) and the global rows it holds that are real: the batch
+    padded to a multiple of the world (pad rows repeat row 0, their masks
+    zero), then ``local_batch_slice`` of it."""
+    pad = (-real) % mesh.world_size()
+    sl = mesh.local_batch_slice(real + pad)
+    out = {}
+    for key, x in arrays.items():
+        if x is not None and pad:
+            x = np.asarray(x)
+            rep = np.zeros_like(x[:1]) if key == 'masks' else x[:1]
+            x = np.concatenate([x] + [rep] * pad, axis=0)
+        out[key] = None if x is None else np.asarray(x)[sl]
+    return out, range(sl.start, min(sl.stop, real))
 
 
 def eval_split_n(captioner, n_predictions, input_data, vocab, rng,

@@ -162,28 +162,28 @@ def build_parser():
                              '(native/dataio.cpp) when the dataset qualifies;'
                              ' 0 forces the Python item path')
     parser.add_argument('--mesh_shape', type=str, default='',
-                        help='device mesh, e.g. "data:8" or "data:4,model:2". '
-                             'Empty = all devices on the data axis. With '
-                             'multiple processes the mesh spans the GLOBAL '
-                             'device set.')
+                        help='the data axis, "data:N": a launch starts N '
+                             'rank processes, one a GPU (with --dist_* the '
+                             'group\'s world must equal N). Empty: one '
+                             'process, or on several GPUs the largest count '
+                             'that divides batch_size. A model axis '
+                             '("data:N,model:M", M > 1) is not ported.')
     parser.add_argument('--dist_coordinator', type=str, default='',
-                        help='multi-host training: coordinator address '
-                             '"host:port" for jax.distributed.initialize. '
-                             'Empty = single-process unless the standard '
-                             'cluster env (TPU pod / JAX_COORDINATOR_ADDRESS)'
-                             ' is present and --dist_auto is set. Replaces '
-                             'the reference\'s Lightning DDP launch '
-                             '(train_pl.py:458-499).')
+                        help='data-parallel training: this process is one '
+                             'rank of a torch.distributed group reached at '
+                             '"host:port" (with --dist_nproc and '
+                             '--dist_pid). Replaces the reference\'s '
+                             'Lightning DDP launch (train_pl.py:458-499).')
     parser.add_argument('--dist_nproc', type=int, default=-1,
-                        help='multi-host: total process count (with '
-                             '--dist_coordinator; -1 = auto-detect)')
+                        help='the group\'s rank count (with '
+                             '--dist_coordinator)')
     parser.add_argument('--dist_pid', type=int, default=-1,
-                        help='multi-host: this process\'s id (with '
-                             '--dist_coordinator; -1 = auto-detect)')
+                        help='this process\'s rank (with '
+                             '--dist_coordinator)')
     parser.add_argument('--dist_auto', type=int, default=0,
-                        help='call jax.distributed.initialize() with no '
-                             'arguments (auto-detects TPU pod / SLURM / '
-                             'JAX_COORDINATOR_ADDRESS environments)')
+                        help='1: join the group torchrun describes (RANK, '
+                             'WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, '
+                             'MASTER_PORT)')
     parser.add_argument('--use_pallas', type=int, default=-1,
                         help='pallas fused kernels: 1 = on, 0 = off, '
                              '-1 (default) = auto (on when the backend is '
@@ -284,9 +284,11 @@ def add_eval_options(parser):
                              'TRAINING default where dropout-mask '
                              'generation dominates the rng cost)')
     parser.add_argument('--device_mesh', type=int, default=0,
-                        help='shard eval decode batches over all local '
-                             'devices (single-process multi-chip; TPU-only '
-                             'extension, no reference analogue)')
+                        help='1: shard eval decode batches over every '
+                             'visible GPU in one process: not ported (it '
+                             'raises with several GPUs; a data-parallel '
+                             'group of one process a GPU evaluates '
+                             'cooperatively)')
     parser.add_argument('--num_images', type=int, default=-1)
     parser.add_argument('--language_eval', type=int, default=0)
     parser.add_argument('--dump_images', type=int, default=1)

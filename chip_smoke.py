@@ -197,9 +197,10 @@ Phases, in order; any failure raises and exits non-zero:
    graphs' captures and in their replays; graph tokens equal to eager),
    float32 at B = 8 (the card's tokens equal to the CPU's); the general
    beam body (``general5``: B1 and the top-k required) at B = 1024 and
-   its f32 agreement at B = 8; the XE and fused SCST steps of each at 10
-   x 5, graph against eager bit for bit over 3 steps (the graph holding
-   B1 120 and B2 20 a SCST step, nothing on XE); one float32 XE step of
+   its f32 agreement at B = 8; at 3 + 3 layers (``PHASE16_TRAIN_DEPTH``,
+   the script's wall), the XE and fused SCST steps of each at 10 x 5,
+   graph against eager bit for bit over 3 steps (the graph holding B1 60
+   and B2 20 a SCST step, nothing on XE), and one float32 XE step of
    each, card against CPU by phase 9's rules;
 17. the ensemble and the raw-image route: (a) the transformer and UpDown
    of phases 4 and 6 (their own seeded inits) as an ``EnsembleCaptioner``
@@ -216,7 +217,37 @@ Phases, in order; any failure raises and exits non-zero:
    --beam_size 5 --batch_size 16`` as a subprocess (a caption for every
    image, B1 and B2 required); the ResNet's ms per image; the fc and att
    features of two images, card against CPU, within 1e-4 of each
-   tensor's largest magnitude (float32, TF32 off).
+   tensor's largest magnitude (float32, TF32 off);
+18. the data axis (``captioning_tpu_torch/parallel``): two rank processes
+   share the card over gloo (on a machine with two GPUs, one each over
+   nccl) and run ``phase18_run`` on their slices while this process runs
+   it on the whole batches, float32, TF32 off, full width: (a) UpDown's XE
+   step (``configs/updown/updown.yml``, 20 images x 5, label length 16,
+   ragged, dropout 0, ``ss_prob`` 0), the loss within 1e-5 relative and
+   each reduced gradient within 1e-4 of its tensor's largest magnitude
+   (phase 9's rule), B3 required in each rank; (b) the transformer's
+   fused SCST step (20 x 5, 10 x 5 a rank, each rank given its rows of one
+   global noise table): the sequences identical, the mean advantage
+   within 1e-5, the loss within 1e-5 relative against one process over
+   the 20 images, and the gradients by phase 9's rule against one process
+   stepping over the ranks' row blocks (the 20-image step's GEMMs round
+   otherwise, so an FFN ReLU gate near 0 may flip); against the 20-image
+   step each tensor's relative Frobenius error within ``P18_FROB`` and at
+   most ``P18_BEYOND`` of all the elements beyond 1e-4 of their tensor's
+   largest magnitude, bounds that rank 0's own block's gradient (the
+   all-reduce left out) must fail; (c) the cooperative ``eval_split`` of the transformer and
+   UpDown at beam 5 over 63 labelled images (one batch padded to 64): the
+   merged captions equal one process's, the val loss within 1e-5
+   relative; then the transformer in bf16 over 1024 images (512 a rank):
+   the agreement with one process (at least 0.95), cap/s of both; B1 and
+   B2 (transformer), B3 and B6 (UpDown) required in each rank; (d)
+   ``tools/train_torch.py`` as two ranks (``--dist_coordinator``) beside
+   one process on a synthetic dataset: the loss histories within rtol
+   2e-4 / atol 2e-5, the val predictions equal, rank 0 alone writing the
+   checkpoint and tensorboard.  It prints the backend, the ranks'
+   devices, the step walls of 2 ranks and one process, the flat
+   all-reduce's time (CUDA events), the gradient bytes and the eval's
+   cap/s: on one shared card the collective's overhead, not scaling.
 
 Each decode mode requires the kernels its path runs: the top-k only in
 beam (the RNN plain-step route; the transformer's fused route selects in
@@ -1148,11 +1179,12 @@ def train_agreement(torch, model):
     return step_agreement(model, 'xe_step', lg, lc, gg, gc)
 
 
-def step_agreement(model, what, lg, lc, gg, gc):
+def step_agreement(model, what, lg, lc, gg, gc,
+                   sides='kernels (card) vs twins (CPU)'):
     """A train step's loss on the card (lg) against the CPU's (lc) within
     1e-5 relative, and each gradient of ``gg`` against ``gc`` within 1e-4
     of its tensor's largest magnitude: (loss rel err, worst gradient
-    err)."""
+    err).  ``sides`` names the two runs."""
     loss_err = abs(lg - lc) / max(abs(lc), 1e-30)
     # a bias added to every score of a softmax row (alpha_net's, the
     # attention K projections') has an exact gradient of 0: on both
@@ -1168,11 +1200,11 @@ def step_agreement(model, what, lg, lc, gg, gc):
             for n in gc if n not in zero}
     worst = max(errs, key=errs.get)
     grad_err = errs[worst]
-    log('  %s f32 %s, kernels (card) vs twins (CPU): loss %.6f vs '
+    log('  %s f32 %s, %s: loss %.6f vs '
         '%.6f (rel %.2e); worst gradient err / its tensor max %.2e (%s) over '
         '%d tensors; %d zero up to rounding (%s) at most %.2e of the '
         'largest gradient on the card'
-        % (model, what, lg, lc, loss_err, grad_err, worst, len(errs),
+        % (model, what, sides, lg, lc, loss_err, grad_err, worst, len(errs),
            len(zero), ', '.join(zero), zero_err))
     if not (loss_err <= 1e-5 and grad_err <= 1e-4 and zero_err <= 1e-6):
         raise AssertionError('%s f32 %s: loss rel err %.2e (max '
@@ -1767,6 +1799,9 @@ PHASE13 = [('xe', 'updown', 10), ('xe', 'stackatt', 10),
 # kernel wrapper -> its launches a step on each path (the greedy baseline
 # and the sampling pass run all 20 decode steps; the XE input is 17
 # tokens; the recompute runs 20 steps), by the names of ``wrappers``
+# phase 16's train cases' encoder and decoder layers (its decodes keep
+# 6 + 6): the cut keeps the script's wall inside its limit on a slow host
+PHASE16_TRAIN_DEPTH = 3
 PHASE13_LAUNCHES = {
     ('xe', 'updown'): {'additive_attention': 17},
     ('xe', 'stackatt'): {'additive_attention': 34, 'maxout_lstm_gates': 51},
@@ -1776,11 +1811,13 @@ PHASE13_LAUNCHES = {
     ('scst_grad', 'updown'): {'additive_attention': 20},
     ('xe', 'aoa'): {},
     ('scst', 'aoa'): {},
+    # B1 once a decoder layer and step of the greedy baseline
     ('xe', 'bert'): {},
-    ('scst', 'bert'): {'attend_write_merged': 120, 'logit_topk': 20},
+    ('scst', 'bert'): {'attend_write_merged': 20 * PHASE16_TRAIN_DEPTH,
+                       'logit_topk': 20},
     ('xe', 'm2transformer'): {},
-    ('scst', 'm2transformer'): {'attend_write_merged': 120,
-                                'logit_topk': 20},
+    ('scst', 'm2transformer'): {
+        'attend_write_merged': 20 * PHASE16_TRAIN_DEPTH, 'logit_topk': 20},
 }
 
 
@@ -2225,8 +2262,9 @@ def phase_bert_m2(torch, wrappers, scorer=None):
     graphed (``new_key_decodes``); the general beam body at B = 1024 and
     its f32 agreement at B = 8 (``phase_decode``, one timed batch); the
     XE and fused SCST steps at 10 x 5, graph against eager bit for bit
-    (``graph_train_case``); one float32 XE step, card against CPU
-    (``train_agreement``).  Returns the launches of the phase."""
+    (``graph_train_case``) and one float32 XE step, card against CPU
+    (``train_agreement``), both at ``PHASE16_TRAIN_DEPTH`` layers.
+    Returns the launches of the phase."""
     launches = dict.fromkeys(wrappers, 0)
     records = {}
     for model in PHASE16:
@@ -2247,13 +2285,21 @@ def phase_bert_m2(torch, wrappers, scorer=None):
         from captioning_tpu_torch.ops.cider_device import DeviceCiderD
         from captioning_tpu_torch.tools import profile_train as pt
         scorer = DeviceCiderD(*pt.corpus_df(), device='cuda')
-    for name, n in phase_graph_train(torch, wrappers, PHASE16_TRAIN, scorer,
-                                     exact=True).items():
-        launches[name] += n
-    for fn in wrappers.values():
-        fn.launches = 0
-    for model in PHASE16:
-        train_agreement(torch, model)
+    from captioning_tpu_torch.tools import profile_decode as pd
+    full = {m: pd.MODELS[m] for m in PHASE16}
+    pd.MODELS.update({m: dict(w, N_enc=PHASE16_TRAIN_DEPTH,
+                              N_dec=PHASE16_TRAIN_DEPTH)
+                      for m, w in full.items()})
+    try:
+        for name, n in phase_graph_train(torch, wrappers, PHASE16_TRAIN,
+                                         scorer, exact=True).items():
+            launches[name] += n
+        for fn in wrappers.values():
+            fn.launches = 0
+        for model in PHASE16:
+            train_agreement(torch, model)
+    finally:
+        pd.MODELS.update(full)
     for n, fn in wrappers.items():
         launches[n] += fn.launches
     return launches
@@ -2582,11 +2628,12 @@ print('launches ' + json.dumps({n: f.launches + replays.get(n, 0)
 
 class FeatureLoader:
     """The loader ``eval_split`` reads: one batch of seeded random region
-    features (numpy, as a loader gives them), no labels."""
+    features (numpy, as a loader gives them), with ``labels`` and
+    ``masks`` (the val loss) or without."""
 
-    def __init__(self, fc, att, am, vocab):
+    def __init__(self, fc, att, am, vocab, labels=None, masks=None):
         self.batch = {'fc_feats': fc, 'att_feats': att, 'att_masks': am,
-                      'labels': None, 'masks': None,
+                      'labels': labels, 'masks': masks,
                       'infos': [{'id': i, 'file_path': ''}
                                 for i in range(fc.shape[0])],
                       'bounds': {'it_pos_now': 0, 'it_max': fc.shape[0],
@@ -2913,6 +2960,685 @@ def phase_ensemble_raw(torch, wrappers):
     return launches
 
 
+# Phase 18: the data axis.  Two ranks (gloo on one shared card; nccl, one
+# GPU a rank, where the machine has two) run ``phase18_run`` on their
+# slices of the global batches while this process runs it as one process
+# on the whole of them.
+PHASE18_WORLD = 2
+PHASE18 = {'B': 20, 'eval_images': 63, 'big': 1024, 'steps': 3,
+           'corpus': 1000}
+PHASE18_RANK = r'''
+import sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+chip_smoke.phase18_rank(*sys.argv[2:])
+'''
+# tools/train_torch.py run as ``__main__``, its label file an npz read by a
+# stand-in for ``h5py.File``, so that the phase needs no h5py
+PHASE18_CLI = r'''
+import os, runpy, sys
+import numpy as np
+repo = sys.argv[1]
+sys.path.insert(0, repo)
+
+
+class File(dict):
+    def __init__(self, path, mode='r'):
+        with np.load(path) as f:
+            super().__init__({k: f[k] for k in f.files})
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+h5py = type(sys)('h5py')
+h5py.File = File
+sys.modules['h5py'] = h5py
+sys.argv = ['train_torch.py'] + sys.argv[2:]
+runpy.run_path(os.path.join(repo, 'tools', 'train_torch.py'),
+               run_name='__main__')
+'''
+
+
+def launch_counts(torch, caps=()):
+    """Each kernel wrapper's launches so far, the graph decodes' replays of
+    ``caps`` included."""
+    from captioning_tpu_torch.ops import _build
+    out = {n: f.launches for n, f in _build.COUNTED.items()}
+    for cap in caps:
+        for n, k in cap.graph_launches().items():
+            out[n] += k
+    return out
+
+
+def _grown(before, after):
+    return {n: after[n] - before[n] for n in after if after[n] > before[n]}
+
+
+def p18_draw(torch, device, n_global, rows):
+    """``draw(kind, t, shape)`` handing a rank the ``rows`` of one global
+    noise table a step, so that a data-parallel sampling pass draws what
+    the one-process pass draws for the same rows."""
+    tiny = torch.finfo(torch.float32).tiny
+
+    def draw(kind, t, shape):
+        g = torch.Generator(device).manual_seed(1000 + t)
+        u = torch.rand((n_global,) + tuple(shape[1:]), generator=g,
+                       device=device)[rows]
+        return u if kind == 'uniform' else -torch.log(-torch.log(
+            u.clamp_min(tiny)))
+    return draw
+
+
+def p18_steps(torch, tr, step, steps, keep=()):
+    """The first step of ``step(generator)``, its gradients as the clip
+    sees them (after the all-reduce) and its launches, then ``steps`` more
+    timed by the host wall; the flat gradient all-reduce is timed by CUDA
+    events around it."""
+    from captioning_tpu_torch.parallel import mesh
+    gen = torch.Generator(tr.captioner.device).manual_seed(6)
+    seen = []
+    clip = tr.clip
+
+    def record(params):
+        if not seen:
+            seen.append({n: p.grad.detach().cpu().clone()
+                         for n, p in tr.named_params.items()})
+        return clip(params)
+    tr.clip = record
+    before = launch_counts(torch)
+    out = step(gen)
+    torch.cuda.synchronize()
+    rec = {'loss': float(out['loss']), 'grads': seen[0],
+           'launches': _grown(before, launch_counts(torch)),
+           'grad_bytes': sum(4 * p.numel() for p in tr.named_params.values())}
+    for k in keep:
+        v = out[k]
+        rec[k] = v.cpu().numpy() if v.dim() else float(v)
+    reduce, reduce_ms = mesh.all_reduce_sum, []
+
+    def timed(x):
+        if x.numel() < 1000:         # a loss's denominator
+            return reduce(x)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        y = reduce(x)
+        end.record()
+        end.synchronize()
+        reduce_ms.append(start.elapsed_time(end))
+        return y
+    mesh.all_reduce_sum = timed
+    walls = []
+    try:
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t = time.time()
+            step(gen)
+            torch.cuda.synchronize()
+            walls.append(1000 * (time.time() - t))
+    finally:
+        mesh.all_reduce_sum = reduce
+    rec.update(step_ms=walls, allreduce_ms=reduce_ms)
+    return rec
+
+
+def p18_sc(torch, cfg, device, sl, steps):
+    """(b): the fused SCST step of configs/transformer/transformer_sc.yml
+    (dropout 0) over the rows ``sl`` of ``cfg['B']`` images, their
+    sampling noise the rows of one global table."""
+    from captioning_tpu_torch.modules.trainer import Trainer
+    from captioning_tpu_torch.ops.cider_device import DeviceCiderD
+    from captioning_tpu_torch.tools import profile_train as pt
+    B = cfg['B']
+    cap = pt.train_captioner('transformer', device, drop_prob_lm=0.0,
+                             dropout=0.0).replicate()
+    tr = Trainer(cap, pt.rl_opt(**pt.RL['transformer'][1]))
+    n = int(tr.opt.train_sample_n)
+    fc, att, am, _, _, refs, ref_mask = (x[sl] for x in pt.rl_batch(
+        cap, B, 4))
+    scorer = DeviceCiderD(*pt.corpus_df(images=cfg['corpus']),
+                          device=device)
+    draw = p18_draw(torch, device, B * n, slice(sl.start * n, sl.stop * n))
+    return p18_steps(torch, tr, lambda g: tr.sc_fused_step(
+        fc, att, am, refs, ref_mask, tr.opt.learning_rate, None, draw, g,
+        scorer), steps, keep=('reward', 'greedy', 'sampled'))
+
+
+def p18_sc_blocks(torch, cfg, device, world):
+    """The one-process SCST gradient of the global batch assembled from
+    one-process steps over the ranks' row blocks: each block's gradient
+    (its own mean) weighted by its reward-mask sum over the global one;
+    beside it the blocks' gradients averaged (DDP's mean of means) and the
+    first block's alone.
+    The GEMMs then see the ranks' row counts, so this holds the data axis
+    (the global denominator, the all-reduce) to its rounding."""
+    from captioning_tpu_torch.parallel import mesh
+    parts = []
+    for r in range(world):
+        rec = p18_sc(torch, cfg, device,
+                     mesh.local_batch_slice(cfg['B'], world, r), 0)
+        seq = rec['sampled']
+        parts.append((rec, seq.shape[0] + int((seq[:, :-1] > 0).sum())))
+        torch.cuda.empty_cache()
+    den = sum(d for _, d in parts)
+    grads = {k: sum(rec['grads'][k].double() * d for rec, d in parts) / den
+             for k in parts[0][0]['grads']}
+    return {'loss': sum(rec['loss'] * d for rec, d in parts) / den,
+            'grads': {k: g.float() for k, g in grads.items()},
+            'means': {k: sum(rec['grads'][k] for rec, _ in parts) / world
+                      for k in grads},
+            'own': parts[0][0]['grads']}
+
+
+def phase18_run(torch, cfg, device):
+    """(a) UpDown's XE step, (b) the transformer's fused SCST step, both at
+    full width in float32 on this process's slice of ``cfg['B']`` images,
+    and (c) the cooperative ``eval_split``: the transformer and UpDown at
+    beam 5 over ``cfg['eval_images']`` images with labels in float32,
+    then the transformer in bf16 over ``cfg['big']`` (its second pass
+    timed).  One process (no group) takes the whole batches."""
+    from captioning_tpu_torch.modules.trainer import Trainer
+    from captioning_tpu_torch.parallel import mesh
+    from captioning_tpu_torch.tools import profile_decode as pd
+    from captioning_tpu_torch.tools import profile_train as pt
+    from captioning_tpu_torch.utils import eval_utils
+    B, out = cfg['B'], {}
+    sl = mesh.local_batch_slice(B)
+    # (a): configs/updown/updown.yml, dropout 0, ss_prob 0
+    cap = pt.train_captioner('updown', device, drop_prob_lm=0.0).replicate()
+    tr = Trainer(cap, pt.train_opt())
+    fc, att, am, labels, masks = (x[sl].to(device)
+                                  for x in pt.train_batch(B, seed=3))
+    out['xe'] = p18_steps(torch, tr, lambda g: tr.xe_step(
+        fc, att, labels, masks, am, 5e-4, 0.0, g), cfg['steps'])
+    del cap, tr
+    out['sc'] = p18_sc(torch, cfg, device, sl, cfg['steps'])
+    torch.cuda.empty_cache()
+    # (c)
+    N, vocab = cfg['eval_images'], pd.coco_vocab()
+    fc, att, am, labels, masks = (x.numpy() for x in pt.train_batch(
+        N, seed=8))
+    kwargs = dict(pd.BEAM, sample_method='greedy', num_images=N,
+                  language_eval=0, verbose=False, id='p18', split='val',
+                  seed=0)
+    out['eval'] = {}
+    for model in ('transformer', 'updown'):
+        cap = pd.make_captioner(model, 'float32', device).replicate()
+        before = launch_counts(torch, [cap])
+        loss, preds, _ = eval_utils.eval_split(
+            cap, FeatureLoader(fc, att, am, vocab, labels, masks),
+            dict(kwargs))
+        out['eval'][model] = {
+            'loss': loss, 'ids': [p['image_id'] for p in preds],
+            'captions': [p['caption'] for p in preds],
+            'launches': _grown(before, launch_counts(torch, [cap]))}
+        del cap
+    big = cfg['big']
+    cap = pd.make_captioner('transformer', 'bfloat16', device).replicate()
+    loader = FeatureLoader(*(x.cpu().numpy() for x in pd.features(
+        big, 'cpu', seed=9)), vocab)
+    kwargs.update(num_images=big)
+    eval_utils.eval_split(cap, loader, dict(kwargs))       # captures
+    before = launch_counts(torch, [cap])
+    torch.cuda.synchronize()
+    t = time.time()
+    _, preds, _ = eval_utils.eval_split(cap, loader, dict(kwargs))
+    torch.cuda.synchronize()
+    out['eval']['big'] = {
+        'wall_s': time.time() - t, 'images': len(preds),
+        'captions': [p['caption'] for p in preds],
+        'launches': _grown(before, launch_counts(torch, [cap]))}
+    del cap
+    torch.cuda.empty_cache()
+    out['device'] = str(device)
+    out['backend'] = (torch.distributed.get_backend()
+                      if mesh.world_size() > 1 else 'none')
+    out['world'], out['rank'] = mesh.world_size(), mesh.rank()
+    return out
+
+
+def p18_grad_deviation(got, want):
+    """(worst |got - want| over its tensor's largest magnitude, the tensor,
+    its elements beyond 1e-4 of that) over the tensors not zero up to
+    rounding."""
+    top = max(float(g.abs().max()) for g in want.values())
+    errs = {}
+    for n, w in want.items():
+        m = float(w.abs().max())
+        if m > 1e-6 * top:
+            d = (got[n] - w).abs()
+            errs[n] = (float(d.max()) / m, int((d > 1e-4 * m).sum()))
+    worst = max(errs, key=lambda n: errs[n][0])
+    return errs[worst][0], worst, errs[worst][1]
+
+
+# (b)'s bounds on the gradient deviation from the 20-image step: each
+# tensor's relative Frobenius error, and the share of all the elements
+# beyond 1e-4 of their tensor's largest magnitude
+P18_FROB, P18_BEYOND = 1e-3, 1e-3
+
+
+def p18_deviation_shape(got, want):
+    """(the worst relative Frobenius error ||got - want|| / ||want|| over
+    the tensors, that tensor, the share of all the elements beyond 1e-4 of
+    their tensor's largest magnitude), over the tensors not zero up to
+    rounding.  A ReLU gate that flips at another row count moves one
+    hidden unit by up to ~1e-2 of its tensor's max and the rest by
+    rounding; a wrong denominator or a missed sum moves every tensor."""
+    top = max(float(g.abs().max()) for g in want.values())
+    frob, beyond, total = {}, 0, 0
+    for n, w in want.items():
+        m = float(w.abs().max())
+        if m <= 1e-6 * top:
+            continue
+        d = (got[n] - w).double()
+        frob[n] = float(d.norm() / w.double().norm())
+        beyond += int((d.abs() > 1e-4 * m).sum())
+        total += w.numel()
+    worst = max(frob, key=frob.get)
+    return frob[worst], worst, beyond / total
+
+
+def _checksums(grads):
+    return {n: (float(g.double().sum()), float((g.double() ** 2).sum()))
+            for n, g in grads.items()}
+
+
+def phase18_rank(cfg_path, rank, out_path):
+    """One rank of phase 18: join the group, run ``phase18_run`` and save
+    its record (rank 0 keeps its gradients, the others their
+    checksums)."""
+    import pickle
+    from types import SimpleNamespace
+
+    import torch
+
+    from captioning_tpu_torch.parallel import mesh
+    with open(cfg_path, 'rb') as f:
+        cfg = pickle.load(f)
+    device = mesh.init_distributed(SimpleNamespace(
+        dist_coordinator=cfg['coord'], dist_nproc=cfg['world'],
+        dist_pid=int(rank)), cfg['device'])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        rec = phase18_run(torch, cfg, device)
+    finally:
+        torch.distributed.destroy_process_group()
+    for step in ('xe', 'sc'):
+        if int(rank):
+            rec[step]['grads'] = _checksums(rec[step]['grads'])
+    torch.save(rec, out_path)
+
+
+def start_procs(cmds, cwd, what, env=None):
+    """Start ``cmds`` (argument lists) at once in ``cwd``, each writing its
+    output to a log there; ``wait_procs`` waits for them."""
+    logs = [os.path.join(cwd, '%s.%d.log' % (what, i))
+            for i in range(len(cmds))]
+    files = [open(p, 'w') for p in logs]
+    procs = [subprocess.Popen(c, cwd=cwd, stdout=f, stderr=subprocess.STDOUT,
+                              env=env) for c, f in zip(cmds, files)]
+    return procs, files, logs, what
+
+
+def run_procs(cmds, cwd, timeout, what):
+    return wait_procs(start_procs(cmds, cwd, what), timeout)
+
+
+def wait_procs(started, timeout):
+    """The outputs of ``start_procs``' processes.  One that fails, or a run
+    past ``timeout`` s, stops every one and raises with the output's
+    tail."""
+    procs, files, logs, what = started
+    deadline = time.time() + timeout
+    try:
+        while time.time() < deadline:
+            codes = [p.poll() for p in procs]
+            if None not in codes or any(c not in (None, 0) for c in codes):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in files:
+            f.close()
+    outs = []
+    for i, (p, path) in enumerate(zip(procs, logs)):
+        with open(path) as f:
+            outs.append(f.read())
+        if p.returncode != 0:
+            raise AssertionError('%s process %d failed (rc %s):\n%s'
+                                 % (what, i, p.returncode, outs[i][-4000:]))
+    return outs
+
+
+def p18_dataset(root):
+    """The synthetic dataset of tests/util_synth.py (20 images: 12 train,
+    4 val, 4 test; vocab 30, captions of 2-6 words, fc 10, 3-7 x 12
+    regions), its labels in an npz: the option flags that read it."""
+    import numpy as np
+    rng = np.random.RandomState(0)
+    fc_dir, att_dir = (os.path.join(root, d) for d in ('feats_fc',
+                                                        'feats_att'))
+    os.makedirs(fc_dir)
+    os.makedirs(att_dir)
+    images, caps, start, end, cursor = [], [], [], [], 1
+    for i in range(20):
+        img = 1000 + i
+        images.append({'id': img, 'split': 'train' if i < 12 else 'val'
+                       if i < 16 else 'test', 'file_path': 'img%d.jpg' % i})
+        np.save(os.path.join(fc_dir, '%d.npy' % img),
+                rng.randn(10).astype('float32'))
+        np.savez(os.path.join(att_dir, '%d.npz' % img),
+                 feat=rng.randn(rng.randint(3, 8), 12).astype('float32'))
+        start.append(cursor)
+        for _ in range(rng.randint(3, 6)):
+            cap = np.zeros(6, 'uint32')
+            n = rng.randint(2, 7)
+            cap[:n] = rng.randint(1, 31, n)
+            caps.append(cap)
+            cursor += 1
+        end.append(cursor - 1)
+    with open(os.path.join(root, 'talk.json'), 'w') as f:
+        json.dump({'ix_to_word': {str(i): 'w%d' % i for i in range(1, 31)},
+                   'images': images}, f)
+    np.savez(os.path.join(root, 'talk_label.npz'), labels=np.stack(caps),
+             label_start_ix=np.array(start), label_end_ix=np.array(end))
+    return ['--input_json', os.path.join(root, 'talk.json'),
+            '--input_label_h5', os.path.join(root, 'talk_label.npz'),
+            '--input_fc_dir', fc_dir, '--input_att_dir', att_dir,
+            '--fc_feat_size', '10', '--att_feat_size', '12']
+
+
+def p18_cli_start(root, device='cuda'):
+    """(d) tools/train_torch.py on the card as two ranks
+    (``--dist_coordinator``) beside one process, UpDown at tiny widths on
+    ``p18_dataset``, batch 7 (4 + 3 images a rank), 2 steps and one val
+    eval, one CPU thread each: started here, held by ``p18_cli``, which
+    runs it."""
+    from captioning_tpu_torch.parallel.launch import free_port
+    data = p18_dataset(os.path.join(root, 'data'))
+    args = data + ['--device', device, '--caption_model', 'updown',
+                   '--id', 'p18',
+                   '--rnn_size', '24', '--input_encoding_size', '16',
+                   '--att_hid_size', '8', '--batch_size', '7',
+                   '--max_epochs', '1', '--save_checkpoint_every', '2',
+                   '--language_eval', '0', '--val_images_use', '4',
+                   '--seq_per_img', '5', '--losses_log_every', '1',
+                   '--drop_prob_lm', '0', '--num_data_threads', '2',
+                   '--seed', '3', '--max_length', '6']
+    coord = '127.0.0.1:%d' % free_port()
+    runs = {'one': [[]], 'two': [['--dist_coordinator', coord,
+                                  '--dist_nproc', '2', '--dist_pid', str(r)]
+                                 for r in range(2)]}
+    cmds = []
+    for name, extra in runs.items():
+        os.makedirs(os.path.join(root, name))
+        cmds += [[sys.executable, '-c', PHASE18_CLI, HERE] + args +
+                 ['--checkpoint_path', os.path.join(root, name, 'ckpt')] + e
+                 for e in extra]
+    return start_procs(cmds, root, 'train_torch',
+                       dict(os.environ, OMP_NUM_THREADS='1'))
+
+
+def p18_cli(root, device):
+    """(d) run and held: the loss histories within rtol 2e-4 / atol 2e-5, the val
+    loss too, the val predictions equal, rank 0 alone writing.  Returns
+    the ranks' outputs."""
+    import pickle
+
+    import numpy as np
+    outs = wait_procs(p18_cli_start(root, device), 300)
+    hist = {}
+    for name in ('one', 'two'):
+        with open(os.path.join(root, name, 'ckpt', 'histories_p18.pkl'),
+                  'rb') as f:
+            hist[name] = pickle.load(f)
+    h1, h2 = hist['one'], hist['two']
+    if sorted(h1['loss_history']) != sorted(h2['loss_history']) or \
+            sorted(h1['val_result_history']) != \
+            sorted(h2['val_result_history']):
+        raise AssertionError('train_torch 2 ranks: histories of other '
+                             'iterations than one process\'s')
+    pairs = [(h2['loss_history'][i], h1['loss_history'][i])
+             for i in sorted(h1['loss_history'])]
+    pairs += [(h2['val_result_history'][i]['loss'],
+               h1['val_result_history'][i]['loss'])
+              for i in sorted(h1['val_result_history'])]
+    for got, want in pairs:
+        if not abs(got - want) <= 2e-5 + 2e-4 * abs(want):
+            raise AssertionError('train_torch 2 ranks: loss %.6f against '
+                                 '%.6f of one process' % (got, want))
+    for i in h1['val_result_history']:
+        if [p['caption'] for p in h2['val_result_history'][i]['predictions']] \
+                != [p['caption'] for p in
+                    h1['val_result_history'][i]['predictions']]:
+            raise AssertionError('train_torch 2 ranks: val predictions '
+                                 'differ from one process\'s')
+    names = os.listdir(os.path.join(root, 'two', 'ckpt'))
+    written = [('model saved to' in o, sum(
+        n.startswith('events.out') for n in names)) for o in outs[1:]]
+    if not ({'model.npz', 'optimizer.npz', 'infos_p18.pkl'} <= set(names)
+            and written[0][0] and not written[1][0]
+            and written[0][1] == 1):
+        raise AssertionError('train_torch 2 ranks: rank 0 alone writes the '
+                             'checkpoint and tensorboard: %s, %s'
+                             % (sorted(names), written))
+    log('  (d) tools/train_torch.py, 2 ranks against one process: loss '
+        'history %s, val loss %s (rtol 2e-4, atol 2e-5); val predictions '
+        'equal; rank 0 alone wrote %s'
+        % (np.round([p[0] for p in pairs[:-1]], 6).tolist(),
+           round(pairs[-1][0], 6), sorted(names)))
+    return outs[1:]
+
+
+def phase_data_parallel(torch, wrappers, device='cuda'):
+    """Phase 18 on ``device`` (the CPU rehearses it at tiny widths);
+    returns the launches the ranks' runs made."""
+    import pickle
+    import shutil
+
+    import numpy as np
+
+    from captioning_tpu_torch.parallel.launch import free_port
+    root = os.path.join(HERE, 'build', 'phase18')
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t0 = time.time()
+    cfg = dict(PHASE18, device=device, world=PHASE18_WORLD,
+               coord='127.0.0.1:%d' % free_port())
+    cfg_path = os.path.join(root, 'cfg.pkl')
+    with open(cfg_path, 'wb') as f:
+        pickle.dump(cfg, f)
+    outs = [os.path.join(root, 'rank%d.pt' % r) for r in range(cfg['world'])]
+    logs = run_procs([[sys.executable, '-c', PHASE18_RANK, HERE, cfg_path,
+                       str(r), outs[r]] for r in range(cfg['world'])],
+                     root, 600, 'rank')
+    ranks = [torch.load(p, weights_only=False) for p in outs]
+    t_ranks = time.time() - t0
+    for r, text in enumerate(logs):
+        log('  rank %d: %s' % (r, next(ln for ln in text.splitlines()
+                                       if ln.startswith('distributed:'))))
+    torch.cuda.empty_cache()
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        one = phase18_run(torch, dict(cfg, world=1), device)
+    finally:
+        os.chdir(cwd)
+    t_one = time.time() - t0 - t_ranks
+    # the launches by this script's wrapper names
+    names = {fn.__name__: key for key, fn in wrappers.items()}
+    for rec in ranks + [one]:
+        for part in (rec['xe'], rec['sc']) + tuple(rec['eval'].values()):
+            part['launches'] = {names.get(n, n): k
+                                for n, k in part['launches'].items()}
+    log('  backend %s, world %d, devices %s' % (
+        ranks[0]['backend'], ranks[0]['world'],
+        [r['device'] for r in ranks]))
+    # the kernels each rank launched (on the CPU the twins count nothing)
+    cuda = device == 'cuda'
+    for r, rec in enumerate(ranks):
+        if cuda and not rec['xe']['launches'].get('additive_attention'):
+            raise AssertionError('phase 18 rank %d: B3 did not launch in '
+                                 'the XE step' % r)
+    for step in ('xe', 'sc'):
+        want = _checksums(ranks[0][step]['grads'])
+        if len({rec[step]['loss'] for rec in ranks}) != 1 or any(
+                rec[step]['grads'] != want for rec in ranks[1:]):
+            raise AssertionError('phase 18 %s: the ranks report different '
+                                 'losses or reduced gradients' % step)
+    # (a) the two ranks' XE step against one process's over the 20 images
+    step_agreement('updown', 'xe_step (%d images)' % cfg['B'],
+                   ranks[0]['xe']['loss'], one['xe']['loss'],
+                   ranks[0]['xe']['grads'], one['xe']['grads'],
+                   sides='2 ranks vs one process')
+    # (b) the SCST step: its loss, rewards and sequences against one
+    # process's over the 20 images; its gradients against one process's
+    # over the ranks' row blocks (p18_sc_blocks), and within bounds of the
+    # 20-image step's
+    sc = [r['sc'] for r in ranks]
+    loss_err = abs(sc[0]['loss'] - one['sc']['loss']) / abs(
+        one['sc']['loss'])
+    if not loss_err <= 1e-5:
+        raise AssertionError('phase 18 sc: loss %.6f vs %.6f of one process'
+                             % (sc[0]['loss'], one['sc']['loss']))
+    blocks = p18_sc_blocks(torch, cfg, device, cfg['world'])
+    step_agreement('transformer', 'sc_fused_step (%d images)' % cfg['B'],
+                   sc[0]['loss'], blocks['loss'], sc[0]['grads'],
+                   blocks['grads'],
+                   sides='2 ranks vs one process over the ranks\' row blocks')
+    for k in ('greedy', 'sampled'):
+        if not np.array_equal(np.concatenate([s[k] for s in sc]),
+                              one['sc'][k]):
+            raise AssertionError('phase 18 sc: the ranks\' %s sequences '
+                                 'differ from one process\'s' % k)
+    if not all(abs(s['reward'] - one['sc']['reward']) <= 1e-5 for s in sc):
+        raise AssertionError('phase 18 sc: reward %s against %.6f'
+                             % ([s['reward'] for s in sc],
+                                one['sc']['reward']))
+    # against the 20-image step: the 2 ranks' gradient, which the bounds
+    # must pass; rank 0's own block's (the all-reduce left out), which they
+    # must reject; the mean of the ranks' own means (DDP's averaging)
+    dev_global = p18_grad_deviation(sc[0]['grads'], one['sc']['grads'])
+    shape, own, ddp = (p18_deviation_shape(g, one['sc']['grads']) for g in (
+        sc[0]['grads'], blocks['own'], blocks['means']))
+    ddp_blocks = p18_grad_deviation(blocks['means'], blocks['grads'])
+    log('  (b) the transformer\'s fused SCST step against one process over '
+        'the %d images: greedy and sampled sequences identical, mean '
+        'advantage %.6f vs %.6f, loss rel err %.2e; gradients: worst %.2e of '
+        'its tensor\'s max (%s; %d elements over 1e-4 of it; the GEMMs\' '
+        'rounding follows the batch\'s row count, so an FFN ReLU gate near 0 '
+        'may flip); worst relative Frobenius error %.2e (%s), %.2e of the '
+        'elements beyond 1e-4 of their tensor\'s max (bounds %.0e, %.0e); '
+        'rank 0\'s own block: %.2e (%s), %.2e; the mean of the ranks\' own '
+        'means (DDP): %.2e (%s), %.2e, and against the row blocks\' '
+        'weighted sum %.2e of its tensor\'s max (%s, %d elements over 1e-4)'
+        % ((cfg['B'], sc[0]['reward'], one['sc']['reward'], loss_err)
+           + dev_global + shape + (P18_FROB, P18_BEYOND) + own + ddp
+           + ddp_blocks))
+
+    def within(frob, name, beyond):
+        return frob <= P18_FROB and beyond <= P18_BEYOND
+    if not within(*shape) or within(*own):
+        raise AssertionError('phase 18 sc: the bounds must pass the 2 ranks\' '
+                             'gradient and reject rank 0\'s own (%s, %s)'
+                             % (shape, own))
+    # (c)
+    need = {'transformer': ['attend_write_merged', 'logit_topk'],
+            'updown': ['additive_attention', 'topk_lastdim'],
+            'big': ['attend_write_merged', 'logit_topk']}
+    for model, kernels in need.items():
+        for r, rec in enumerate(ranks):
+            got = rec['eval'][model]['launches']
+            if cuda and not all(got.get(k) for k in kernels):
+                raise AssertionError('phase 18 eval %s rank %d: %s did not '
+                                     'all launch (%s)' % (model, r, kernels,
+                                                          got))
+    for model in ('transformer', 'updown'):
+        want = one['eval'][model]
+        for rec in ranks:
+            got = rec['eval'][model]
+            if (got['ids'], got['captions']) != (want['ids'],
+                                                  want['captions']):
+                raise AssertionError('phase 18 eval %s: the merged captions '
+                                     'differ from one process\'s' % model)
+            if not abs(got['loss'] - want['loss']) <= 1e-5 * abs(
+                    want['loss']):
+                raise AssertionError('phase 18 eval %s: val loss %.6f vs '
+                                     '%.6f' % (model, got['loss'],
+                                               want['loss']))
+        log('  (c) cooperative eval_split, %s beam 5 f32 over %d images: '
+            'captions equal to one process\'s, val loss %.6f vs %.6f'
+            % (model, cfg['eval_images'], ranks[0]['eval'][model]['loss'],
+               want['loss']))
+    big = [rec['eval']['big'] for rec in ranks]
+    agree = float(np.mean([a == b for a, b in zip(
+        big[0]['captions'], one['eval']['big']['captions'])]))
+    if big[0]['captions'] != big[1]['captions'] or agree < 0.95:
+        raise AssertionError('phase 18 eval bf16: agreement %.4f with one '
+                             'process (at least 0.95), ranks equal: %s'
+                             % (agree, big[0]['captions'] ==
+                                big[1]['captions']))
+    # (d), after the timed steps and decodes: it shares the host with none
+    t = time.time()
+    p18_cli(os.path.join(root, 'cli'), device)
+    t_cli = time.time() - t
+    shutil.rmtree(root, ignore_errors=True)     # the ranks' gradients
+
+    def med(v):
+        return sorted(v)[len(v) // 2] if v else float('nan')
+    rec = {
+        'gpu': gpu_line(), 'backend': ranks[0]['backend'],
+        'world': ranks[0]['world'],
+        'xe_step_ms_2_ranks': [r['xe']['step_ms'] for r in ranks],
+        'xe_step_ms_1_process': one['xe']['step_ms'],
+        'sc_step_ms_2_ranks': [r['sc']['step_ms'] for r in ranks],
+        'sc_step_ms_1_process': one['sc']['step_ms'],
+        'allreduce_ms_xe': ranks[0]['xe']['allreduce_ms'],
+        'allreduce_ms_sc': ranks[0]['sc']['allreduce_ms'],
+        'grad_bytes': {'updown': ranks[0]['xe']['grad_bytes'],
+                       'transformer': ranks[0]['sc']['grad_bytes']},
+        'eval_caps_2_ranks': cfg['big'] / max(b['wall_s'] for b in big),
+        'eval_caps_1_process': cfg['big'] / one['eval']['big']['wall_s'],
+        'eval_agreement_bf16': agree,
+        'eval_launches_rank0': {m: ranks[0]['eval'][m]['launches']
+                                for m in need},
+        'seconds': {'ranks': t_ranks, 'one_process': t_one,
+                    'cli': t_cli,
+                    'phase': time.time() - t0}}
+    log('  %s: UpDown XE step (%d images x 5, L 16) median %.1f ms a rank '
+        '(2 ranks, %d images each) vs %.1f ms (one process); the '
+        'transformer\'s fused SCST step median %.1f vs %.1f ms; the flat '
+        'gradient all-reduce (%s) median %.1f ms (UpDown, %d bytes) and '
+        '%.1f ms (transformer, %d bytes) by CUDA events; cooperative '
+        'eval_split, the transformer bf16 beam 5 over %d images: %.1f cap/s '
+        '(2 ranks) vs %.1f cap/s (one process), agreement %.4f.  On one '
+        'shared card these measure the collective\'s overhead, not scaling'
+        % (rec['gpu'], cfg['B'], med(rec['xe_step_ms_2_ranks'][0]),
+           cfg['B'] // 2, med(one['xe']['step_ms']),
+           med(rec['sc_step_ms_2_ranks'][0]), med(one['sc']['step_ms']),
+           rec['backend'], med(rec['allreduce_ms_xe']),
+           rec['grad_bytes']['updown'], med(rec['allreduce_ms_sc']),
+           rec['grad_bytes']['transformer'], cfg['big'],
+           rec['eval_caps_2_ranks'], rec['eval_caps_1_process'], agree))
+    log('  phase 18 record: %s' % json.dumps(rec))
+    launches = dict.fromkeys(wrappers, 0)
+    for r in ranks:
+        for part in (r['xe'], r['sc']) + tuple(r['eval'].values()):
+            for n, k in part['launches'].items():
+                if n in launches:
+                    launches[n] += k
+    return launches
+
+
 def main():
     import torch
     wall = time.time()
@@ -3104,6 +3830,13 @@ def main():
     for name, n in phase_ensemble_raw(torch, wrappers).items():
         launches[name] += n
     log('phase 17: %.1f s' % (time.time() - t))
+
+    log('phase 18: the data axis: %d ranks against one process (XE, SCST, '
+        'the cooperative eval_split, tools/train_torch.py)' % PHASE18_WORLD)
+    t = time.time()
+    for name, n in phase_data_parallel(torch, wrappers).items():
+        launches[name] += n
+    log('phase 18: %.1f s' % (time.time() - t))
 
     bad = [m for m in sys.modules
            if m.split('.')[0] in ('jax', 'flax', 'optax', 'captioning_tpu')]

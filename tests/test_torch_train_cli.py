@@ -359,14 +359,16 @@ def test_profile_rl_steps_on_the_cpu(model, mode, monkeypatch):
 
 
 @pytest.mark.parametrize('flag,value,match', [
-    ('mesh_shape', 'data:2', 'A7'), ('dist_auto', 1, 'A7'),
+    ('mesh_shape', 'data:1,model:2', 'A7'),
+    ('mesh_shape', 'data:2,model:2', 'A7'),
     ('train_beam_size', 2, 'train-mode sampling by beam')])
 def test_unported_training_raises(ds, tmp_path, monkeypatch, flag, value,
                                   match):
     """What the loop does not port raises NotImplementedError naming its
-    ROADMAP item or what is left out (an SCST stage that samples by beam
-    search once it is reached, after the exception checkpoint of the JAX
-    loop), and ``--device cuda`` without a GPU raises."""
+    ROADMAP item or what is left out (the model axis of a mesh; an SCST
+    stage that samples by beam search once it is reached, after the
+    exception checkpoint of the JAX loop), and ``--device cuda`` without a
+    GPU raises."""
     import importlib.util
 
     import torch
@@ -386,7 +388,7 @@ def test_unported_training_raises(ds, tmp_path, monkeypatch, flag, value,
         mod.train(opt, device='cpu')
     if flag == 'train_beam_size':
         assert os.path.isfile(os.path.join(ckpt, 'model.npz'))
-    if flag == 'mesh_shape':
+    if value == 'data:1,model:2':
         monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
         with pytest.raises(RuntimeError, match='CUDA'):
             mod.main(_args(ds, ckpt, 1))
@@ -739,3 +741,89 @@ def test_port_resumes_a_jax_bf16_run(ds, tmp_path, monkeypatch):
     np.testing.assert_allclose(got, want[2:], rtol=1e-2)
     with np.load(os.path.join(resumed, 'optimizer.npz')) as f:
         assert int(f['#1/#0/#0']) == 4
+
+
+def _cli(script, args, cwd):
+    """``tools/<script> --device cpu <args>`` as a process in ``cwd``."""
+    import subprocess
+    import sys
+    os.makedirs(cwd, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS='1')
+    return subprocess.Popen(
+        [sys.executable, os.path.join(REPO, 'tools', script),
+         '--device', 'cpu'] + args, cwd=cwd, env=env, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        start_new_session=True)        # its ranks die with it
+
+
+@pytest.fixture(scope='module')
+def two_ranks(ds, tmp_path_factory):
+    """(one process's checkpoint dir and output, the 2-rank run's): batch
+    7 (4 images on rank 0, 3 on rank 1), 2 steps and one val eval;
+    tools/train_torch.py beside tools/train_pl_torch.py ``--mesh_shape
+    data:2``, which starts two tools/train_torch.py ranks
+    (``--dist_coordinator``, gloo).  A hang fails at the timeout."""
+    import signal
+    root = tmp_path_factory.mktemp('two_ranks')
+    runs = [(str(root / name / 'ckpt'), _cli(script, _args(
+        ds, str(root / name / 'ckpt'), 1, batch_size=7) + extra,
+        str(root / name))) for name, script, extra in (
+            ('one', 'train_torch.py', []),
+            ('two', 'train_pl_torch.py', ['--mesh_shape', 'data:2']))]
+    out = []
+    try:
+        for ckpt, p in runs:
+            out.append((ckpt, p.communicate(timeout=240)[0]))
+    finally:
+        for _, p in runs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+    for (_, p), (_, log) in zip(runs, out):
+        assert p.returncode == 0, log[-3000:]
+    return out
+
+
+def test_two_rank_run_equals_one_process(two_ranks):
+    """The loss history within rtol 2e-4 / atol 2e-5 (the JAX 2-process
+    test's bound), the val loss too, the val predictions equal; rank 0
+    alone printed the steps and wrote the checkpoints, the histories and
+    tensorboard."""
+    (one, log1), (two, log2) = two_ranks
+    assert 'distributed: rank 1 of 2, backend gloo, device cpu' in log2
+    assert 'train step xe: eager (xe_step): data-parallel (world > 1)' \
+        in log2
+    for line in ('model saved to', 'iter 0 (epoch 0)', 'iter 1 (epoch 0)'):
+        assert log2.count(line) == log1.count(line) > 0, line
+    h1, h2 = _histories(one), _histories(two)
+    assert sorted(h1['loss_history']) == sorted(h2['loss_history']) == [1, 2]
+    for it in h1['loss_history']:
+        np.testing.assert_allclose(h2['loss_history'][it],
+                                   h1['loss_history'][it], rtol=2e-4,
+                                   atol=2e-5)
+    v1, v2 = h1['val_result_history'], h2['val_result_history']
+    assert sorted(v1) == sorted(v2) == [2]
+    np.testing.assert_allclose(v2[2]['loss'], v1[2]['loss'], rtol=2e-4,
+                               atol=2e-5)
+    assert [(p['image_id'], p['caption']) for p in v2[2]['predictions']] \
+        == [(p['image_id'], p['caption']) for p in v1[2]['predictions']]
+    names = os.listdir(two)
+    assert {'model.npz', 'optimizer.npz', 'infos_tr.pkl',
+            'histories_tr.pkl'} <= set(names)
+    assert sum(n.startswith('events.out.tfevents') for n in names) == 1
+
+
+def test_train_pl_torch_evaluates(ds, two_ranks, tmp_path, monkeypatch):
+    """``EVALUATE=1`` tools/train_pl_torch.py evaluates the 2-rank run's
+    ``model-best.npz`` on the test split through tools/eval_torch.py."""
+    import importlib.util
+    monkeypatch.chdir(tmp_path)
+    spec = importlib.util.spec_from_file_location(
+        'train_pl_torch', os.path.join(REPO, 'tools', 'train_pl_torch.py'))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    ckpt = two_ranks[1][0]
+    assert {'model-best.npz', 'infos_tr-best.pkl'} <= set(os.listdir(ckpt))
+    monkeypatch.setenv('EVALUATE', '1')
+    mod.main(['--device', 'cpu'] + _args(ds, ckpt, 1, beam_size=2))
+    preds, _ = _load(os.path.join('eval_results', '.saved_pred_tr_test.pkl'))
+    assert len(preds) == 4 and all(p['caption'] for p in preds)

@@ -27,11 +27,24 @@ tools/train.py read them, and this script resumes theirs.
 
 ``--compute_dtype bfloat16`` trains with float32 master weights: the model
 computes in bf16 at the JAX package's cast sites, while the parameters,
-their gradients, the optimizer state and the checkpoints stay float32.  A
-mesh and multi-host runs raise and name their ROADMAP.md item.
+their gradients, the optimizer state and the checkpoints stay float32.
+
+Data-parallel over several processes, one a rank (``parallel/mesh.py``):
+``--dist_coordinator host:port --dist_nproc N --dist_pid i`` joins a
+group, ``--dist_auto 1`` joins torchrun's, and ``--mesh_shape data:N`` (or,
+with none, several visible GPUs: the largest count that divides
+``batch_size``) starts the N ranks itself (``parallel/launch.py``).
+``--batch_size`` is global: every rank reads the same batches and steps on
+its ``local_batch_slice``; each step is the one-device step over the
+global batch (``modules/trainer.py``), the val eval is cooperative, and
+rank 0 alone writes the checkpoints, infos, histories and tensorboard
+while the others wait.  A failing rank fails the run.  The model axis
+(``--mesh_shape data:N,model:M``, M > 1) raises (ROADMAP.md A7).
 
     python tools/train_torch.py --cfg configs/updown/updown.yml \\
         --id updown --checkpoint_path log_updown [--device cpu]
+    python tools/train_torch.py ... --mesh_shape data:4
+    torchrun --nproc_per_node 4 tools/train_torch.py ... --dist_auto 1
 """
 
 from __future__ import annotations
@@ -53,6 +66,7 @@ import captioning_tpu_torch.utils.opts as opts  # noqa: E402
 from captioning_tpu_torch.data.dataset import DataLoader  # noqa: E402
 from captioning_tpu_torch.models.api import setup  # noqa: E402
 from captioning_tpu_torch.modules.trainer import Trainer  # noqa: E402
+from captioning_tpu_torch.parallel import launch, mesh  # noqa: E402
 from captioning_tpu_torch.utils import eval_utils  # noqa: E402
 from captioning_tpu_torch.utils import optimizers as optim_utils  # noqa: E402
 from captioning_tpu_torch.utils.rewards import (  # noqa: E402
@@ -67,23 +81,28 @@ def _summary_writer(path):
     return SummaryWriter(path)
 
 
-def _refuse_unported(opt):
-    """Options of tools/train.py that this loop does not port."""
-    if getattr(opt, 'mesh_shape', '') or getattr(opt, 'dist_coordinator',
-                                                 '') or \
-            getattr(opt, 'dist_auto', 0) or \
-            getattr(opt, 'dist_nproc', -1) not in (None, -1, 1):
-        raise NotImplementedError('a mesh and multi-host training are not '
-                                  'ported yet (one device: leave '
-                                  '--mesh_shape and the --dist_* options '
-                                  'unset); see ROADMAP.md A7')
-
-
 def train(opt, device='cuda'):
     if torch.device(device).type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError('--device cuda: no CUDA device is available '
                            '(pass --device cpu to run the plain twins)')
-    _refuse_unported(opt)
+    # a model axis raises before the group is joined
+    mesh.parse_mesh_shape(getattr(opt, 'mesh_shape', '') or '')
+    device = mesh.init_distributed(opt, device)
+    try:
+        _train(opt, device, mesh.make_mesh(opt.mesh_shape))
+    finally:
+        if mesh.world_size() > 1:
+            torch.distributed.destroy_process_group()
+
+
+def _train(opt, device, grid):
+    main = grid.rank == 0
+
+    def say(*args):
+        """Print on rank 0 only: the ranks' steps report the same global
+        values."""
+        if main:
+            print(*args)
     ################################
     # Build dataloader
     ################################
@@ -122,12 +141,12 @@ def train(opt, device='cuda'):
                                'histories_' + opt.id + '.pkl'), 'rb') as f:
             histories.update(utils.pickle_load(f))
 
-    tb_writer = _summary_writer(opt.checkpoint_path)
+    tb_writer = _summary_writer(opt.checkpoint_path) if main else None
 
     # wandb (second logger backend, reference train_pl.py:442-449):
     # optional dependency, enabled by --use_wandb, silent no-op otherwise
     wandb_run = None
-    if getattr(opt, 'use_wandb', 0):
+    if getattr(opt, 'use_wandb', 0) and main:
         try:
             import wandb
             wandb_run = wandb.init(
@@ -154,10 +173,12 @@ def train(opt, device='cuda'):
         print('loaded model from', opt.start_from)
     else:
         captioner.init_params(torch.Generator().manual_seed(seed))
+    captioner.replicate()              # rank 0's weights on every rank
     # dropout and scheduled sampling draw from gen; the structure steps'
-    # XE term from gen_lm, the RL sampling noise from noise
+    # XE term from gen_lm, the RL sampling noise from noise; each rank
+    # from its own seeds, so that ranks do not repeat each other's masks
     gen, gen_lm, noise = (torch.Generator(captioner.device).manual_seed(
-        seed + k) for k in (1, 2, 3))
+        seed + k + 3 * grid.rank) for k in (1, 2, 3))
 
     # PPO old model
     old_captioner = None
@@ -166,7 +187,7 @@ def train(opt, device='cuda'):
             raise ValueError('Must provide old model path for PPO')
         old_captioner = setup(opt, loader.get_vocab(),
                               device=device).load_params(
-                                  opt.ppo_old_model_path)
+                                  opt.ppo_old_model_path).replicate()
 
     ##########################
     # Build optimizer
@@ -185,10 +206,10 @@ def train(opt, device='cuda'):
             routes[kind] = getattr(trainer, '%s_step%s' % (
                 kind, '' if why else '_graphed'))
             if why:
-                print('train step %s: eager (%s_step): %s' % (kind, kind,
-                                                              why))
+                say('train step %s: eager (%s_step): %s' % (kind, kind,
+                                                            why))
             else:
-                print('train step %s: %s_step_graphed (%s)' % (
+                say('train step %s: %s_step_graphed (%s)' % (
                     kind, kind, 'one CUDA graph a step'
                     if captioner.device.type == 'cuda'
                     else 'run eagerly on the CPU'))
@@ -206,9 +227,12 @@ def train(opt, device='cuda'):
         plateau.load_state_dict(infos.get('plateau_state_dict'))
 
     def save(append=''):
-        utils.save_checkpoint(opt, captioner.jax_variables(), infos,
-                              trainer.opt_state_jax(),
-                              None if append else histories, append=append)
+        """Rank 0 writes (the ranks meet at a barrier after the saves)."""
+        if main:
+            utils.save_checkpoint(opt, captioner.jax_variables(), infos,
+                                  trainer.opt_state_jax(),
+                                  None if append else histories,
+                                  append=append)
 
     #########################
     # Get ready to start
@@ -273,18 +297,18 @@ def train(opt, device='cuda'):
         train_loss = float(out['loss'])
         took = time.time() - p['start']
         if p['struc_flag']:
-            print("iter {} (epoch {}), train_loss = {:.3f}, lm_loss = "
-                  "{:.3f}, struc_loss = {:.3f}, time/batch = {:.3f}"
-                  .format(p['it'], p['epoch'], train_loss,
-                          float(out['lm_loss']), float(out['struc_loss']),
-                          took))
+            say("iter {} (epoch {}), train_loss = {:.3f}, lm_loss = "
+                "{:.3f}, struc_loss = {:.3f}, time/batch = {:.3f}"
+                .format(p['it'], p['epoch'], train_loss,
+                        float(out['lm_loss']), float(out['struc_loss']),
+                        took))
         elif not p['sc_flag']:
-            print("iter {} (epoch {}), train_loss = {:.3f}, time/batch = "
-                  "{:.3f}".format(p['it'], p['epoch'], train_loss, took))
+            say("iter {} (epoch {}), train_loss = {:.3f}, time/batch = "
+                "{:.3f}".format(p['it'], p['epoch'], train_loss, took))
         else:
-            print("iter {} (epoch {}), avg_reward = {:.3f}, time/batch = "
-                  "{:.3f}".format(p['it'], p['epoch'], float(out['reward']),
-                                  took))
+            say("iter {} (epoch {}), avg_reward = {:.3f}, time/batch = "
+                "{:.3f}".format(p['it'], p['epoch'], float(out['reward']),
+                                took))
         it1 = p['it'] + 1
         # Write the training loss summary (train.py:216-235)
         if it1 % opt.losses_log_every == 0:
@@ -353,7 +377,15 @@ def train(opt, device='cuda'):
                                   opt.noamopt_warmup)
 
             data = loader.get_batch('train')
-            print('Read data:', time.time() - start)
+            say('Read data:', time.time() - start)
+            if grid.world > 1:
+                # every rank read the same global batch: keep this rank's
+                # rows (tools/train.py _to_jnp's local_slice)
+                sl = mesh.local_batch_slice(len(data['infos']))
+                data = dict(data, gts=data['gts'][sl], **{
+                    k: None if data[k] is None else data[k][sl]
+                    for k in ('fc_feats', 'att_feats', 'att_masks',
+                              'labels', 'masks')})
 
             start = time.time()
             fc = dev(data['fc_feats'], torch.float32)
@@ -425,7 +457,8 @@ def train(opt, device='cuda'):
                 out = step_fn('sc_grad')(
                     fc, att, am, gen_seq, dev(reward, torch.float32),
                     opt.current_lr, gen, drop_worst_flag=drop_worst_flag)
-                out['reward'] = float(reward[:, 0].mean())
+                out['reward'] = mesh.global_mean(float(reward[:, 0].sum()),
+                                                 reward.shape[0])
 
             new_pending = {'out': out, 'it': iteration, 'epoch': epoch,
                            'start': start, 'sc_flag': sc_flag,
@@ -492,6 +525,7 @@ def train(opt, device='cuda'):
                          else str(iteration))
                 if best_flag:
                     save('best')
+                mesh.barrier()
 
         if pending is not None:
             flush_metrics(pending)
@@ -507,14 +541,17 @@ def train(opt, device='cuda'):
                 pending = None
         except Exception:
             pass
-        print('Save ckpt on exception ...')
-        utils.save_checkpoint(opt, captioner.jax_variables(), infos,
-                              trainer.opt_state_jax())
-        print('Save ckpt done.')
+        if main:
+            print('Save ckpt on exception ...')
+            utils.save_checkpoint(opt, captioner.jax_variables(), infos,
+                                  trainer.opt_state_jax())
+            print('Save ckpt done.')
         stack_trace = traceback.format_exc()
         print(stack_trace)
-        if isinstance(e, NotImplementedError):
-            raise          # an unported stage: the run cannot go on
+        if isinstance(e, NotImplementedError) or grid.world > 1:
+            # an unported stage cannot go on; a rank that failed fails the
+            # run (the others would wait for it in a collective)
+            raise
 
 
 def main(argv=None):
@@ -522,7 +559,16 @@ def main(argv=None):
     pre.add_argument('--device', type=str, default='cuda',
                      choices=('cuda', 'cpu'))
     known, rest = pre.parse_known_args(argv)
-    train(opts.parse_opt(rest), device=known.device)
+    opt = opts.parse_opt(rest)
+    n = launch.ranks_to_start(opt, known.device)
+    if n > 1:
+        # this launch starts the ranks and waits for them
+        rc = launch.run_ranks(os.path.abspath(__file__),
+                              ['--device', known.device] + rest, n)
+        if rc:
+            raise SystemExit('a rank of %d failed (exit code %d)' % (n, rc))
+        return
+    train(opt, device=known.device)
 
 
 if __name__ == '__main__':
