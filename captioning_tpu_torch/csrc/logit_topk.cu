@@ -63,6 +63,15 @@
 // shared memory, warp w folding rows 8w..8w+7 into the same stats and a
 // shared-memory top-k; one part per split.
 //
+// Shard mode (the model axis): w and b are one rank's [V1, D] and [V1]
+// slice of the vocab starting at global column v_off.  The split kernels
+// compare and keep local columns (one offset for the whole shard, so the
+// order is the global one) and write global indices, local + v_off; the
+// caller passes unk_idx local to the shard that holds it, else -1.  With
+// merge = 0 the entry point stops at the workspace; logit_topk_merge_parts
+// runs the merge over the model group's gathered parts with the global V1
+// (row_sum = TS - V1 c counts every column of the vocab).
+//
 // Layouts: x [N, D], w [V1, D] (nn.Linear), b [V1], all float32 or bfloat16
 // (dtype 0 / 1; bf16 needs D % 8 == 0, D <= 1024 and x, w 16-byte aligned,
 // b 4-byte aligned).  Workspace: wf [parts, N, 5 + k] float, wi [parts, N,
@@ -162,7 +171,7 @@ __global__ void __launch_bounds__(THREADS)
 logit_topk_split(const float* __restrict__ x, const float* __restrict__ w,
                  const float* __restrict__ b, float* __restrict__ wf,
                  int* __restrict__ wi, int N, int D, int V1, int k,
-                 int unk_idx, int tiles_per_split, float temp,
+                 int unk_idx, int tiles_per_split, int v_off, float temp,
                  float unk_bias) {
   __shared__ __align__(128) unsigned char stage[STAGE_BYTES];
   __shared__ float topv[ROWS][MAXK];
@@ -291,8 +300,9 @@ logit_topk_split(const float* __restrict__ x, const float* __restrict__ w,
       f[4] = tsum[i];
     }
     if (lane < k) {
+      const int ix = topi[row][lane];
       f[5 + lane] = topv[row][lane];
-      wi[base * k + lane] = topi[row][lane];
+      wi[base * k + lane] = ix == INT_MAX ? INT_MAX : ix + v_off;
     }
   }
 }
@@ -545,7 +555,7 @@ logit_topk_wgmma(const __grid_constant__ CUtensorMap tx,
                  const __grid_constant__ CUtensorMap tw,
                  const __nv_bfloat16* __restrict__ b, float* __restrict__ wf,
                  int* __restrict__ wi, int N, int D, int V1, int k,
-                 int unk_idx, int tiles_per_split, float temp,
+                 int unk_idx, int tiles_per_split, int v_off, float temp,
                  float unk_bias) {
   constexpr int BM = 64 * MH;
   constexpr int X_CHUNK = BM * KCH * 2;       // one [BM, 64] box
@@ -748,7 +758,7 @@ logit_topk_wgmma(const __grid_constant__ CUtensorMap tx,
         }
         if (quad == 0 && gr < N) {
           f[5 + q] = bv;
-          wi[base * k + q] = bi;
+          wi[base * k + q] = bi == INT_MAX ? INT_MAX : bi + v_off;
         }
       }
     }
@@ -829,8 +839,8 @@ bool make_map(CUtensorMap* map, const void* base, int inner, int rows,
 template <int MH, int K>
 cudaError_t launch_wgmma(const void* x, const void* w, const void* b,
                          void* wf, void* wi, int N, int D, int V1, int k,
-                         int unk_idx, int splits, float temp, float unk_bias,
-                         cudaStream_t stream) {
+                         int unk_idx, int splits, int v_off, float temp,
+                         float unk_bias, cudaStream_t stream) {
   CUtensorMap tx, tw;
   if (!make_map(&tx, x, D, N, 64 * MH) || !make_map(&tw, w, D, V1, TN))
     return cudaErrorInvalidValue;
@@ -847,7 +857,8 @@ cudaError_t launch_wgmma(const void* x, const void* w, const void* b,
   dim3 grid((N + 64 * MH - 1) / (64 * MH), splits);
   logit_topk_wgmma<MH, K><<<grid, WG_THREADS, WG_SMEM, stream>>>(
       tx, tw, static_cast<const __nv_bfloat16*>(b), static_cast<float*>(wf),
-      static_cast<int*>(wi), N, D, V1, k, unk_idx, per, temp, unk_bias);
+      static_cast<int*>(wi), N, D, V1, k, unk_idx, per, v_off, temp,
+      unk_bias);
   return cudaGetLastError();
 }
 
@@ -856,11 +867,11 @@ cudaError_t launch_wgmma(const void* x, const void* w, const void* b,
 template <int MH>
 cudaError_t launch_wgmma_k(const void* x, const void* w, const void* b,
                            void* wf, void* wi, int N, int D, int V1, int k,
-                           int unk_idx, int splits, float temp,
+                           int unk_idx, int splits, int v_off, float temp,
                            float unk_bias, cudaStream_t s) {
 #define LAUNCH(K)                                                       \
   return launch_wgmma<MH, K>(x, w, b, wf, wi, N, D, V1, k, unk_idx,     \
-                             splits, temp, unk_bias, s)
+                             splits, v_off, temp, unk_bias, s)
   if (k <= 1) LAUNCH(1);
   if (k <= 2) LAUNCH(2);
   if (k <= 4) LAUNCH(4);
@@ -873,23 +884,24 @@ cudaError_t launch_wgmma_k(const void* x, const void* w, const void* b,
 }  // namespace
 
 // A split left without a tile contributes nothing: its parts are m = NEG,
-// zero sums and an empty list.
+// zero sums and an empty list.  merge = 0 stops at the workspace (a
+// shard's parts, for logit_topk_merge_parts).
 extern "C" int logit_topk(void* x, void* w, void* b, void* wf, void* wi,
                           void* vals, void* idx, void* rowsum, void* ent,
                           int N, int D, int V1, int k, int unk_idx,
-                          int splits, float temp, float unk_bias, int dtype,
-                          void* stream) {
-  if (k < 1 || k > MAXK || splits < 1 || N < 1)
+                          int splits, int v_off, int merge, float temp,
+                          float unk_bias, int dtype, void* stream) {
+  if (k < 1 || k > MAXK || splits < 1 || N < 1 || v_off < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int parts = splits;
   if (dtype == 1) {
     if (D % 8 || D > 1024) return (int)cudaErrorInvalidValue;
     const cudaError_t e =
-        D <= 512 ? launch_wgmma_k<2>(x, w, b, wf, wi, N, D, V1, k,
-                                     unk_idx, splits, temp, unk_bias, s)
-                 : launch_wgmma_k<1>(x, w, b, wf, wi, N, D, V1, k,
-                                     unk_idx, splits, temp, unk_bias, s);
+        D <= 512 ? launch_wgmma_k<2>(x, w, b, wf, wi, N, D, V1, k, unk_idx,
+                                     splits, v_off, temp, unk_bias, s)
+                 : launch_wgmma_k<1>(x, w, b, wf, wi, N, D, V1, k, unk_idx,
+                                     splits, v_off, temp, unk_bias, s);
     if (e != cudaSuccess) return (int)e;
     parts = 2 * splits;
   } else {
@@ -899,11 +911,30 @@ extern "C" int logit_topk(void* x, void* w, void* b, void* wf, void* wi,
     logit_topk_split<<<grid, THREADS, 0, s>>>(
         static_cast<const float*>(x), static_cast<const float*>(w),
         static_cast<const float*>(b), static_cast<float*>(wf),
-        static_cast<int*>(wi), N, D, V1, k, unk_idx, per, temp, unk_bias);
+        static_cast<int*>(wi), N, D, V1, k, unk_idx, per, v_off, temp,
+        unk_bias);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
+  if (!merge) return (int)cudaSuccess;
   logit_topk_merge<<<(N + 127) / 128, 128, 0, s>>>(
+      static_cast<const float*>(wf), static_cast<const int*>(wi),
+      static_cast<float*>(vals), static_cast<int*>(idx),
+      static_cast<float*>(rowsum), static_cast<float*>(ent), N, V1, k,
+      parts);
+  return (int)cudaGetLastError();
+}
+
+// The merge over parts gathered from the shards of a model group: wf
+// [parts, N, 5 + k], wi [parts, N, k] with global indices; V1 global.
+extern "C" int logit_topk_merge_parts(void* wf, void* wi, void* vals,
+                                      void* idx, void* rowsum, void* ent,
+                                      int N, int V1, int k, int parts,
+                                      void* stream) {
+  if (k < 1 || k > MAXK || parts < 1 || N < 1)
+    return (int)cudaErrorInvalidValue;
+  logit_topk_merge<<<(N + 127) / 128, 128, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(wf), static_cast<const int*>(wi),
       static_cast<float*>(vals), static_cast<int*>(idx),
       static_cast<float*>(rowsum), static_cast<float*>(ent), N, V1, k,

@@ -16,7 +16,11 @@ route allows; ``forward_tf(train=True)`` is the teacher-forced pass the XE
 trainer differentiates (``modules.trainer``), ``sample_train`` the
 train-mode sampling of the RL steps and ``scan_logprobs`` the recompute
 over a sampled sequence.
-Parameters live in ``self.module`` on ``self.device``.
+Parameters live in ``self.module`` on ``self.device``; ``shard_vocab``
+cuts its vocab tensors to this rank's shards of a model axis
+(``parallel/shard.py``), after which the transformer's decode runs B2 in
+shard mode (``logit_topk_sharded``) and ``jax_variables`` gathers the full
+arrays.
 """
 
 from __future__ import annotations
@@ -29,7 +33,8 @@ import torch
 from ..engine import decoding
 from ..engine.decoding import DecodeModel
 from ..engine.graphs import CudaRecorder, GraphDecode
-from ..ops.logit_topk import logit_topk
+from ..ops.logit_topk import logit_topk, logit_topk_sharded
+from ..parallel import mesh, shard
 from . import harness
 from .aoa import AoACaptioner
 from .bert_cap import BertCaptioner
@@ -112,6 +117,8 @@ class DecodeEntries:
         ``sample_stats``).  The graphs take the single-group beam
         (``decoding.beam_program``) without the replay, and greedy stats
         without the step constraints (``decoding.sample_program``)."""
+        if getattr(self, 'vocab_shards', None):
+            return 'model axis (model > 1): per-step collectives'
         if kind == 'beam':
             if not decoding.beam_fast(opt):
                 return ('the general beam body (diverse groups, '
@@ -220,6 +227,8 @@ class Captioner(DecodeEntries):
             self.unk_idx = cfg.unk_idx
         self.device = torch.device(device)
         self.module = None    # set by init_params / load_params
+        # parameter name -> parallel.vocab.VocabShard (shard_vocab)
+        self.vocab_shards = {}
         # (float32 master, compute-dtype copy) pairs; none in float32
         self._compute_pairs = []
         # (kind, options, shapes, dtypes) -> GraphDecode
@@ -258,14 +267,38 @@ class Captioner(DecodeEntries):
         self.module = module.requires_grad_(False).to(self.device).eval()
         self._compute_pairs = self.module.install_compute_copies()
         self._graph_cache = {}     # its graphs read the old module
+        self.vocab_shards = {}
         return self
+
+    def shard_vocab(self, grid=None):
+        """Cut the vocab tensors (``logit``, ``generator``, ``tgt_embed``)
+        to this rank's shards of the model axis of ``grid`` (default the
+        current mesh), by the JAX ``param_sharding_spec``; the
+        compute-dtype copies follow.  Nothing at model 1."""
+        self.vocab_shards = shard.shard_module(self.module,
+                                               grid or mesh.current())
+        if self.vocab_shards:
+            self._compute_pairs = self.module.install_compute_copies()
+            self._graph_cache = {}
+        return self
+
+    def full_state(self, state):
+        """``state`` (by parameter name) with the shards gathered into full
+        arrays over the model group; every rank of the group calls it."""
+        return shard.gather_state(state, self.vocab_shards)
+
+    def local_state(self, state):
+        """Full arrays by parameter name cut to this rank's shards."""
+        return shard.local_state(state, self.vocab_shards)
 
     def replicate(self):
         """Rank 0's parameters and BatchNorm statistics on every rank of
         the data axis, and the compute-dtype copies rewritten from them
         (the JAX package's ``globalize_replicated``): after an init or a
         load, so that the ranks start equal.  One rank: nothing."""
-        from ..parallel import mesh
+        if self.vocab_shards:
+            raise ValueError('replicate() before shard_vocab(): the ranks '
+                             'of a model group hold different shards')
         mesh.broadcast_module(self.module)
         self.sync_compute_weights()
         return self
@@ -294,8 +327,8 @@ class Captioner(DecodeEntries):
         loads."""
         from ..utils.misc import _unflatten_tree
         from ..utils.weights import jax_from_state_dict
-        return _unflatten_tree(jax_from_state_dict(self.module.state_dict(),
-                                                   self.cfg))
+        return _unflatten_tree(jax_from_state_dict(
+            self.full_state(self.module.state_dict()), self.cfg))
 
     # -- engine protocol -------------------------------------------------------
     def bind(self) -> DecodeModel:
@@ -336,10 +369,18 @@ class Captioner(DecodeEntries):
             hid, st = module.step(it, feats, state, uniform_t=True,
                                   beam_width=beam_width, return_hidden=True)
             # B2 picks its path by the weight's dtype: the compute copy
-            tv, ti, rs, en = logit_topk(
-                hid, compute_param(module.generator, 'weight'),
-                compute_param(module.generator, 'bias'), temp,
-                unk_bias, k=int(k), unk_idx=int(unk_idx))
+            gen = module.generator
+            w, b = compute_param(gen, 'weight'), compute_param(gen, 'bias')
+            if getattr(gen, 'vocab_parallel', False):
+                # a model axis's shard: the parts, all-gathered, merged
+                sh = gen.shard
+                tv, ti, rs, en = logit_topk_sharded(
+                    hid, w, b[sh.offset:sh.offset + sh.rows], sh.group, temp,
+                    unk_bias, k=int(k), unk_idx=int(unk_idx), v_off=sh.offset,
+                    V1=sh.V1)
+            else:
+                tv, ti, rs, en = logit_topk(hid, w, b, temp, unk_bias,
+                                            k=int(k), unk_idx=int(unk_idx))
             return tv, ti, rs, en, st
 
         def beam_init(state, bdash):

@@ -104,7 +104,12 @@ def sync_compute_copies(pairs) -> None:
 
 def linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
     """``layers.Dense`` compute: the input, the kernel and the bias in the
-    compute dtype (the weight's copy, made in ``cfg.dtype``)."""
+    compute dtype (the weight's copy, made in ``cfg.dtype``).  A vocab
+    projection sharded on the model axis
+    (``parallel.vocab.VocabParallelLinear``) computes its own, the full
+    output gathered."""
+    if getattr(lin, 'vocab_parallel', False):
+        return lin(x)
     w = compute_param(lin, 'weight')
     b = None if lin.bias is None else compute_param(lin, 'bias')
     return F.linear(x.to(w.dtype), w, b)

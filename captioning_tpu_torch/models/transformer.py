@@ -464,10 +464,14 @@ class TransformerCaptioner(CachedDecoder):
 
     def _embed(self, ids):
         """The token embedding, cast then gathered (the JAX ``jnp.take`` of
-        ``tgt_embed.astype(dtype)``), scaled by sqrt(d_model)."""
+        ``tgt_embed.astype(dtype)``), scaled by sqrt(d_model); a table
+        sharded on the model axis is looked up through its
+        ``tgt_embed_shard`` (``parallel.vocab.VocabShard.embed``)."""
         dt = self.cfg.dtype
-        return (compute_param(self, 'tgt_embed')[ids].to(dt)
-                * sqrt_in(self.cfg.d_model, dt))
+        table = compute_param(self, 'tgt_embed')
+        shard = getattr(self, 'tgt_embed_shard', None)
+        rows = table[ids] if shard is None else shard.embed(table, ids)
+        return rows.to(dt) * sqrt_in(self.cfg.d_model, dt)
 
     # -- encoder -------------------------------------------------------------
     def encode(self, att_feats, att_masks, gen=None):

@@ -61,10 +61,20 @@ global batch's (the trainer gives each ``models.layers.MaskedBatchNorm``
 the sum over the ranks as its ``reduce``).  The reported losses
 are global and equal on every rank; the RL steps' per-row tokens and
 rewards stay this rank's rows.  These steps run eagerly (``graph_route``).
+
+Under a model axis (``mesh_shape data:D,model:M``, a captioner whose vocab
+tensors ``Captioner.shard_vocab`` sharded) the M ranks of a model group
+step on the same rows, so every one of those sums runs over the data group
+only; the vocab-parallel pieces (``parallel/vocab.py``) give each rank the
+full logits and the gradients of one process, the flat all-reduce sums a
+shard's gradient over the ranks that hold the same shard, and the clip by
+norm adds the shards' squares over the model group (a replicated tensor
+counts once).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict
 
 import torch
@@ -104,13 +114,18 @@ class Trainer:
             'margin' not in getattr(opt, 'structure_loss_type', ''))
         self.label_smoothing = float(getattr(opt, 'label_smoothing', 0) or 0)
         # the data axis: the losses' denominators and the BatchNorm
-        # statistics are summed over it
-        self.world = mesh.world_size()
-        self._denom = mesh.all_reduce_sum if self.world > 1 else None
-        if self.world > 1:
+        # statistics are summed over its group (a model group's ranks read
+        # the same rows)
+        self.mesh = mesh.current()
+        self.data = self.mesh.data
+        group = self.mesh.data_group
+        self._denom = (functools.partial(mesh.all_reduce_sum, group=group)
+                       if self.data > 1 else None)
+        if self.data > 1:
             for m in captioner.module.modules():
                 if isinstance(m, MaskedBatchNorm):
-                    m.reduce = mesh.all_reduce_grad
+                    m.reduce = functools.partial(mesh.all_reduce_grad,
+                                                 group=group)
         self.named_params = dict(captioner.module.named_parameters())
         params = list(self.named_params.values())
         cuda = self.captioner.device.type == 'cuda'
@@ -123,7 +138,10 @@ class Trainer:
         else:
             self.optimizer = optim_utils.build_optimizer(opt, params,
                                                          capturable)
-        self.clip = optim_utils.clip_transform(opt)
+        shards = captioner.vocab_shards
+        self.clip = optim_utils.clip_transform(
+            opt, [self.named_params[n] for n in shards],
+            self.mesh.model_group)
         # the gradients live from here on and are zeroed in place each
         # step, so a graph's backward accumulates into the same buffers; a
         # parameter the pass does not reach (the folded cross-attention's K
@@ -145,14 +163,20 @@ class Trainer:
 
     # -- optimizer state in the JAX layout ----------------------------------
     def opt_state_jax(self) -> Dict:
+        """The optimizer state as ``optimizer.npz`` holds it, with full
+        arrays: a model axis's shards gathered (every rank of a model
+        group calls it)."""
         return optim_utils.state_to_jax(self.optimizer, self.opt,
                                         self.named_params,
-                                        self.captioner.cfg)
+                                        self.captioner.cfg,
+                                        self.captioner.full_state)
 
     def load_opt_state_jax(self, flat) -> None:
+        """Load full arrays, each sharded tensor's moments cut to this
+        rank's rows."""
         optim_utils.state_from_jax(self.optimizer, self.opt,
                                    self.named_params, self.captioner.cfg,
-                                   flat)
+                                   flat, self.captioner.local_state)
 
     # -- plumbing -----------------------------------------------------------
     def _scalars(self, lr, ss_prob=None):
@@ -175,12 +199,12 @@ class Trainer:
         loss.backward()
         out = dict(loss=loss.detach(), **shares)
         params = list(self.named_params.values())
-        if self.world > 1:
+        if self.data > 1:
             grads = [p.grad for p in params]
             flat = torch.cat([g.reshape(-1) for g in grads] +
                              [v.reshape(1).to(grads[0].dtype)
                               for v in out.values()])
-            flat = mesh.all_reduce_sum(flat)
+            flat = mesh.all_reduce_sum(flat, group=self.mesh.data_group)
             at = 0
             for g in grads:
                 g.copy_(flat[at:at + g.numel()].view_as(g))
@@ -210,17 +234,18 @@ class Trainer:
         """The mean of the k = int(N * (1 - rate)) smallest losses; under
         a data axis N and the selection are the global batch's, and this
         rank's share is the sum of its selected rows over k."""
-        if self.world == 1:
+        if self.data == 1:
             k = int(loss_vec.shape[0] * (1 - drop_worst_rate))
             return torch.topk(loss_vec, k, largest=False).values.mean()
         n = loss_vec.shape[0]
-        rows = torch.zeros(self.world, device=loss_vec.device)
-        rows[mesh.rank()] = n
-        rows = mesh.all_reduce_sum(rows).long().tolist()
-        start = sum(rows[:mesh.rank()])
+        group, index = self.mesh.data_group, self.mesh.data_index
+        rows = torch.zeros(self.data, device=loss_vec.device)
+        rows[index] = n
+        rows = mesh.all_reduce_sum(rows, group).long().tolist()
+        start = sum(rows[:index])
         every = loss_vec.new_zeros(sum(rows))
         every[start:start + n] = loss_vec.detach()
-        every = mesh.all_reduce_sum(every)
+        every = mesh.all_reduce_sum(every, group)
         k = int(every.shape[0] * (1 - drop_worst_rate))
         pick = torch.topk(every, k, largest=False).indices
         mine = pick[(pick >= start) & (pick < start + n)] - start
@@ -233,7 +258,10 @@ class Trainer:
         it stays on the eager method."""
         if kind not in KINDS:
             raise ValueError('unknown train step kind %r' % kind)
-        if self.world > 1:
+        if self.captioner.vocab_shards:
+            return ('model axis (model > 1): per-step collectives of the '
+                    'vocab shards')
+        if self.mesh.world > 1:
             return ('data-parallel (world > 1): the gradient all-reduce '
                     'runs between backward and step')
         why = optim_utils.graph_route(self.opt)
@@ -633,7 +661,8 @@ class Trainer:
             # a structure loss that is one mean (margin, risk) enters every
             # row as the global batch's mean, its gradient shared by the
             # ranks
-            struc_loss = mesh.all_reduce_grad(struc_loss)
+            struc_loss = mesh.all_reduce_grad(struc_loss,
+                                              self.mesh.data_group)
         loss = (1 - w) * lm_loss + w * struc_loss
         if drop_worst_flag:
             loss = self._drop_worst(

@@ -65,8 +65,12 @@ SIGNATURES = {
     },
     'logit_topk': {
         # x, w, b, ws_f, ws_i, out_vals, out_idx, out_rowsum, out_ent,
-        # N, D, V1, k, unk_idx, splits, temp, unk_bias, dtype, stream
-        'logit_topk': [_P] * 9 + [_I] * 6 + [_F, _F, _I, _P],
+        # N, D, V1, k, unk_idx, splits, v_off, merge, temp, unk_bias,
+        # dtype, stream
+        'logit_topk': [_P] * 9 + [_I] * 8 + [_F, _F, _I, _P],
+        # ws_f, ws_i, out_vals, out_idx, out_rowsum, out_ent, N, V1, k,
+        # parts, stream
+        'logit_topk_merge_parts': [_P] * 6 + [_I] * 4 + [_P],
     },
 }
 

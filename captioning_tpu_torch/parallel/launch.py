@@ -1,9 +1,10 @@
-"""Start the ranks of a data axis on this host, one process each.
+"""Start the ranks of a mesh on this host, one process each.
 
-``tools/train_torch.py --mesh_shape data:N`` (and ``tools/train_pl_torch.py``
-over several GPUs) runs the script again as N processes that join one
-group through ``--dist_coordinator 127.0.0.1:<free port> --dist_nproc N
---dist_pid i``, and waits for them.  A rank that fails fails the run: the
+``tools/train_torch.py --mesh_shape data:N[,model:M]`` (and
+``tools/train_pl_torch.py`` over several GPUs) runs the script again as
+N * M processes that join one group through ``--dist_coordinator
+127.0.0.1:<free port> --dist_nproc N*M --dist_pid i``, and waits for
+them.  A rank that fails fails the run: the
 others are stopped, never left waiting in a collective."""
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import time
 
 import torch
 
-from .mesh import parse_mesh_shape
+from .mesh import mesh_ranks
 
 
 def free_port() -> int:
@@ -26,7 +27,7 @@ def free_port() -> int:
 
 def ranks_to_start(opt, device: str) -> int:
     """How many rank processes a launch of the train script starts: 1 (this
-    process trains) under ``--dist_*`` or on one device; the data axis of
+    process trains) under ``--dist_*`` or on one device; data x model of
     ``--mesh_shape``; else, on several GPUs, the largest count that
     divides ``batch_size`` (tools/train.py ``_maybe_mesh``)."""
     if getattr(opt, 'dist_coordinator', '') or int(
@@ -35,8 +36,8 @@ def ranks_to_start(opt, device: str) -> int:
     cuda = torch.device(device).type == 'cuda'
     n_gpus = torch.cuda.device_count() if cuda else 0
     mesh_shape = getattr(opt, 'mesh_shape', '') or ''
-    if mesh_shape:
-        n = dict(parse_mesh_shape(mesh_shape)).get('data', 1)
+    n = mesh_ranks(mesh_shape)
+    if n:
         if cuda and n > n_gpus:
             raise ValueError('mesh_shape %r: %d ranks, one a GPU, but %d '
                              'GPUs are visible' % (mesh_shape, n, n_gpus))

@@ -1,4 +1,4 @@
-"""The data axis over processes (port of ``captioning_tpu/parallel/mesh.py``).
+"""The data and model axes over processes (port of ``captioning_tpu/parallel/mesh.py``).
 
 The JAX package trains data-parallel under ``pjit``: the batch is sharded
 on the mesh's ``data`` axis and the loss, its gradient, the BatchNorm
@@ -20,9 +20,15 @@ CPU; ``nccl`` where every rank of the host has a GPU of its own
 (NCCL refuses two ranks on one device).  A backend that fails to
 initialise raises; no other is tried.
 
-The ``model`` axis (the vocab-dim tensor parallelism of the JAX
-``param_sharding_spec``) is not ported: ``make_mesh`` raises for a model
-axis of more than 1 (ROADMAP.md A7).
+The ``model`` axis is the JAX package's vocab-dim tensor parallelism:
+``make_mesh("data:D,model:M")`` lays the D * M ranks out as the JAX
+``make_mesh`` reshapes its devices, rank = d * M + m, and builds each data
+group (the ranks of one m) and each model group (the ranks of one d).  The
+M ranks of a model group read the same rows and hold the shards of the
+vocab tensors that ``param_sharding_spec`` names (``parallel/vocab.py``,
+``parallel/shard.py``); every mean over the batch is a sum over the data
+group only, which ``local_batch_slice`` and the collectives' ``group``
+arguments give the trainer and the eval.
 """
 
 from __future__ import annotations
@@ -30,7 +36,8 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import os
-from typing import List, Tuple
+import re
+from typing import Any, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -41,29 +48,54 @@ TIMEOUT = datetime.timedelta(minutes=10)
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """The data axis of this process: its size (the group's world) and
-    this process's rank on it."""
+    """The axes of this process: the group's world and this process's rank
+    on it, the model axis's size and the process groups of this rank's
+    data and model groups (None: the whole group, and no model group at
+    model 1).  rank = data_index * model + model_index."""
     world: int
     rank: int
+    model: int = 1
+    data_group: Any = None
+    model_group: Any = None
+
+    @property
+    def data(self) -> int:
+        return self.world // self.model
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.model
+
+    @property
+    def model_index(self) -> int:
+        return self.rank % self.model
+
+
+# the mesh that make_mesh built for the current process group
+_MESH: Optional[Mesh] = None
 
 
 def parse_mesh_shape(mesh_shape: str) -> List[Tuple[str, int]]:
-    """"data:4,model:2" -> [('data', 4), ('model', 2)]; a model axis of
-    more than 1 raises ``NotImplementedError``."""
+    """"data:4,model:2" -> [('data', 4), ('model', 2)]."""
     axes = []
     for part in filter(None, (p.strip() for p in mesh_shape.split(','))):
         name, _, size = part.partition(':')
         name = name.strip()
-        if name not in ('data', 'model') or not size.strip().isdigit():
+        if name not in ('data', 'model') or not size.strip().isdigit() \
+                or int(size) < 1:
             raise ValueError('mesh_shape %r: expected "data:N[,model:M]"'
                              % mesh_shape)
         axes.append((name, int(size)))
-    if dict(axes).get('model', 1) > 1:
-        raise NotImplementedError(
-            'mesh_shape %r: the model axis (vocab tensor parallelism of the '
-            'logit, generator and tgt_embed) is not ported; see ROADMAP.md '
-            'A7 (the model axis)' % mesh_shape)
     return axes
+
+
+def mesh_ranks(mesh_shape: str) -> int:
+    """The ranks a mesh shape needs: data x model (0 when it names no
+    axis)."""
+    axes = dict(parse_mesh_shape(mesh_shape or ''))
+    if not axes:
+        return 0
+    return axes.get('data', 1) * axes.get('model', 1)
 
 
 def world_size() -> int:
@@ -79,26 +111,78 @@ def is_main_process() -> bool:
 
 
 def make_mesh(mesh_shape: str = '') -> Mesh:
-    """The data axis over the process group (one rank, no group); an
-    explicit ``data:N`` must equal the group's world."""
+    """The mesh over the process group (one rank, no group): the data axis
+    defaults to world / model; data x model must equal the group's world.
+    At model > 1 every rank builds the M data groups (one a model index)
+    and the D model groups (one a data index) in the same order
+    (``dist.new_group``) and keeps its own."""
+    global _MESH
     world = world_size()
-    data = dict(parse_mesh_shape(mesh_shape or '')).get('data', world)
-    if data != world:
-        raise ValueError('mesh_shape %r: its data axis needs %d ranks, the '
-                         'process group has %d' % (mesh_shape, data, world))
-    return Mesh(world, rank())
+    axes = dict(parse_mesh_shape(mesh_shape or ''))
+    model = axes.get('model', 1)
+    data = axes.get('data', max(world // model, 1))
+    if data * model != world:
+        raise ValueError('mesh_shape %r: data %d x model %d needs %d ranks, '
+                         'the process group has %d'
+                         % (mesh_shape, data, model, data * model, world))
+    data_group = model_group = None
+    if model > 1:
+        for m in range(model):
+            g = dist.new_group([d * model + m for d in range(data)])
+            if rank() % model == m:
+                data_group = g
+        for d in range(data):
+            g = dist.new_group([d * model + m for m in range(model)])
+            if rank() // model == d:
+                model_group = g
+    _MESH = Mesh(world, rank(), model, data_group, model_group)
+    return _MESH
+
+
+def current() -> Mesh:
+    """The mesh ``make_mesh`` built for this process group, else the data
+    axis over the whole group."""
+    if _MESH is not None and dist.is_initialized() and \
+            _MESH.world == world_size():
+        return _MESH
+    return Mesh(world_size(), rank())
+
+
+def group_size(group=None) -> int:
+    """The ranks of ``group`` (None: the whole group; 1 without one)."""
+    return dist.get_world_size(group) if dist.is_initialized() else 1
 
 
 def local_batch_slice(global_batch_size: int, n_proc: int = None,
                       index: int = None) -> slice:
-    """This rank's contiguous slice of the global batch.  A remainder goes
-    to the first ``rem`` ranks, so every global row belongs to exactly one
-    rank."""
-    n_proc = world_size() if n_proc is None else n_proc
-    i = rank() if index is None else index
+    """This rank's contiguous slice of the global batch over the data
+    axis (the ranks of a model group take the same slice).  A remainder
+    goes to the first ``rem`` ranks, so every global row belongs to
+    exactly one data rank."""
+    n_proc = current().data if n_proc is None else n_proc
+    i = current().data_index if index is None else index
     per, rem = divmod(global_batch_size, n_proc)
     start = i * per + min(i, rem)
     return slice(start, start + per + (1 if i < rem else 0))
+
+
+# the port's parameter names whose dim 0 is the vocab dim (nn.Linear
+# weights [V1, in], the embedding [V1, D]): the JAX ``_VOCAB_OUT_PARAMS``
+# (``logit/kernel``, ``generator/kernel`` [in, V1], ``tgt_embed``) by the
+# weight bridge's names
+_VOCAB_OUT_PARAMS = re.compile(r'(logit\.weight|generator\.weight|tgt_embed)$')
+
+
+def param_sharding_spec(name: str, shape, model: int) -> Optional[int]:
+    """The dim of the port's parameter ``name`` (shape ``shape``) that the
+    model axis of size ``model`` shards, or None (replicated): the JAX
+    ``param_sharding_spec`` on the port's names and nn.Linear layout.  The
+    vocab tensors shard dim 0 where M divides it; the biases stay
+    replicated."""
+    if model > 1 and _VOCAB_OUT_PARAMS.search(name) and len(shape) > 1 \
+            and shape[0] % model == 0:
+        return 0
+    return None
 
 
 def choose_backend(device_type: str, local_rank: int, local_world: int,
@@ -167,51 +251,52 @@ def _collective_device() -> torch.device:
     return torch.device('cpu')
 
 
-def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """``x`` summed over the data axis (a new tensor; no gradient), or
-    ``x`` itself with one rank."""
-    if world_size() == 1:
+def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``x`` summed over ``group`` (None: the whole group; a new tensor,
+    no gradient), or ``x`` itself over one rank."""
+    if group_size(group) == 1:
         return x
     out = x.detach().clone()
-    dist.all_reduce(out)
+    dist.all_reduce(out, group=group)
     return out
 
 
-def global_mean(num: float, count: float) -> float:
-    """sum(num) / sum(count) over the data axis: one all-reduce of the
+def global_mean(num: float, count: float, group=None) -> float:
+    """sum(num) / sum(count) over ``group``: one all-reduce of the
     (numerator, count) pair."""
-    if world_size() == 1:
+    if group_size(group) == 1:
         return num / count
     pair = torch.tensor([num, count], dtype=torch.float64,
                         device=_collective_device())
-    dist.all_reduce(pair)
+    dist.all_reduce(pair, group=group)
     return float(pair[0] / pair[1])
 
 
 class _AllReduceSum(torch.autograd.Function):
-    """y = the sum of x over the ranks.  Every rank's loss reads the same
-    y, so the global loss's gradient at y is the sum of the ranks'
-    gradients: the backward sums too."""
+    """y = the sum of x over the group's ranks.  Every rank's loss reads
+    the same y, so the global loss's gradient at y is the sum of the
+    ranks' gradients: the backward sums too."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, group):
+        ctx.group = group
         out = x.clone()
-        dist.all_reduce(out)
+        dist.all_reduce(out, group=group)
         return out
 
     @staticmethod
     def backward(ctx, grad):
         grad = grad.clone()
-        dist.all_reduce(grad)
-        return grad
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
 
 
-def all_reduce_grad(x: torch.Tensor) -> torch.Tensor:
+def all_reduce_grad(x: torch.Tensor, group=None) -> torch.Tensor:
     """``all_reduce_sum`` that autograd differentiates (the BatchNorm's
-    global sums); ``x`` itself with one rank."""
-    if world_size() == 1:
+    global sums); ``x`` itself over one rank."""
+    if group_size(group) == 1:
         return x
-    return _AllReduceSum.apply(x)
+    return _AllReduceSum.apply(x, group)
 
 
 def barrier() -> None:
@@ -230,24 +315,24 @@ def broadcast_module(module: torch.nn.Module) -> None:
         dist.broadcast(t.data, src=0)
 
 
-def object_allgather(obj, allgather=None) -> list:
-    """Every rank's ``obj`` (anything picklable), in rank order, on every
-    rank: ``dist.all_gather_object``.  ``allgather(obj)``, a lockstep
-    collective returning that list, stands in for the group."""
+def object_allgather(obj, allgather=None, group=None) -> list:
+    """Every rank's ``obj`` (anything picklable) of ``group``, in rank
+    order, on each of them: ``dist.all_gather_object``.  ``allgather(obj)``,
+    a lockstep collective returning that list, stands in for the group."""
     if allgather is not None:
         return list(allgather(obj))
-    out = [None] * world_size()
-    dist.all_gather_object(out, obj)
+    out = [None] * group_size(group)
+    dist.all_gather_object(out, obj, group=group)
     return out
 
 
-def gather_predictions(predictions, _allgather=None):
-    """Every rank gets the full concatenated list of the ranks' prediction
-    lists, ordered by rank."""
-    if _allgather is None and world_size() == 1:
+def gather_predictions(predictions, _allgather=None, group=None):
+    """Every rank of ``group`` gets the full concatenated list of the
+    ranks' prediction lists, ordered by rank."""
+    if _allgather is None and group_size(group) == 1:
         return predictions
     merged = []
-    for chunk in object_allgather(predictions, _allgather):
+    for chunk in object_allgather(predictions, _allgather, group):
         merged.extend(chunk)
     return merged
 

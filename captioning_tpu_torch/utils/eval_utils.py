@@ -12,11 +12,15 @@ batch's captions are post-processed after the next batch's decode has been
 issued.  Under a data axis of several ranks (``parallel.mesh``) the eval
 is cooperative, as the JAX loop's multi-host branch: every rank walks the
 same loader state and decodes its slice of each global batch, and every
-rank ends with the same merged predictions, val loss and metrics.
+rank ends with the same merged predictions, val loss and metrics.  Under
+a model axis the images split over the data axis alone: the ranks of a
+model group decode the same rows in lockstep (the vocab's shards merged
+across them), and model rank 0 alone contributes them to the merge.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import pickle
 import shutil
@@ -176,10 +180,10 @@ def eval_split(captioner, loader, eval_kwargs=None):
     'slow' route: diverse groups, whose group 0 is reported, and any other
     method); with ``sample_n > 1`` each batch also goes through
     ``eval_split_n``.  Sampling draws from one generator on the device,
-    seeded from ``seed`` (plus the rank under a data axis).
+    seeded from ``seed`` (plus the data index under a data axis).
 
-    Cooperative under a data axis (world > 1): each global batch is padded
-    to a multiple of the world (pad rows repeat row 0 with zero masks, as
+    Cooperative under a data axis (data > 1): each global batch is padded
+    to a multiple of the data axis (pad rows repeat row 0 with zero masks, as
     the JAX ``_globalize_batch``), each rank decodes its
     ``local_batch_slice`` and keeps its real rows, the val loss divides the
     summed numerators by the summed mask, ``gather_predictions`` merges the
@@ -200,8 +204,14 @@ def eval_split(captioner, loader, eval_kwargs=None):
         eval_kwargs.get('remove_bad_endings', 0))
     label_smoothing = float(eval_kwargs.get('label_smoothing', 0) or 0)
     device = captioner.device
-    world, main = mesh.world_size(), mesh.is_main_process()
-    global_denom = mesh.all_reduce_sum if world > 1 else None
+    grid = mesh.current()
+    world, main = grid.world, mesh.is_main_process()
+    # the images split over the data axis; a model group's ranks decode
+    # the same rows, and its model rank 0 alone contributes them
+    global_denom = (functools.partial(mesh.all_reduce_sum,
+                                      group=grid.data_group)
+                    if grid.data > 1 else None)
+    mine = grid.model_index == 0
     if world == 1 and int(eval_kwargs.get('device_mesh', 0) or 0) and \
             device.type == 'cuda' and torch.cuda.device_count() > 1:
         raise NotImplementedError(
@@ -229,7 +239,7 @@ def eval_split(captioner, loader, eval_kwargs=None):
     sample_beam = decode_entry(captioner, 'beam', sample_opt)
     sample_stats = decode_entry(captioner, 'stats', sample_opt)
     rng = torch.Generator(device).manual_seed(
-        int(eval_kwargs.get('seed', 0)) + mesh.rank())
+        int(eval_kwargs.get('seed', 0)) + grid.data_index)
 
     def dev(x, dtype=None):
         return None if x is None else torch.as_tensor(
@@ -295,7 +305,8 @@ def eval_split(captioner, loader, eval_kwargs=None):
                 entry['file_name'] = info['file_path']
             entries.append(entry)
         # the ranks' rows in rank order: the global batch's real rows
-        for k, entry in enumerate(mesh.gather_predictions(entries)):
+        for k, entry in enumerate(mesh.gather_predictions(
+                entries if mine else [])):
             predictions.append(entry)
             if eval_kwargs.get('dump_images', 0) == 1 and main:
                 # copy the source image for the vis/index.html viewer
@@ -313,7 +324,8 @@ def eval_split(captioner, loader, eval_kwargs=None):
             eval_split_n(captioner, entries, rec['inputs'] + [
                 dict(data, infos=[data['infos'][i] for i in rows])],
                 vocab, rng, eval_kwargs)
-            n_predictions.extend(mesh.gather_predictions(entries))
+            n_predictions.extend(mesh.gather_predictions(
+                entries if mine else []))
         for _ in range(rec['n'] - rec['ix1']):
             predictions.pop()
         if verbose and main:
@@ -326,7 +338,7 @@ def eval_split(captioner, loader, eval_kwargs=None):
         n = n + len(data['infos'])
         arrays = {k: data.get(k) for k in _BATCH_KEYS}
         rows = range(len(data['infos']))     # the global rows decoded here
-        if world > 1:
+        if grid.data > 1:
             arrays, rows = local_rows(arrays, len(data['infos']))
         fc = dev(arrays['fc_feats'], torch.float32)
         att = dev(arrays['att_feats'], torch.float32)
@@ -345,8 +357,8 @@ def eval_split(captioner, loader, eval_kwargs=None):
                 loss_dev = losses.language_model_criterion(
                     logprobs, labels[..., 1:], masks[..., 1:],
                     denom=global_denom)
-            # the ranks' shares sum to the global batch's loss
-            loss_dev = mesh.all_reduce_sum(loss_dev)
+            # the data ranks' shares sum to the global batch's loss
+            loss_dev = mesh.all_reduce_sum(loss_dev, grid.data_group)
 
         rec = {'data': data, 'rows': rows, 'loss_dev': loss_dev,
                'done': None, 'inputs': [fc, att, am]}
@@ -398,7 +410,7 @@ def local_rows(arrays, real: int):
     None stays None) and the global rows it holds that are real: the batch
     padded to a multiple of the world (pad rows repeat row 0, their masks
     zero), then ``local_batch_slice`` of it."""
-    pad = (-real) % mesh.world_size()
+    pad = (-real) % mesh.current().data
     sl = mesh.local_batch_slice(real + pad)
     out = {}
     for key, x in arrays.items():

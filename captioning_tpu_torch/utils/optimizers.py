@@ -117,15 +117,33 @@ def build_noam_optimizer(opt, params, capturable: bool = False
     raise KeyError('noamopt supports optim adam/adamw, got %r' % name)
 
 
-def clip_transform(opt) -> Callable:
+def clip_transform(opt, sharded=(), group=None) -> Callable:
     """Gradient clip by value or by global norm (reference
-    train.py:194-195), applied to the gradients before the step."""
+    train.py:194-195), applied to the gradients before the step.
+    ``sharded``: the parameters that hold one shard of a tensor split over
+    the model ``group``, whose squares the norm sums over the group (the
+    others count once)."""
     v = float(opt.grad_clip_value)
     if v == 0:
         return lambda params: None
     if opt.grad_clip_mode == 'value':
         return lambda params: torch.nn.utils.clip_grad_value_(params, v)
-    return lambda params: torch.nn.utils.clip_grad_norm_(params, v)
+    if not sharded:
+        return lambda params: torch.nn.utils.clip_grad_norm_(params, v)
+    ids = {id(p) for p in sharded}
+
+    def clip_sharded_norm(params):
+        params = [p for p in params if p.grad is not None]
+        sq = [p.grad.double().square().sum() for p in params]
+        zero = sq[0].new_zeros(())
+        own = sum((q for p, q in zip(params, sq) if id(p) in ids), zero)
+        rest = sum((q for p, q in zip(params, sq) if id(p) not in ids), zero)
+        torch.distributed.all_reduce(own, group=group)
+        total = (own + rest).sqrt()
+        coef = (v / (total + 1e-6)).clamp(max=1.0).float()
+        torch._foreach_mul_([p.grad for p in params], coef)
+        return total
+    return clip_sharded_norm
 
 
 def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
@@ -229,9 +247,10 @@ def _layout(opt):
 
 
 def state_to_jax(optimizer, opt, named_params: Dict[str, torch.Tensor],
-                 cfg) -> Dict[str, np.ndarray]:
+                 cfg, full: Callable = None) -> Dict[str, np.ndarray]:
     """The optimizer's state as the flat tree the JAX package writes to
-    ``optimizer.npz`` (a parameter not stepped yet holds zeros)."""
+    ``optimizer.npz`` (a parameter not stepped yet holds zeros);
+    ``full(state)`` gathers a model axis's shards into full arrays."""
     prefix, fields, counted = _layout(opt)
     out = {}
     states = [optimizer.state.get(p, {}) for p in named_params.values()]
@@ -243,15 +262,19 @@ def state_to_jax(optimizer, opt, named_params: Dict[str, torch.Tensor],
         for (name, p), st in zip(named_params.items(), states):
             v = st.get(key)
             per[name] = torch.zeros_like(p) if v is None else v
+        if full is not None:
+            per = full(per)
         for path, value in jax_from_state_dict(per, cfg, True).items():
             out['%s/%s/%s' % (prefix, field, path[len('params/'):])] = value
     return out
 
 
 def state_from_jax(optimizer, opt, named_params: Dict[str, torch.Tensor],
-                   cfg, flat: Dict[str, np.ndarray]) -> None:
+                   cfg, flat: Dict[str, np.ndarray],
+                   local: Callable = None) -> None:
     """Load a flat JAX optimizer tree (``misc._flatten_tree`` of
-    ``load_pytree('optimizer.npz')``) into ``optimizer``'s state."""
+    ``load_pytree('optimizer.npz')``) into ``optimizer``'s state;
+    ``local(state)`` cuts full arrays into a model axis's shards."""
     prefix, fields, counted = _layout(opt)
     flat = dict(flat)
     heads = ['%s/%s/' % (prefix, field) for field in fields.values()]
@@ -269,6 +292,8 @@ def state_from_jax(optimizer, opt, named_params: Dict[str, torch.Tensor],
         sub = {'params/' + k[len(head):]: flat.pop(k) for k in list(flat)
                if k.startswith(head)}
         per[key] = state_dict_from_jax(sub, cfg, params_only=True)
+        if local is not None:
+            per[key] = local(per[key])
     stepped = counted or getattr(opt, 'optim', '') in ('rmsprop', 'adagrad')
     # a capturable optimizer counts its steps on the parameters' device
     on_device = optimizer.defaults.get('capturable', False)

@@ -247,7 +247,25 @@ Phases, in order; any failure raises and exits non-zero:
    checkpoint and tensorboard.  It prints the backend, the ranks'
    devices, the step walls of 2 ranks and one process, the flat
    all-reduce's time (CUDA events), the gradient bytes and the eval's
-   cap/s: on one shared card the collective's overhead, not scaling.
+   cap/s: on one shared card the collective's overhead, not scaling;
+19. the model axis: (a) B2's shard mode at the transformer's beam-5 step
+   (N 5120, D 512, V1 9488, k 5) over M 2 and 4 shards run in turn, bf16
+   and float32: each shard's parts (``logit_topk(parts_only=True)``,
+   global indices), concatenated as the all-gather would, merged by
+   ``logit_topk_merge_parts`` with the global V1, against the unsharded
+   kernel and against the twins (float32: indices identical, values
+   1e-5, entropy 1e-4, row_sum 1e-5 relative; bf16: phase 3's rule), the
+   merge kernel against its twin; parts and merge times; (b)-(c) two
+   ranks sharing the card over gloo at ``data:1,model:2`` (the generator
+   and ``tgt_embed`` 4744 + 4744 rows) run ``phase19_run`` while this
+   process runs it unsharded: the transformer's XE step (3 + 3 layers,
+   10 x 5) by phase 9's rule and its fused SCST step by phase 18's
+   bounds, sequences identical; ``eval_split`` at beam 5 of the
+   transformer and UpDown over 63 labelled images, float32: captions
+   identical, val loss within 1e-5 relative; the transformer in bf16
+   over 1024 images: agreement at least 0.99 and both ranks equal; B2's
+   parts and merge, B1, B3 and B6 required in each rank.  Its decodes
+   and steps run eager (per-step collectives).
 
 Each decode mode requires the kernels its path runs: the top-k only in
 beam (the RNN plain-step route; the transformer's fused route selects in
@@ -255,7 +273,8 @@ B2's epilogue).  Phases 5-7 and 10 decode through the eager entries,
 whose wrappers count every launch; phase 12's and phase 13's graphs are
 counted by captures and replays.
 
-The last two lines are the kernels' JSON record (for each of the eight:
+The last two lines are the kernels' JSON record (for each of the eight,
+and B2's cross-rank merge ``logit_topk_merge_parts``:
 launches on its path, counted by its wrapper, where a call that a CUDA
 graph captures counts nothing and the graph's replays never pass the
 wrapper; max error against its twin, kernel and twin ms, the
@@ -3060,13 +3079,13 @@ def p18_steps(torch, tr, step, steps, keep=()):
         rec[k] = v.cpu().numpy() if v.dim() else float(v)
     reduce, reduce_ms = mesh.all_reduce_sum, []
 
-    def timed(x):
+    def timed(x, group=None):
         if x.numel() < 1000:         # a loss's denominator
-            return reduce(x)
+            return reduce(x, group)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        y = reduce(x)
+        y = reduce(x, group)
         end.record()
         end.synchronize()
         reduce_ms.append(start.elapsed_time(end))
@@ -3639,6 +3658,420 @@ def phase_data_parallel(torch, wrappers, device='cuda'):
     return launches
 
 
+
+# Phase 19: the model axis (vocab tensor parallelism).  (a) B2's shard
+# mode in this process, the shards run in turn; (b)-(c) two ranks sharing
+# the card (gloo, as phase 18) at ``data:1,model:2`` run ``phase19_run``
+# on the whole batches while this process runs it as one process.
+PHASE19_MESH = 'data:1,model:2'
+PHASE19 = {'B': 10, 'eval_images': 63, 'big': 1024, 'depth': 3,
+           'corpus': 1000}
+PHASE19_RANK = r"""
+import sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+chip_smoke.phase19_rank(*sys.argv[2:])
+"""
+# (a)'s shape: the transformer's beam-5 step at B = 1024
+P19_N, P19_D, P19_V1, P19_K = 5120, 512, 9488, 5
+
+
+def p19_check(torch, lt, what, got, want, exact, x=None, w=None, b=None):
+    """``got`` (a sharded B2 result) against ``want``: float32 (exact
+    logits), indices identical, top values within 1e-5, entropy 1e-4,
+    row_sum 1e-5 relative; bf16, B2's rule against its twin (phase 3):
+    values 0.08, entropy 0.05, row_sum 1e-3 relative, indices identical
+    on the rows whose float32 top-(k+1) gaps exceed 0.1, the top-1 index
+    on every row.  Returns the largest top-value error."""
+    verr = (got[0] - want[0]).abs().max().item()
+    eerr = (got[3] - want[3]).abs().max().item()
+    rerr = ((got[2] - want[2]).abs() / want[2].abs().clamp_min(1)).max()
+    rerr = rerr.item()
+    if exact:
+        same = torch.equal(got[1], want[1])
+        ok = same and verr <= 1e-5 and eerr <= 1e-4 and rerr <= 1e-5
+        detail = 'idx equal %s' % same
+    else:
+        ref = lt.logit_topk_ref(x.float(), w.float(), b.float(), 0.8,
+                                -1000.0, k=P19_K + 1,
+                                unk_idx=P19_V1 - 1)[0]
+        margin = (ref[:, :-1] - ref[:, 1:]).min(1).values > 0.1
+        rows = bool((got[1] == want[1]).all(1)[margin].all())
+        top1 = torch.equal(got[1][:, 0], want[1][:, 0])
+        ok = rows and top1 and verr <= 0.08 and eerr <= 0.05 and \
+            rerr <= 1e-3
+        detail = 'margin rows %.3f equal %s, top-1 equal %s' % (
+            margin.float().mean().item(), rows, top1)
+    if not ok:
+        raise AssertionError('phase 19 (a) %s: %s, value err %g, ent err %g,'
+                             ' row_sum rel err %g' % (what, detail, verr,
+                                                      eerr, rerr))
+    return verr
+
+
+def p19_shard_kernels(torch, lt):
+    """(a) B2 over M shards of the vocab (M 2 and 4, bf16 and float32),
+    each shard's parts (``logit_topk(parts_only=True)``) concatenated as
+    the all-gather would, merged by ``logit_topk_merge_parts``: against
+    the unsharded kernel and against the twins (``logit_topk_parts_ref``
+    then ``logit_topk_merge_ref``) on the same inputs, the merge kernel
+    against its twin on the same parts; then the times.  Returns (the
+    merge's error, the times)."""
+    N, D, V1, k, unk = P19_N, P19_D, P19_V1, P19_K, P19_V1 - 1
+    merge_err, times = 0.0, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        exact = dtype == torch.float32
+        g = torch.Generator(device='cuda').manual_seed(19)
+        x, w, b = _margin_inputs(torch, N, D, V1, dtype, g, exact)
+        whole = lt.logit_topk(x, w, b, 0.8, -1000.0, k=k, unk_idx=unk)
+        for M in (2, 4):
+            n = V1 // M
+            shards = [(w[m * n:(m + 1) * n], b[m * n:(m + 1) * n], m * n)
+                      for m in range(M)]
+
+            def parts(ref=False):
+                f = lt.logit_topk_parts_ref if ref else lt.logit_topk
+                out = []
+                for ws, bs, off in shards:
+                    kw = (dict(unk_idx=unk - off if off <= unk < off + n
+                               else -1, v_off=off) if ref else
+                          dict(unk_idx=unk, v_off=off, V1=V1,
+                               parts_only=True))
+                    out.append(f(x, ws, bs, 0.8, -1000.0, k=k, **kw))
+                return (torch.cat([p[0] for p in out]),
+                        torch.cat([p[1] for p in out]))
+            wf, wi = parts()
+            got = lt.logit_topk_merge_parts(wf, wi, V1=V1, k=k)
+            twin = lt.logit_topk_merge_ref(*parts(ref=True), V1, k)
+            what = '%s M %d' % (str(dtype)[6:], M)
+            e1 = p19_check(torch, lt, what + ' vs unsharded', got, whole,
+                           exact, x, w, b)
+            e2 = p19_check(torch, lt, what + ' vs twins', got, twin, exact,
+                           x, w, b)
+            merged = lt.logit_topk_merge_ref(wf, wi, V1, k)
+            if not torch.equal(got[1], merged[1]):
+                raise AssertionError('phase 19 (a) %s: the merge kernel\'s '
+                                     'indices differ from its twin\'s' % what)
+            e3 = max((got[i] - merged[i]).abs().max().item()
+                     for i in (0, 3))
+            e4 = ((got[2] - merged[2]).abs() / merged[2].abs()).max().item()
+            merge_err = max(merge_err, (got[0] - merged[0]).abs().max()
+                            .item())
+            log('  (a) B2 shard mode %s, N %d, V1 %d, k %d: %d parts, top '
+                'value err %.2e vs the unsharded kernel, %.2e vs the twins; '
+                'the merge kernel vs its twin on the same parts: values and '
+                'entropy %.2e, row_sum %.2e relative'
+                % (what, N, V1, k, wf.shape[0], e1, e2, e3, e4))
+            if dtype == torch.bfloat16:
+                ws, bs, off = shards[0]
+                times[M] = {
+                    'parts_ms': cuda_ms(lambda: lt.logit_topk(
+                        x, ws, bs, 0.8, -1000.0, k=k, unk_idx=unk,
+                        v_off=off, V1=V1, parts_only=True), 50),
+                    'merge_ms': cuda_ms(lambda: lt.logit_topk_merge_parts(
+                        wf, wi, V1=V1, k=k), 50),
+                    'merge_twin_ms': cuda_ms(lambda: lt.logit_topk_merge_ref(
+                        wf, wi, V1, k), 10),
+                    'parts': wf.shape[0],
+                    'merge_bound': bound(
+                        wf.numel() * 4 + wi.numel() * 4 + N * (2 * k + 2)
+                        * 4, 0, PEAK_F32)}
+        if dtype == torch.bfloat16:
+            times['unsharded_ms'] = cuda_ms(lambda: lt.logit_topk(
+                x, w, b, 0.8, -1000.0, k=k, unk_idx=unk), 50)
+        del x, w, b, whole
+        torch.cuda.empty_cache()
+    for M in (2, 4):
+        t = times[M]
+        log('  (a) bf16 M %d: a shard\'s parts %.4f ms, the merge of %d '
+            'parts %.4f ms (twin %.4f, bound %.4f), against the unsharded '
+            'kernel %.4f ms' % (M, t['parts_ms'], t['parts'], t['merge_ms'],
+                                t['merge_twin_ms'], t['merge_bound'][0],
+                                times['unsharded_ms']))
+    return merge_err, times
+
+
+def p19_first_step(torch, tr, step):
+    """One step: its loss, its gradients as the clip sees them (the
+    shards gathered into full tensors) and its launches."""
+    gen = torch.Generator(tr.captioner.device).manual_seed(6)
+    seen = []
+    clip = tr.clip
+
+    def record(params):
+        if not seen:
+            seen.append({n: g.detach().cpu().clone() for n, g in
+                         tr.captioner.full_state({
+                             n: p.grad for n, p in
+                             tr.named_params.items()}).items()})
+        return clip(params)
+    tr.clip = record
+    before = launch_counts(torch)
+    out = step(gen)
+    torch.cuda.synchronize()
+    return out, {'loss': float(out['loss']), 'grads': seen[0],
+                 'launches': _grown(before, launch_counts(torch))}
+
+
+def phase19_run(torch, cfg, device):
+    """(c) the transformer's XE step (``cfg['depth']`` + ``cfg['depth']``
+    layers, the full vocab; dropout 0) and fused SCST step
+    (configs/transformer/transformer_sc.yml at that depth) over
+    ``cfg['B']`` images, (b) the cooperative ``eval_split`` of the
+    transformer and UpDown at beam 5 over ``cfg['eval_images']`` images
+    in float32, then the transformer in bf16 over ``cfg['big']`` (timed):
+    on the mesh ``PHASE19_MESH`` in a group, as one process without."""
+    from captioning_tpu_torch.modules.trainer import Trainer
+    from captioning_tpu_torch.ops.cider_device import DeviceCiderD
+    from captioning_tpu_torch.parallel import mesh
+    from captioning_tpu_torch.tools import profile_decode as pd
+    from captioning_tpu_torch.tools import profile_train as pt
+    from captioning_tpu_torch.utils import eval_utils
+    grid = mesh.make_mesh(PHASE19_MESH if mesh.world_size() > 1 else '')
+    B, depth, out = cfg['B'], cfg['depth'], {}
+    layers = dict(N_enc=depth, N_dec=depth)
+    cap = pt.train_captioner('transformer', device, drop_prob_lm=0.0,
+                             dropout=0.0, **layers).replicate()
+    tr = Trainer(cap.shard_vocab(grid), pt.train_opt())
+    fc, att, am, labels, masks = (x.to(device)
+                                  for x in pt.train_batch(B, seed=3))
+    _, out['xe'] = p19_first_step(torch, tr, lambda g: tr.xe_step(
+        fc, att, labels, masks, am, 5e-4, 0.0, g))
+    out['shards'] = {n: list(p.shape) for n, p in tr.named_params.items()
+                     if n in cap.vocab_shards}
+    out['route'] = tr.graph_route('xe')
+    del cap, tr
+    cap = pt.train_captioner('transformer', device, drop_prob_lm=0.0,
+                             dropout=0.0, **layers).replicate()
+    tr = Trainer(cap.shard_vocab(grid),
+                 pt.rl_opt(**pt.RL['transformer'][1]))
+    n = int(tr.opt.train_sample_n)
+    fc, att, am, _, _, refs, ref_mask = pt.rl_batch(cap, B, 4)
+    scorer = DeviceCiderD(*pt.corpus_df(images=cfg['corpus']),
+                          device=device)
+    draw = p18_draw(torch, device, B * n, slice(0, B * n))
+    res, out['sc'] = p19_first_step(torch, tr, lambda g: tr.sc_fused_step(
+        fc, att, am, refs, ref_mask, tr.opt.learning_rate, None, draw, g,
+        scorer))
+    out['sc'].update({k: res[k].cpu().numpy() for k in ('greedy',
+                                                        'sampled')},
+                     reward=float(res['reward']))
+    del cap, tr, scorer
+    torch.cuda.empty_cache()
+    N, vocab = cfg['eval_images'], pd.coco_vocab()
+    fc, att, am, labels, masks = (x.numpy() for x in pt.train_batch(
+        N, seed=8))
+    kwargs = dict(pd.BEAM, sample_method='greedy', num_images=N,
+                  language_eval=0, verbose=False, id='p19', split='val',
+                  seed=0)
+    out['eval'] = {}
+    for model in ('transformer', 'updown'):
+        cap = pd.make_captioner(model, 'float32', device).replicate()
+        cap.shard_vocab(grid)
+        before = launch_counts(torch, [cap])
+        loss, preds, _ = eval_utils.eval_split(
+            cap, FeatureLoader(fc, att, am, vocab, labels, masks),
+            dict(kwargs))
+        out['eval'][model] = {
+            'loss': loss, 'captions': [p['caption'] for p in preds],
+            'launches': _grown(before, launch_counts(torch, [cap]))}
+        del cap
+    big = cfg['big']
+    cap = pd.make_captioner('transformer', 'bfloat16', device).replicate()
+    cap.shard_vocab(grid)
+    loader = FeatureLoader(*(x.cpu().numpy() for x in pd.features(
+        big, 'cpu', seed=9)), vocab)
+    kwargs.update(num_images=big)
+    eval_utils.eval_split(cap, loader, dict(kwargs))   # warm-up, captures
+    before = launch_counts(torch, [cap])
+    torch.cuda.synchronize()
+    t = time.time()
+    _, preds, _ = eval_utils.eval_split(cap, loader, dict(kwargs))
+    torch.cuda.synchronize()
+    out['eval']['big'] = {
+        'wall_s': time.time() - t, 'images': len(preds),
+        'captions': [p['caption'] for p in preds],
+        'route': cap.graph_route('beam', pd.BEAM),
+        'launches': _grown(before, launch_counts(torch, [cap]))}
+    del cap
+    torch.cuda.empty_cache()
+    out['world'], out['rank'] = mesh.world_size(), mesh.rank()
+    out['backend'] = (torch.distributed.get_backend()
+                      if mesh.world_size() > 1 else 'none')
+    return out
+
+
+def phase19_rank(cfg_path, rank, out_path):
+    """One rank of phase 19: join the group, run ``phase19_run``, save its
+    record (rank 0 keeps its gradients, the others their checksums)."""
+    import pickle
+    from types import SimpleNamespace
+
+    import torch
+
+    from captioning_tpu_torch.parallel import mesh
+    with open(cfg_path, 'rb') as f:
+        cfg = pickle.load(f)
+    device = mesh.init_distributed(SimpleNamespace(
+        dist_coordinator=cfg['coord'], dist_nproc=cfg['world'],
+        dist_pid=int(rank)), cfg['device'])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        rec = phase19_run(torch, cfg, device)
+    finally:
+        torch.distributed.destroy_process_group()
+    for step in ('xe', 'sc'):
+        if int(rank):
+            rec[step]['grads'] = _checksums(rec[step]['grads'])
+    torch.save(rec, out_path)
+
+
+def phase_model_axis(torch, wrappers, device='cuda'):
+    """Phase 19 (b)-(c) on ``device`` (the CPU rehearses it at tiny
+    widths): two ranks against one process.  Returns the launches the
+    ranks' runs made."""
+    import pickle
+    import shutil
+
+    import numpy as np
+
+    from captioning_tpu_torch.parallel.launch import free_port
+    t0 = time.time()
+    root = os.path.join(HERE, 'build', 'phase19')
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    from captioning_tpu_torch.tools import profile_decode as pd
+    cfg = dict(PHASE19, device=device, world=2, V1=pd.V + 1,
+               coord='127.0.0.1:%d' % free_port())
+    cfg_path = os.path.join(root, 'cfg.pkl')
+    with open(cfg_path, 'wb') as f:
+        pickle.dump(cfg, f)
+    outs = [os.path.join(root, 'rank%d.pt' % r) for r in range(2)]
+    logs = run_procs([[sys.executable, '-c', PHASE19_RANK, HERE, cfg_path,
+                       str(r), outs[r]] for r in range(2)], root, 400,
+                     'rank')
+    ranks = [torch.load(p, weights_only=False) for p in outs]
+    t_ranks = time.time() - t0
+    for r, text in enumerate(logs):
+        log('  rank %d: %s' % (r, next(ln for ln in text.splitlines()
+                                       if ln.startswith('distributed:'))))
+    torch.cuda.empty_cache()
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        one = phase19_run(torch, dict(cfg, world=1), device)
+    finally:
+        os.chdir(cwd)
+    t_one = time.time() - t0 - t_ranks
+    names = {fn.__name__: key for key, fn in wrappers.items()}
+    for rec in ranks + [one]:
+        for part in (rec['xe'], rec['sc']) + tuple(rec['eval'].values()):
+            part['launches'] = {names.get(n, n): k
+                                for n, k in part['launches'].items()}
+    r0 = ranks[0]
+    log('  backend %s, world %d; rank 0 holds %s; the steps\' route: %s'
+        % (r0['backend'], r0['world'], r0['shards'], r0['route']))
+    if sorted(r0['shards']) != ['generator.weight', 'tgt_embed'] or any(
+            2 * shape[0] != cfg['V1'] for shape in r0['shards'].values()):
+        raise AssertionError('phase 19: the vocab tensors are not sharded '
+                             'in halves of %d: %s' % (cfg['V1'],
+                                                      r0['shards']))
+    cuda = device == 'cuda'
+    b2 = ['logit_topk', 'logit_topk_merge_parts']
+    need = {'xe': [], 'sc': b2 + ['attend_write_merged'],
+            'transformer': b2 + ['attend_write_merged'],
+            'updown': ['additive_attention', 'topk_lastdim'], 'big': b2}
+    for r, rec in enumerate(ranks):
+        for part, kernels in need.items():
+            got = (rec[part] if part in ('xe', 'sc')
+                   else rec['eval'][part])['launches']
+            if cuda and not all(got.get(k) for k in kernels):
+                raise AssertionError('phase 19 rank %d %s: %s did not all '
+                                     'launch (%s)' % (r, part, kernels, got))
+    for step in ('xe', 'sc'):
+        want = _checksums(r0[step]['grads'])
+        if len({rec[step]['loss'] for rec in ranks}) != 1 or any(
+                rec[step]['grads'] != want for rec in ranks[1:]):
+            raise AssertionError('phase 19 %s: the ranks report different '
+                                 'losses or gathered gradients' % step)
+    # (c) XE by phase 9's rule (step_agreement), SCST by phase 18's
+    step_agreement('transformer', 'xe_step (%d + %d layers, %d images)'
+                   % (cfg['depth'], cfg['depth'], cfg['B']),
+                   r0['xe']['loss'], one['xe']['loss'], r0['xe']['grads'],
+                   one['xe']['grads'],
+                   sides='2 ranks (%s) vs one process' % PHASE19_MESH)
+    sc, sc1 = r0['sc'], one['sc']
+    loss_err = abs(sc['loss'] - sc1['loss']) / abs(sc1['loss'])
+    for k in ('greedy', 'sampled'):
+        if not np.array_equal(sc[k], sc1[k]):
+            raise AssertionError('phase 19 sc: the ranks\' %s sequences '
+                                 'differ from one process\'s' % k)
+    shape = p18_deviation_shape(sc['grads'], sc1['grads'])
+    if not (loss_err <= 1e-5 and abs(sc['reward'] - sc1['reward']) <= 1e-5
+            and shape[0] <= P18_FROB and shape[2] <= P18_BEYOND):
+        raise AssertionError('phase 19 sc: loss rel err %.2e, reward %.6f '
+                             'vs %.6f, gradients %s' % (
+                                 loss_err, sc['reward'], sc1['reward'],
+                                 shape))
+    log('  (c) the fused SCST step, 2 ranks vs one process: sequences '
+        'identical, mean advantage %.6f vs %.6f, loss rel err %.2e; '
+        'gradients: worst relative Frobenius error %.2e (%s), %.2e of the '
+        'elements beyond 1e-4 of their tensor\'s max (bounds %.0e, %.0e)'
+        % ((sc['reward'], sc1['reward'], loss_err) + shape
+           + (P18_FROB, P18_BEYOND)))
+    # (b)
+    for model in ('transformer', 'updown'):
+        want = one['eval'][model]
+        for rec in ranks:
+            got = rec['eval'][model]
+            if got['captions'] != want['captions'] or not abs(
+                    got['loss'] - want['loss']) <= 1e-5 * abs(want['loss']):
+                raise AssertionError('phase 19 eval %s: captions equal %s, '
+                                     'val loss %.6f vs %.6f' % (
+                                         model, got['captions'] ==
+                                         want['captions'], got['loss'],
+                                         want['loss']))
+        log('  (b) eval_split %s beam 5 f32 over %d images on 2 ranks (%s): '
+            'captions equal to one process\'s, val loss %.6f vs %.6f'
+            % (model, cfg['eval_images'], PHASE19_MESH,
+               r0['eval'][model]['loss'], want['loss']))
+    big = [rec['eval']['big'] for rec in ranks]
+    agree = float(np.mean([a == b for a, b in zip(
+        big[0]['captions'], one['eval']['big']['captions'])]))
+    if big[0]['captions'] != big[1]['captions'] or agree < 0.99:
+        raise AssertionError('phase 19 eval bf16: agreement %.4f with one '
+                             'process (at least 0.99), ranks equal: %s'
+                             % (agree, big[0]['captions'] ==
+                                big[1]['captions']))
+    shutil.rmtree(root, ignore_errors=True)
+    rec = {'gpu': gpu_line() if cuda else 'cpu', 'backend': r0['backend'],
+           'eval_caps_2_ranks': cfg['big'] / max(b['wall_s'] for b in big),
+           'eval_route_2_ranks': big[0]['route'],
+           'eval_caps_1_process': cfg['big'] / one['eval']['big']['wall_s'],
+           'eval_agreement_bf16': agree,
+           'eval_launches_rank0': {m: r0['eval'][m]['launches']
+                                   for m in ('transformer', 'updown',
+                                             'big')},
+           'seconds': {'ranks': t_ranks, 'one_process': t_one,
+                       'phase': time.time() - t0}}
+    log('  %s: (b) the transformer bf16 beam 5 over %d images: %.1f cap/s '
+        'on 2 ranks (%s; eager: %s) vs %.1f cap/s one process (graph '
+        'route), agreement %.4f' % (
+            rec['gpu'], cfg['big'], rec['eval_caps_2_ranks'], PHASE19_MESH,
+            rec['eval_route_2_ranks'], rec['eval_caps_1_process'], agree))
+    log('  phase 19 record: %s' % json.dumps(rec))
+    log('  (b)-(c): %.1f s (ranks %.1f, one process %.1f)' % (
+        rec['seconds']['phase'], t_ranks, t_one))
+    launches = dict.fromkeys(wrappers, 0)
+    for r in ranks:
+        for part in (r['xe'], r['sc']) + tuple(r['eval'].values()):
+            for n, k in part['launches'].items():
+                if n in launches:
+                    launches[n] += k
+    return launches
+
+
 def main():
     import torch
     wall = time.time()
@@ -3699,6 +4132,7 @@ def main():
     # requires the kernels its path runs
     wrappers = {'attend_write_merged': ba.attend_write_merged,
                 'logit_topk': lt.logit_topk,
+                'logit_topk_merge_parts': lt.logit_topk_merge_parts,
                 'additive_attention': aa.additive_attention_fused,
                 'maxout_lstm_gates': ml.maxout_lstm_gates_fused,
                 'topk_lastdim': tk.topk_lastdim,
@@ -3838,6 +4272,20 @@ def main():
         launches[name] += n
     log('phase 18: %.1f s' % (time.time() - t))
 
+    log('phase 19: the model axis: B2\'s shard mode, then 2 ranks at %s '
+        'against one process (XE, SCST, the cooperative eval_split)'
+        % PHASE19_MESH)
+    t = time.time()
+    errs['logit_topk_merge_parts'], shard_times = p19_shard_kernels(torch,
+                                                                     lt)
+    for name, n in phase_model_axis(torch, wrappers).items():
+        launches[name] += n
+    merge = shard_times[2]
+    times['logit_topk_merge_parts'] = (merge['merge_ms'],
+                                       merge['merge_twin_ms'],
+                                       merge['merge_bound'])
+    log('phase 19: %.1f s' % (time.time() - t))
+
     bad = [m for m in sys.modules
            if m.split('.')[0] in ('jax', 'flax', 'optax', 'captioning_tpu')]
     if bad:
@@ -3848,6 +4296,9 @@ def main():
                  'captioning_tpu/ops/beam_attend.py:208'),
                 'logit_topk': ('captioning_tpu_torch/csrc/logit_topk.cu',
                                'captioning_tpu/ops/logit_topk.py:53'),
+                'logit_topk_merge_parts':
+                ('captioning_tpu_torch/csrc/logit_topk.cu',
+                 'captioning_tpu/ops/logit_topk.py:53'),
                 'additive_attention':
                 ('captioning_tpu_torch/csrc/additive_attention.cu',
                  'captioning_tpu/ops/attention.py:56'),

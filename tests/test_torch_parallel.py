@@ -6,8 +6,8 @@
   sizes) over the thread-simulated allgather of tests/test_multihost.py
   (the port's take it as an object allgather, as
   ``dist.all_gather_object`` gathers);
-* ``make_mesh`` / ``parse_mesh_shape``: the data axis, a model axis of 2
-  or more raising and naming ROADMAP.md A7, malformed shapes;
+* ``make_mesh`` / ``parse_mesh_shape``: the data axis, a model axis that
+  needs data x model ranks, malformed shapes;
 * the backend rule (gloo on the CPU, nccl with a GPU a rank, gloo where
   ranks share a card), how many ranks a launch starts, the options that
   join a group;
@@ -102,10 +102,14 @@ def test_make_mesh_one_rank(shape):
     assert (m.world, m.rank) == (1, 0)
 
 
-@pytest.mark.parametrize('shape', ['data:1,model:2', 'data:2,model:2',
-                                   'model:4'])
-def test_the_model_axis_raises(shape):
-    with pytest.raises(NotImplementedError, match='A7 \\(the model axis\\)'):
+@pytest.mark.parametrize('shape,need', [('data:1,model:2', 2),
+                                        ('data:2,model:2', 4),
+                                        ('model:4', 4)])
+def test_the_model_axis_raises(shape, need):
+    """A model axis needs data x model ranks: one process (no group) is
+    refused, naming the count."""
+    with pytest.raises(ValueError, match='needs %d ranks, the process '
+                       'group has 1' % need):
         mesh.make_mesh(shape)
 
 
@@ -144,9 +148,11 @@ def _opt(**kw):
     ({'mesh_shape': 'data:3'}, 'cuda', 4, 3),
     ({}, 'cuda', 1, 1), ({}, 'cuda', 4, 3), ({'batch_size': 7}, 'cuda', 4, 1),
     ({'dist_coordinator': '127.0.0.1:1', 'mesh_shape': 'data:2'}, 'cpu', 0,
-     1), ({'dist_auto': 1}, 'cuda', 4, 1)])
+     1), ({'dist_auto': 1}, 'cuda', 4, 1),
+    ({'mesh_shape': 'data:2,model:2'}, 'cpu', 0, 4),
+    ({'mesh_shape': 'model:2'}, 'cuda', 2, 2)])
 def test_ranks_a_launch_starts(monkeypatch, kw, device, gpus, want):
-    """``--mesh_shape``'s data axis, else on several GPUs the largest
+    """``--mesh_shape``'s data x model, else on several GPUs the largest
     count dividing the batch (tools/train.py ``_maybe_mesh``); a process
     given a group is one rank."""
     monkeypatch.setattr(torch.cuda, 'device_count', lambda: gpus)
@@ -157,7 +163,7 @@ def test_launch_refuses_more_ranks_than_gpus(monkeypatch):
     monkeypatch.setattr(torch.cuda, 'device_count', lambda: 2)
     with pytest.raises(ValueError, match='2 GPUs are visible'):
         launch.ranks_to_start(_opt(mesh_shape='data:4'), 'cuda')
-    with pytest.raises(NotImplementedError, match='A7'):
+    with pytest.raises(ValueError, match='4 ranks, one a GPU, but 2 GPUs'):
         launch.ranks_to_start(_opt(mesh_shape='data:2,model:2'), 'cuda')
 
 

@@ -146,6 +146,11 @@ def _jax_side(case):
             j['refs'], j['ref_mask'], LR, rng, rng,
             JaxCiderD(case['df_path']))
     else:
+        # the port's scorers are process-wide and made once: start them
+        # from this case's df, whatever an earlier test of this process
+        # loaded (the ranks are fresh processes)
+        rewards.CiderD_scorer = rewards.Cider_scorer = None
+        rewards.Bleu_scorer = None
         rewards.init_scorer(case['df_path'])
         gts = case['gts']
         if case['kind'] == 'sc_grad':

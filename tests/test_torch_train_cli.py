@@ -358,17 +358,18 @@ def test_profile_rl_steps_on_the_cpu(model, mode, monkeypatch):
         pt.main(['--model', model, '--mode', mode])
 
 
-@pytest.mark.parametrize('flag,value,match', [
-    ('mesh_shape', 'data:1,model:2', 'A7'),
-    ('mesh_shape', 'data:2,model:2', 'A7'),
-    ('train_beam_size', 2, 'train-mode sampling by beam')])
+@pytest.mark.parametrize('flag,value,error,match', [
+    ('mesh_shape', 'data:1,model:2', ValueError, 'needs 2 ranks'),
+    ('mesh_shape', 'data:2,model:2', ValueError, 'needs 4 ranks'),
+    ('train_beam_size', 2, NotImplementedError,
+     'train-mode sampling by beam')])
 def test_unported_training_raises(ds, tmp_path, monkeypatch, flag, value,
-                                  match):
+                                  error, match):
     """What the loop does not port raises NotImplementedError naming its
-    ROADMAP item or what is left out (the model axis of a mesh; an SCST
-    stage that samples by beam search once it is reached, after the
-    exception checkpoint of the JAX loop), and ``--device cuda`` without a
-    GPU raises."""
+    ROADMAP item or what is left out (an SCST stage that samples by beam
+    search once it is reached, after the exception checkpoint of the JAX
+    loop); a mesh whose axes need more ranks than the run has raises
+    before training; ``--device cuda`` without a GPU raises."""
     import importlib.util
 
     import torch
@@ -384,7 +385,7 @@ def test_unported_training_raises(ds, tmp_path, monkeypatch, flag, value,
                                 cached_tokens=ds.cached_tokens))
     setattr(opt, flag, value)
     opt.train_sample_method = 'greedy'     # with train_beam_size: beam
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         mod.train(opt, device='cpu')
     if flag == 'train_beam_size':
         assert os.path.isfile(os.path.join(ckpt, 'model.npz'))

@@ -7,8 +7,9 @@ one-device step or eval on the whole batch.
         <store>
 
 runs ``<function>(payload, rank, world)`` in a group joined through the
-file store ``<store>`` and pickles its result beside the payload.  The
-rank processes import the port and never JAX."""
+file store ``<store>`` and pickles its result beside the payload (the
+functions of another module through its own ``main``: ``start_ranks``'
+``module``).  The rank processes import the port and never JAX."""
 
 from __future__ import annotations
 
@@ -21,8 +22,9 @@ import time
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def start_ranks(root, fn, payload, world=2):
-    """Start ``fn`` (a name in this module) on ``world`` ranks in ``root``;
+def start_ranks(root, fn, payload, world=2,
+                module='tests.torch_parallel_util'):
+    """Start ``fn`` (a name in ``module``) on ``world`` ranks in ``root``;
     ``collect`` waits for them (the caller works meanwhile)."""
     root = str(root)
     path = os.path.join(root, fn + '.payload.pkl')
@@ -31,7 +33,7 @@ def start_ranks(root, fn, payload, world=2):
     store = os.path.join(root, fn + '.store')
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS='1')
     procs = [subprocess.Popen(
-        [sys.executable, '-m', 'tests.torch_parallel_util', fn, path,
+        [sys.executable, '-m', module, fn, path,
          str(r), str(world), store], cwd=root, env=env,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for r in range(world)]
@@ -300,7 +302,8 @@ def eval_cases(cases, rank, world):
     return out
 
 
-def main(argv):
+def main(argv, names=None):
+    """One rank: ``names[fn]`` (default this module's) run in the group."""
     import torch
     import torch.distributed as dist
     fn, path, rank, world, store = argv
@@ -311,7 +314,7 @@ def main(argv):
     dist.init_process_group('gloo', init_method='file://' + store,
                             world_size=world, rank=rank)
     try:
-        result = globals()[fn](payload, rank, world)
+        result = (names or globals())[fn](payload, rank, world)
     finally:
         dist.destroy_process_group()
     with open(path + '.%d' % rank, 'wb') as f:

@@ -39,11 +39,15 @@ its ``local_batch_slice``; each step is the one-device step over the
 global batch (``modules/trainer.py``), the val eval is cooperative, and
 rank 0 alone writes the checkpoints, infos, histories and tensorboard
 while the others wait.  A failing rank fails the run.  The model axis
-(``--mesh_shape data:N,model:M``, M > 1) raises (ROADMAP.md A7).
+(``--mesh_shape data:N,model:M``): N * M ranks, the M of a model group
+reading the same rows and holding the shards of the vocab tensors
+(``Captioner.shard_vocab``); the ranks of a data group are seeded alike
+and the checkpoints hold the full arrays, gathered.
 
     python tools/train_torch.py --cfg configs/updown/updown.yml \\
         --id updown --checkpoint_path log_updown [--device cpu]
     python tools/train_torch.py ... --mesh_shape data:4
+    python tools/train_torch.py ... --mesh_shape data:2,model:2
     torchrun --nproc_per_node 4 tools/train_torch.py ... --dist_auto 1
 """
 
@@ -85,7 +89,7 @@ def train(opt, device='cuda'):
     if torch.device(device).type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError('--device cuda: no CUDA device is available '
                            '(pass --device cpu to run the plain twins)')
-    # a model axis raises before the group is joined
+    # a malformed mesh shape raises before the group is joined
     mesh.parse_mesh_shape(getattr(opt, 'mesh_shape', '') or '')
     device = mesh.init_distributed(opt, device)
     try:
@@ -174,11 +178,13 @@ def _train(opt, device, grid):
     else:
         captioner.init_params(torch.Generator().manual_seed(seed))
     captioner.replicate()              # rank 0's weights on every rank
+    captioner.shard_vocab(grid)        # a model axis's shards, by the rule
     # dropout and scheduled sampling draw from gen; the structure steps'
-    # XE term from gen_lm, the RL sampling noise from noise; each rank
-    # from its own seeds, so that ranks do not repeat each other's masks
+    # XE term from gen_lm, the RL sampling noise from noise; each data
+    # index from its own seeds, so that its rows do not repeat another's
+    # masks, and the ranks of a model group alike (they read the same rows)
     gen, gen_lm, noise = (torch.Generator(captioner.device).manual_seed(
-        seed + k + 3 * grid.rank) for k in (1, 2, 3))
+        seed + k + 3 * grid.data_index) for k in (1, 2, 3))
 
     # PPO old model
     old_captioner = None
@@ -227,10 +233,13 @@ def _train(opt, device, grid):
         plateau.load_state_dict(infos.get('plateau_state_dict'))
 
     def save(append=''):
-        """Rank 0 writes (the ranks meet at a barrier after the saves)."""
+        """Rank 0 writes (the ranks meet at a barrier after the saves); a
+        model axis's shards are gathered on every rank first."""
+        if main or captioner.vocab_shards:
+            variables, opt_state = (captioner.jax_variables(),
+                                    trainer.opt_state_jax())
         if main:
-            utils.save_checkpoint(opt, captioner.jax_variables(), infos,
-                                  trainer.opt_state_jax(),
+            utils.save_checkpoint(opt, variables, infos, opt_state,
                                   None if append else histories,
                                   append=append)
 
@@ -378,9 +387,9 @@ def _train(opt, device, grid):
 
             data = loader.get_batch('train')
             say('Read data:', time.time() - start)
-            if grid.world > 1:
-                # every rank read the same global batch: keep this rank's
-                # rows (tools/train.py _to_jnp's local_slice)
+            if grid.data > 1:
+                # every rank read the same global batch: keep this data
+                # index's rows (tools/train.py _to_jnp's local_slice)
                 sl = mesh.local_batch_slice(len(data['infos']))
                 data = dict(data, gts=data['gts'][sl], **{
                     k: None if data[k] is None else data[k][sl]
@@ -458,7 +467,8 @@ def _train(opt, device, grid):
                     fc, att, am, gen_seq, dev(reward, torch.float32),
                     opt.current_lr, gen, drop_worst_flag=drop_worst_flag)
                 out['reward'] = mesh.global_mean(float(reward[:, 0].sum()),
-                                                 reward.shape[0])
+                                                 reward.shape[0],
+                                                 grid.data_group)
 
             new_pending = {'out': out, 'it': iteration, 'epoch': epoch,
                            'start': start, 'sc_flag': sc_flag,
@@ -541,7 +551,9 @@ def _train(opt, device, grid):
                 pending = None
         except Exception:
             pass
-        if main:
+        if main and not captioner.vocab_shards:
+            # (a model axis's shards would need the other ranks, which
+            # may be gone)
             print('Save ckpt on exception ...')
             utils.save_checkpoint(opt, captioner.jax_variables(), infos,
                                   trainer.opt_state_jax())
