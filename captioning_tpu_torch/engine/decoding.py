@@ -389,27 +389,26 @@ def sample(dm: DecodeModel, fc_feats, att_feats, att_masks, rng,
     (the JAX engine's default) (seq, seqLogprobs [B*n, L, V+1] float32, the
     constrained step distributions, zeroed after each row's finish; the
     caller's autograd graph runs through them).  Beam options route to
-    ``sample_beam``, ``group_size > 1`` to ``diverse_sample``.  ``rng``:
-    the sampling noise (module doc).  ``generator`` is the model's train
-    switch, as in ``scan_logprobs``: given, prepare and then each step draw
-    dropout from it, in the order and shapes ``scan_logprobs`` draws them,
-    so a recompute from the generator's earlier state gives the same
-    activations.  The train mode samples one sequence a row (no beam, no
-    diverse groups)."""
+    ``sample_beam`` (the winners' replayed tables without
+    ``return_stats``, the carried beam sums with it), ``group_size > 1``
+    to ``diverse_sample``.  ``rng``: the sampling noise (module doc).
+    ``generator`` is the model's train switch, as in ``scan_logprobs``:
+    given, prepare and then each step draw dropout from it; one sequence a
+    row draws in the order and shapes ``scan_logprobs`` draws them, so a
+    recompute from the generator's earlier state gives the same
+    activations.  A beam or diverse decode draws its masks over its own
+    rows (beam lanes, staggered groups), which no recompute reproduces:
+    ``scan_logprobs`` over its sequences takes a fresh draw."""
     sample_method = opt.get('sample_method', 'greedy') or 'greedy'
     beam_size = _flag(opt, 'beam_size', 1)
-    if generator is not None and (
-            (beam_size > 1 and sample_method in ('greedy', 'beam_search'))
-            or _flag(opt, 'group_size', 1) > 1):
-        raise NotImplementedError(
-            'train-mode sampling by beam search or diverse groups is not '
-            'ported (train_beam_size 1 samples, as the configs train)')
     if beam_size > 1 and sample_method in ('greedy', 'beam_search'):
         seq, out, _ = sample_beam(dm, fc_feats, att_feats, att_masks, rng,
-                                  opt, want_logps=not return_stats)
+                                  opt, want_logps=not return_stats,
+                                  generator=generator)
         return seq, out
     if _flag(opt, 'group_size', 1) > 1:
-        return diverse_sample(dm, fc_feats, att_feats, att_masks, rng, opt)
+        return diverse_sample(dm, fc_feats, att_feats, att_masks, rng, opt,
+                              generator)
     prog = sample_program(dm, opt, rng, return_stats, generator)
     if return_stats:
         return prog.result(run_eager(prog, fc_feats, att_feats, att_masks))
@@ -519,7 +518,16 @@ def scan_logprobs(dm: DecodeModel, fc_feats, att_feats, att_masks, gen_seq,
     [N, L] (bos, then gen_seq[:, :-1]), zeroed after each row's finish as
     ``sample`` stores them: step t is kept while no token before t was eos
     or pad.  ``generator`` is the model's train switch: given, the steps
-    draw dropout from it (the caller builds the autograd graph)."""
+    draw dropout from it (the caller builds the autograd graph).
+
+    Drawn from the generator's state before a one-sequence-a-row
+    ``sample``, the masks are that pass's own, so the activations (and the
+    gradient) are the sampling forward's.  A sequence from a train-mode
+    beam (``train_beam_size > 1``) or diverse decode had its masks drawn
+    over beam lanes or staggered groups, which no single-row recompute can
+    reproduce: under dropout the recompute takes a fresh draw of the same
+    sequence, the reference's REINFORCE estimand but not its per-mask
+    gradient (the JAX ``scan_logprobs`` CAVEAT)."""
     L = dm.seq_length
     feats = dm.prepare(fc_feats, att_feats, att_masks, generator)
     if not dm.shared_beam_feats:
@@ -556,7 +564,9 @@ def _gather(x, ix):
     return torch.gather(x, 1, ix[..., None].expand(-1, -1, x.shape[2]))
 
 
-def beam_program(dm: DecodeModel, opt: Dict[str, Any]) -> StepProgram:
+def beam_program(dm: DecodeModel, opt: Dict[str, Any],
+                 generator: Optional[torch.Generator] = None,
+                 feats=None) -> StepProgram:
     """Single-group beam search without the scatter constraints, with its
     prepare and bos step, as a ``StepProgram`` over a fixed carry.
 
@@ -570,7 +580,15 @@ def beam_program(dm: DecodeModel, opt: Dict[str, Any]) -> StepProgram:
     and the exit test.  ``result`` gives (seq, {'ent_sum', 'lp_sum'}, done)
     as ``sample_beam`` returns them, ``done`` the finished-beam pool as
     {'seq' [B, 1, bdash, L], 'p', 'unaug_p', 'ent_sum', 'lp_sum' [B, 1,
-    bdash]}, sorted descending by ``p``."""
+    bdash]}, sorted descending by ``p``.
+
+    ``generator`` (train mode): the bos step and every step draw dropout
+    from it, on the eval beam's route where the model's step can take it
+    (the transformer's self-attention leaves B1 for the plain ancestry
+    attend: ``models/transformer.py``); the carry is rebound, not written
+    back.  ``feats``: the prepared features (a train-mode ``sample_beam``
+    prepares once, for the beam and its replay), else setup prepares
+    them."""
     temperature, length_penalty, unk_bias, unk_idx = _beam_dynamic_setup(
         dm, opt)
     bdash = _flag(opt, 'beam_size', 10)
@@ -583,7 +601,8 @@ def beam_program(dm: DecodeModel, opt: Dict[str, Any]) -> StepProgram:
     def setup(fc_feats, att_feats, att_masks):
         B = fc_feats.shape[0]
         NBG = B * bdash
-        feats = dm.prepare(fc_feats, att_feats, att_masks, None)
+        pf = (feats if feats is not None else
+              dm.prepare(fc_feats, att_feats, att_masks, generator))
         state = dm.init_state(B, beam=True)
         it = torch.full((B,), dm.bos_idx, dtype=torch.long,
                         device=fc_feats.device)
@@ -591,9 +610,9 @@ def beam_program(dm: DecodeModel, opt: Dict[str, Any]) -> StepProgram:
         # the temperature from the second step on)
         if fused:
             tv0, ti0, rs0, en0, state = dm.step_topk(
-                it, feats, state, None, bdash, 1.0, unk_bias, unk_idx, 0)
+                it, pf, state, generator, bdash, 1.0, unk_bias, unk_idx, 0)
         else:
-            lsm0, state = dm.step(it, feats, state, None, True,
+            lsm0, state = dm.step(it, pf, state, generator, True,
                                   uniform_t=True)
             lsm0 = _unk_adjust(lsm0, unk_bias, unk_idx)         # [B, V1]
             rs0 = lsm0.sum(-1)
@@ -605,8 +624,9 @@ def beam_program(dm: DecodeModel, opt: Dict[str, Any]) -> StepProgram:
             state = dm.beam_init(state, bdash)
         # the beam lanes of one image share its feats row
         # (shared_beam_feats); one row a lane otherwise
-        c = Carry(True, feats=feats, state=state, feats_per_beam=(
-            feats if dm.shared_beam_feats else repeat_tree(bdash, feats)))
+        c = Carry(generator is None, feats=pf, state=state,
+                  feats_per_beam=(pf if dm.shared_beam_feats
+                                  else repeat_tree(bdash, pf)))
         # t = 0: every lane holds the bos distribution; lane 0's candidates
         # are the bos ones, the other lanes are masked off
         lane0 = (torch.arange(bdash, device=dev) == 0).view(1, bdash, 1)
@@ -652,13 +672,13 @@ def beam_program(dm: DecodeModel, opt: Dict[str, Any]) -> StepProgram:
             it = c['sel_ix'].view(B * bdash)
             if fused:
                 tv, ti, rs, en, state = dm.step_topk(
-                    it, c['feats_per_beam'], state, None, bdash,
+                    it, c['feats_per_beam'], state, generator, bdash,
                     temperature, unk_bias, unk_idx, step_bw)
                 c.put(state=state, tv_c=tv, ti_c=ti,
                       row_sum=rs.view(B, bdash), ent_row=en.view(B, bdash))
             else:
                 logits, state = dm.step(it, c['feats_per_beam'], state,
-                                        None, False, uniform_t=True,
+                                        generator, False, uniform_t=True,
                                         beam_width=step_bw)
                 # the last selection has read the old table
                 cand, rs, en = _finish_table(
@@ -767,7 +787,8 @@ def _finish_table(lsm, sums, unk_bias: float, unk_idx: int, out):
 # ---------------------------------------------------------------------------
 
 def beam_search(dm: DecodeModel, init_logprobs, init_state, feats_per_beam,
-                opt: Dict[str, Any]):
+                opt: Dict[str, Any],
+                generator: Optional[torch.Generator] = None):
     """Batched (diverse) beam search, the general body.
 
     init_logprobs: [B, V+1] log-softmax of the bos step; init_state: the
@@ -786,7 +807,8 @@ def beam_search(dm: DecodeModel, init_logprobs, init_state, feats_per_beam,
     step writes in place are not: such a row writes at its frozen ``t``,
     before its start the slot its first step overwrites, after its finish
     slot L + 1, which no row reads (or no slot at all: the write is
-    dropped past the cache)."""
+    dropped past the cache).  ``generator`` (train mode): each model step
+    draws dropout from it."""
     temperature, length_penalty, unk_bias, unk_idx = _beam_dynamic_setup(
         dm, opt)
     beam_size = _flag(opt, 'beam_size', 10)
@@ -892,8 +914,8 @@ def beam_search(dm: DecodeModel, init_logprobs, init_state, feats_per_beam,
         it = torch.stack(sel_list, 1).view(NBG)
         new_state = (dm.beam_reorder(state, state_ix) if use_anc
                      else reorder_state(state, state_ix))
-        logits, stepped = dm.step(it, feats_per_beam, new_state, None, False,
-                                  uniform_t=(G == 1),
+        logits, stepped = dm.step(it, feats_per_beam, new_state, generator,
+                                  False, uniform_t=(G == 1),
                                   beam_width=bdash if use_anc else 0)
         new_tables = torch.log_softmax(logits / temperature, dim=-1).view(
             B, G, bdash * V1)
@@ -911,13 +933,16 @@ def beam_search(dm: DecodeModel, init_logprobs, init_state, feats_per_beam,
             'lp_sum': torch.stack(plpc, 1)}
 
 
-def replay_beam_logps(dm: DecodeModel, feats, seqs, opt: Dict[str, Any]):
+def replay_beam_logps(dm: DecodeModel, feats, seqs, opt: Dict[str, Any],
+                      generator: Optional[torch.Generator] = None):
     """The per-step constrained distributions [N, L, V+1] of given beam
     winners ``seqs`` [N, L] (``feats`` of N rows, or N / n for a
     shared-feats model): step 0 the bos step's log-softmax, later steps
     ``log_softmax(logits / temperature)`` as the beam loop tempered them,
     then the beam's constraint masks and UNK suppression; zero past each
-    winner's finish."""
+    winner's finish.  ``generator`` (train mode): the steps draw dropout
+    from it (a fresh draw: not the beam's masks) and the caller's autograd
+    graph runs through the tables."""
     temperature, _, unk_bias, unk_idx = _beam_dynamic_setup(dm, opt)
     decoding_constraint = _flag(opt, 'decoding_constraint')
     remove_bad_endings = _flag(opt, 'remove_bad_endings')
@@ -929,7 +954,7 @@ def replay_beam_logps(dm: DecodeModel, feats, seqs, opt: Dict[str, Any]):
     for t in range(L):
         # the input token at step t is seq[t-1] (bos at t = 0)
         it = inputs[:, t]
-        logits, state = dm.step(it, feats, state, None, False,
+        logits, state = dm.step(it, feats, state, generator, False,
                                 uniform_t=True)
         lp = torch.log_softmax(logits / temperature if t > 0 else logits,
                                dim=-1)
@@ -950,14 +975,21 @@ def beam_fast(opt: Dict[str, Any]) -> bool:
 
 
 def sample_beam(dm: DecodeModel, fc_feats, att_feats, att_masks, rng,
-                opt: Dict[str, Any], want_logps: bool = False):
+                opt: Dict[str, Any], want_logps: bool = False,
+                generator: Optional[torch.Generator] = None):
     """Beam decode.  Returns (seq [B*sample_n, L], the winners' replayed
     distributions [B*sample_n, L, V+1] with ``want_logps``, else their
     carried {'ent_sum', 'lp_sum'} [B*sample_n], done) with ``done`` the
     finished-beam pools [B, G, bdash, ...]; ``sample_n`` is 1 (the best
     beam of group 0) or bdash (group 0's beams).  One group without the
     scatter constraints takes ``beam_program`` (``beam_fast``), the rest
-    ``beam_search``.  Beam decoding draws nothing: ``rng`` is unused."""
+    ``beam_search``.  Beam decoding draws no noise: ``rng`` is unused.
+
+    ``generator`` is the train switch (the RL steps' ``train_beam_size >
+    1``): prepare, the bos step and every beam step draw dropout from it on
+    the eval beam's route (``beam_program``), the replay draws afresh.  The beam's tokens take no gradient, so its steps build no
+    autograd graph; the replay's tables carry the caller's, back to the
+    one prepare the beam read too."""
     beam_size = _flag(opt, 'beam_size', 10)
     group_size = _flag(opt, 'group_size', 1)
     sample_n = _flag(opt, 'sample_n', 1)
@@ -965,31 +997,34 @@ def sample_beam(dm: DecodeModel, fc_feats, att_feats, att_masks, rng,
     if sample_n not in (1, bdash):
         raise ValueError('when beam search, sample_n == 1 or beam size')
     B = fc_feats.shape[0]
-    if beam_fast(opt):
-        prog = beam_program(dm, opt)
-        carry = run_eager(prog, fc_feats, att_feats, att_masks)
-        seq, stats, done = prog.result(carry)
-        feats = carry['feats']
-    else:
-        feats = dm.prepare(fc_feats, att_feats, att_masks, None)
-        # staggered groups step rows at different t
-        state = dm.init_state(B, beam=(group_size == 1))
-        it = torch.full((B,), dm.bos_idx, dtype=torch.long,
-                        device=fc_feats.device)
-        # the bos step's distribution is untempered
-        init, state = dm.step(it, feats, state, None, True, uniform_t=True)
-        # the beam lanes of one (image, group) share its feats row
-        # (shared_beam_feats); by the effective beam count otherwise
-        feats_per_beam = repeat_tree(
-            group_size if dm.shared_beam_feats else group_size * bdash,
-            feats)
-        done = beam_search(dm, init, state, feats_per_beam, opt)
-        seq, stats = _pick(done, sample_n)
+    feats = dm.prepare(fc_feats, att_feats, att_masks, generator)
+    with torch.no_grad():
+        if beam_fast(opt):
+            prog = beam_program(dm, opt, generator, feats)
+            seq, stats, done = prog.result(
+                run_eager(prog, fc_feats, att_feats, att_masks))
+        else:
+            # staggered groups step rows at different t
+            state = dm.init_state(B, beam=(group_size == 1))
+            it = torch.full((B,), dm.bos_idx, dtype=torch.long,
+                            device=fc_feats.device)
+            # the bos step's distribution is untempered
+            init, state = dm.step(it, feats, state, generator, True,
+                                  uniform_t=True)
+            # the beam lanes of one (image, group) share its feats row
+            # (shared_beam_feats); by the effective beam count otherwise
+            feats_per_beam = repeat_tree(
+                group_size if dm.shared_beam_feats else group_size * bdash,
+                feats)
+            done = beam_search(dm, init, state, feats_per_beam, opt,
+                               generator)
+            seq, stats = _pick(done, sample_n)
     if not want_logps:
         return seq, stats, done
     replay_feats = (feats if sample_n == 1 or dm.shared_beam_feats
                     else repeat_tree(sample_n, feats))
-    return seq, replay_beam_logps(dm, replay_feats, seq, opt), done
+    return seq, replay_beam_logps(dm, replay_feats, seq, opt,
+                                  generator), done
 
 
 # ---------------------------------------------------------------------------
@@ -997,7 +1032,8 @@ def sample_beam(dm: DecodeModel, fc_feats, att_feats, att_masks, rng,
 # ---------------------------------------------------------------------------
 
 def diverse_sample(dm: DecodeModel, fc_feats, att_feats, att_masks, rng,
-                   opt: Dict[str, Any]):
+                   opt: Dict[str, Any],
+                   generator: Optional[torch.Generator] = None):
     """Returns (seq [B*G, L], the sampled tokens' logprobs [B*G, L]).
 
     Groups are folded into the batch (row b*G + g) and staggered in time:
@@ -1008,7 +1044,9 @@ def diverse_sample(dm: DecodeModel, fc_feats, att_feats, att_masks, rng,
     of an earlier group chose at this group's local time is penalized
     once for every row, once for each such group.  Constraints and the
     trigram block act at each group's local time; a row stops (pads) once
-    its previous token is eos or pad."""
+    its previous token is eos or pad.  ``generator`` (train mode): prepare
+    and each step draw dropout from it, and the sampled tokens' logprobs
+    carry the caller's autograd graph."""
     sample_method = opt.get('sample_method', 'greedy') or 'greedy'
     temperature = float(opt.get('temperature', 1.0) or 1.0)
     G = _flag(opt, 'group_size', 1)
@@ -1022,7 +1060,7 @@ def diverse_sample(dm: DecodeModel, fc_feats, att_feats, att_masks, rng,
     dev = att_feats.device if att_feats is not None else fc_feats.device
     draw = _draw_fn(rng, dev)
 
-    feats = dm.prepare(fc_feats, att_feats, att_masks, None)
+    feats = dm.prepare(fc_feats, att_feats, att_masks, generator)
     feats_g = feats if dm.shared_beam_feats else repeat_tree(G, feats)
     state = dm.init_state(B * G)
     seq_tbl = torch.zeros(B, G, L, dtype=torch.long, device=dev)
@@ -1037,7 +1075,7 @@ def diverse_sample(dm: DecodeModel, fc_feats, att_feats, att_masks, rng,
         # selected away
         lt = [min(max(x, 0), L - 1) for x in local_t]
         logits, new_state = dm.step(it_tbl.reshape(B * G), feats_g, state,
-                                    None, False, uniform_t=False)
+                                    generator, False, uniform_t=False)
         lp4 = torch.log_softmax(logits / temperature, dim=-1).view(B, G, V1)
 
         # diversity: n_chosen[gt, v] = the earlier groups gs < gt of which

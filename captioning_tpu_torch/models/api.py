@@ -365,9 +365,11 @@ class Captioner(DecodeEntries):
 
         def step_topk(it, feats, state, rng, k, temp, unk_bias, unk_idx,
                       beam_width=0):
-            # eval steps draw no randomness: the rng is accepted and unused
+            # the rng is the train switch, as in ``step``: a train-mode beam
+            # draws its dropout from it; the hidden B2 reads has none
             hid, st = module.step(it, feats, state, uniform_t=True,
-                                  beam_width=beam_width, return_hidden=True)
+                                  beam_width=beam_width, return_hidden=True,
+                                  gen=rng)
             # B2 picks its path by the weight's dtype: the compute copy
             gen = module.generator
             w, b = compute_param(gen, 'weight'), compute_param(gen, 'bias')
@@ -437,8 +439,12 @@ class Captioner(DecodeEntries):
         their running ones once, by prepare.  ``rng`` draws the sampling
         noise, as in ``sample``.  Without ``return_stats`` the per-step
         tables [N, L, V+1] carry the autograd graph (the fused RL steps
-        differentiate them); with it nothing is recorded and the sampling
-        stops once every row has finished."""
+        differentiate them; a beam's are its winners' replayed tables,
+        diverse groups give [N, L] sampled logprobs); with it nothing is
+        recorded and the sampling stops once every row has finished (a
+        beam gives its carried sums).  Beam options (``train_beam_size >
+        1``) decode on the eval beam's route, the kernels fed the dropped
+        inputs (``decoding.sample_beam``)."""
         dm = self.bind()
         with (torch.no_grad() if return_stats else torch.enable_grad()):
             return decoding.sample(dm, fc_feats, att_feats, att_masks, rng,

@@ -306,6 +306,10 @@ class CachedDecoder(nn.Module):
             return self._step_train(it, feats, state, logsoftmax,
                                     return_hidden, gen)
         if gen is not None or not uniform_t:
+            # a train-mode beam step (train_beam_size > 1) lands here, not
+            # on B1: B1 has no dropout of the attention probabilities, so
+            # the beam attends through the plain ancestry attend, as the
+            # JAX module keeps its train decode off the Pallas kernel
             return self._step_rows(it, feats, state, logsoftmax, beam_width,
                                    return_hidden, gen)
         return self._step_eval(it, feats, state, logsoftmax, beam_width,

@@ -270,6 +270,12 @@ class Trainer:
         opt = self.opt
         if kind == 'sc_fused' and int(opt.sc_beam_size or 1) > 1:
             return 'a beam-search greedy baseline (sc_beam_size > 1)'
+        if kind in ('sc_fused', 'struc_fused') and \
+                int(opt.train_beam_size or 1) > 1 and \
+                opt.train_sample_method in ('greedy', 'beam_search'):
+            # the beam's exact early exit reads a flag on the host a step
+            return ('train-mode beam sampling (train_beam_size > 1 with a '
+                    'greedy train_sample_method)')
         if kind.startswith('struc') and int(getattr(opt, 'use_ppo', 0)) \
                 and self.old_captioner is not None \
                 and self.old_captioner.device != self.captioner.device:

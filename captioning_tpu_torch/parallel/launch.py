@@ -4,7 +4,9 @@
 ``tools/train_pl_torch.py`` over several GPUs) runs the script again as
 N * M processes that join one group through ``--dist_coordinator
 127.0.0.1:<free port> --dist_nproc N*M --dist_pid i``, and waits for
-them.  A rank that fails fails the run: the
+them; ``tools/eval_torch.py`` / ``tools/eval_ensemble_torch.py
+--device_mesh 1`` start one rank a visible GPU the same way
+(``eval_ranks_to_start``).  A rank that fails fails the run: the
 others are stopped, never left waiting in a collective."""
 
 from __future__ import annotations
@@ -15,8 +17,9 @@ import sys
 import time
 
 import torch
+import torch.distributed as dist
 
-from .mesh import mesh_ranks
+from .mesh import init_distributed, mesh_ranks, world_size
 
 
 def free_port() -> int:
@@ -46,6 +49,44 @@ def ranks_to_start(opt, device: str) -> int:
     while d > 1 and opt.batch_size % d:
         d -= 1
     return max(d, 1)
+
+
+def eval_ranks_to_start(opt, device: str, n_devices: int = None) -> int:
+    """How many rank processes a launch of an eval tool starts: 1 (this
+    process evaluates) under ``--dist_*`` or without ``--device_mesh 1``;
+    else one a visible GPU (``--device cpu``: none, so 1), as the JAX eval
+    shards each batch over ``jax.device_count()`` devices: no
+    divisibility rule, the cooperative ``eval_split`` pads each batch to a
+    multiple of the ranks.  ``n_devices`` stands in for the visible GPUs
+    (the CPU tests start 2 gloo ranks)."""
+    if getattr(opt, 'dist_coordinator', '') or int(
+            getattr(opt, 'dist_auto', 0) or 0):
+        return 1
+    if not int(getattr(opt, 'device_mesh', 0) or 0):
+        return 1
+    if n_devices is None:
+        n_devices = (torch.cuda.device_count()
+                     if torch.device(device).type == 'cuda' else 0)
+    return max(int(n_devices), 1)
+
+
+def run_eval(script: str, argv, opt, evaluate, n_devices: int = None):
+    """An eval tool's run after its options are parsed: start
+    ``eval_ranks_to_start`` rank processes of ``script argv`` and wait for
+    them, or (one) join the group ``--dist_*`` names, if any, and call
+    ``evaluate(device)`` with this process's device."""
+    n = eval_ranks_to_start(opt, opt.device, n_devices)
+    if n > 1:
+        rc = run_ranks(script, argv, n)
+        if rc:
+            raise SystemExit('a rank of %d failed (exit code %d)' % (n, rc))
+        return
+    device = init_distributed(opt, opt.device)
+    try:
+        evaluate(device)
+    finally:
+        if world_size() > 1:
+            dist.destroy_process_group()
 
 
 def run_ranks(script: str, argv, n: int, poll: float = 0.2) -> int:

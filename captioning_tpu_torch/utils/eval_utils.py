@@ -212,13 +212,6 @@ def eval_split(captioner, loader, eval_kwargs=None):
                                       group=grid.data_group)
                     if grid.data > 1 else None)
     mine = grid.model_index == 0
-    if world == 1 and int(eval_kwargs.get('device_mesh', 0) or 0) and \
-            device.type == 'cuda' and torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            '--device_mesh 1: one process over several GPUs is not ported '
-            '(ROADMAP.md A7); launch one process a GPU instead '
-            '(tools/train_torch.py --mesh_shape data:N, or torchrun with '
-            '--dist_auto 1)')
     if world > 1 and main:
         print('eval_split: cooperative decode over %d ranks' % world)
 

@@ -162,28 +162,14 @@ def build_parser():
                              '(native/dataio.cpp) when the dataset qualifies;'
                              ' 0 forces the Python item path')
     parser.add_argument('--mesh_shape', type=str, default='',
-                        help='the data axis, "data:N": a launch starts N '
-                             'rank processes, one a GPU (with --dist_* the '
-                             'group\'s world must equal N). Empty: one '
-                             'process, or on several GPUs the largest count '
-                             'that divides batch_size. A model axis '
-                             '("data:N,model:M", M > 1) is not ported.')
-    parser.add_argument('--dist_coordinator', type=str, default='',
-                        help='data-parallel training: this process is one '
-                             'rank of a torch.distributed group reached at '
-                             '"host:port" (with --dist_nproc and '
-                             '--dist_pid). Replaces the reference\'s '
-                             'Lightning DDP launch (train_pl.py:458-499).')
-    parser.add_argument('--dist_nproc', type=int, default=-1,
-                        help='the group\'s rank count (with '
-                             '--dist_coordinator)')
-    parser.add_argument('--dist_pid', type=int, default=-1,
-                        help='this process\'s rank (with '
-                             '--dist_coordinator)')
-    parser.add_argument('--dist_auto', type=int, default=0,
-                        help='1: join the group torchrun describes (RANK, '
-                             'WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, '
-                             'MASTER_PORT)')
+                        help='"data:N" or "data:N,model:M": a launch starts '
+                             'N x M rank processes, one a GPU (with --dist_* '
+                             'the group\'s world must equal N x M); the M '
+                             'ranks of a model group hold the shards of the '
+                             'vocab tensors. Empty: one process, or on '
+                             'several GPUs the largest count that divides '
+                             'batch_size.')
+    add_dist_options(parser)
     parser.add_argument('--use_pallas', type=int, default=-1,
                         help='pallas fused kernels: 1 = on, 0 = off, '
                              '-1 (default) = auto (on when the backend is '
@@ -226,6 +212,27 @@ def build_parser():
     parser.add_argument('--cfg', type=str, default=None)
     parser.add_argument('--set_cfgs', dest='set_cfgs', default=[], nargs='+')
     return parser
+
+
+def add_dist_options(parser):
+    """The process-group options (``parallel.mesh.init_distributed``), for
+    the train script and the eval tools."""
+    parser.add_argument('--dist_coordinator', type=str, default='',
+                        help='this process is one rank of a '
+                             'torch.distributed group reached at '
+                             '"host:port" (with --dist_nproc and '
+                             '--dist_pid). Replaces the reference\'s '
+                             'Lightning DDP launch (train_pl.py:458-499).')
+    parser.add_argument('--dist_nproc', type=int, default=-1,
+                        help='the group\'s rank count (with '
+                             '--dist_coordinator)')
+    parser.add_argument('--dist_pid', type=int, default=-1,
+                        help='this process\'s rank (with '
+                             '--dist_coordinator)')
+    parser.add_argument('--dist_auto', type=int, default=0,
+                        help='1: join the group torchrun describes (RANK, '
+                             'WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, '
+                             'MASTER_PORT)')
 
 
 def parse_opt(args_list=None):
@@ -284,11 +291,11 @@ def add_eval_options(parser):
                              'TRAINING default where dropout-mask '
                              'generation dominates the rng cost)')
     parser.add_argument('--device_mesh', type=int, default=0,
-                        help='1: shard eval decode batches over every '
-                             'visible GPU in one process: not ported (it '
-                             'raises with several GPUs; a data-parallel '
-                             'group of one process a GPU evaluates '
-                             'cooperatively)')
+                        help='1: decode the eval batches over every visible '
+                             'GPU: the launch starts one rank process a GPU, '
+                             'which evaluate cooperatively (rank 0 prints '
+                             'and writes). One GPU or --device cpu: one '
+                             'process, as without it')
     parser.add_argument('--num_images', type=int, default=-1)
     parser.add_argument('--language_eval', type=int, default=0)
     parser.add_argument('--dump_images', type=int, default=1)

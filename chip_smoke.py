@@ -265,7 +265,25 @@ Phases, in order; any failure raises and exits non-zero:
    identical, val loss within 1e-5 relative; the transformer in bf16
    over 1024 images: agreement at least 0.99 and both ranks equal; B2's
    parts and merge, B1, B3 and B6 required in each rank.  Its decodes
-   and steps run eager (per-step collectives).
+   and steps run eager (per-step collectives);
+20. train-mode beam sampling, the upstream import and ``--device_mesh 1``:
+   (a) the transformer and UpDown at full width, float32, dropout 0.1, 32
+   images sampled by beam 5 (5 samples an image, ``train_beam_size``):
+   one fused SCST step and one unfused (``sc_decode`` + ``sc_grad_step``)
+   on the kernel route and on the twin route (``twin_route``: the models'
+   kernel wrappers replaced by their twins, on the card, from the same
+   generator state): sequences identical, losses within 1e-5 relative,
+   B1 and B2 (transformer), B3 and B6 (UpDown) launched, the twin route
+   launching none of them; UpDown's diverse train beam (10 in 2 groups)
+   against its twin route; (b) a synthetic upstream ``state_dict`` of the full-width
+   transformer (``tests/torch_import_util.py``) through
+   ``tools/import_torch_checkpoint_torch.py``, then ``tools/eval_torch.py``
+   on the card at beam 5 over 64 images: captions equal the same run
+   directory's decoded through the twins; (c) the same command with
+   ``--device_mesh 1`` on the one GPU runs one process with the same
+   captions, and with two ranks forced to share the card over gloo the
+   merged captions equal one process's.  It prints what it adds to the
+   wall beside the card's name and power limit.
 
 Each decode mode requires the kernels its path runs: the top-k only in
 beam (the RNN plain-step route; the transformer's fused route selects in
@@ -286,6 +304,7 @@ non-zero before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -4072,6 +4091,450 @@ def phase_model_axis(torch, wrappers, device='cuda'):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 20: train-mode beam sampling, the upstream import, --device_mesh 1
+# ---------------------------------------------------------------------------
+
+PHASE20 = {'B': 32, 'beam': 5, 'dropout': 0.1, 'images': 64,
+           'eval_batch': 32, 'world': 2}
+# tools/eval_torch.py's main with ``n_devices`` standing in for the
+# visible GPUs: two ranks on the one card
+PHASE20_MESH = r'''
+import os, runpy, sys
+repo = sys.argv[1]
+sys.path.insert(0, repo)
+tool = runpy.run_path(os.path.join(repo, 'tools', 'eval_torch.py'))
+tool['main'](sys.argv[3:], n_devices=int(sys.argv[2]))
+'''
+
+# the wrappers ``twin_route`` replaces, by their launch-count names
+P20_TWINNED = ('attend_write_merged', 'logit_topk', 'additive_attention_fused',
+               'topk_lastdim')
+
+
+@contextlib.contextmanager
+def twin_route():
+    """The models' kernel wrappers replaced by their plain twins (B1
+    ``attend_write_merged``, B2 ``logit_topk``, B3
+    ``additive_attention_fused``, B6 ``topk_lastdim``) where the port calls
+    them: a decode or step inside runs the twin route on the same device,
+    from the same generator state as the kernel route, launching no
+    kernel."""
+    from captioning_tpu_torch.engine import decoding
+    from captioning_tpu_torch.models import api, harness, transformer
+    from captioning_tpu_torch.ops import attention as aa
+    from captioning_tpu_torch.ops import beam_attend as ba
+    from captioning_tpu_torch.ops import logit_topk as lt
+    from captioning_tpu_torch.ops import topk as tk
+    twins = [(transformer, 'attend_write_merged',
+              ba.attend_write_merged_ref),
+             (api, 'logit_topk', lt.logit_topk_ref),
+             (harness, 'additive_attention_fused',
+              aa.additive_attention_ref),
+             (decoding, 'topk_lastdim', lambda x, k: tk.top_k(x.float(), k))]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in twins]
+    try:
+        for mod, name, fn in twins:
+            setattr(mod, name, fn)
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def _route(route):
+    return twin_route() if route == 'twins' else contextlib.nullcontext()
+
+
+def p20_rl(torch, model, device, route, batch, scorer):
+    """One fused SCST step and one unfused (``sc_decode`` +
+    ``sc_grad_step``) of ``model`` at full width, sampling by beam 5 with 5
+    samples an image at dropout ``PHASE20['dropout']``, learning rate 0,
+    on ``route`` ('kernels' or 'twins'), the dropout generator seeded
+    alike: the sequences, losses, reward, the kernels' launches of each
+    step and the fused step's host wall."""
+    from captioning_tpu_torch.modules.trainer import Trainer
+    from captioning_tpu_torch.tools import profile_train as pt
+    drop, beam = PHASE20['dropout'], PHASE20['beam']
+    tr = Trainer(pt.train_captioner(model, device, drop_prob_lm=drop,
+                                    dropout=drop),
+                 pt.rl_opt(train_beam_size=beam, train_sample_n=beam,
+                           train_sample_method='greedy'))
+    if tr.graph_route('sc_fused') == '':
+        raise AssertionError('the fused step of a train-mode beam takes the '
+                             'graph route')
+    fc, att, am, refs, ref_mask = batch
+    gen = torch.Generator(device).manual_seed(6)
+    rec = {}
+    with _route(route):
+        before = launch_counts(torch)
+        t = time.time()
+        out = tr.sc_fused_step(fc, att, am, refs, ref_mask, 0.0, None, None,
+                               gen, scorer)
+        rec.update(fused_seq=out['sampled'].cpu(), greedy=out['greedy'].cpu(),
+                   fused_loss=float(out['loss']),
+                   reward=float(out['reward']),
+                   fused_s=time.time() - t)
+        mid = launch_counts(torch)
+        greedy, sampled = tr.sc_decode(fc, att, am, None, None, gen)
+        reward = scorer.self_critical_reward(greedy, sampled, refs, ref_mask)
+        out = tr.sc_grad_step(fc, att, am, sampled, reward, 0.0, gen)
+        rec.update(unfused_seq=sampled.cpu(),
+                   unfused_loss=float(out['loss']))
+        after = launch_counts(torch)
+    rec['launches'] = {'fused': _grown(before, mid),
+                       'unfused': _grown(mid, after)}
+    del tr
+    return rec
+
+
+def p20_same(torch, what, got, want):
+    """The kernel route's record ``got`` against the twin route's:
+    sequences identical, losses within 1e-5 relative, the reward within
+    1e-5.  Returns the worst relative loss error."""
+    for key in ('fused_seq', 'unfused_seq', 'greedy', 'seq'):
+        if key in want and not torch.equal(got[key], want[key]):
+            raise AssertionError(
+                '%s: the %s sequences differ from the twin route\'s on %d '
+                'of %d rows' % (what, key, int((got[key] != want[key])
+                                                .any(1).sum()),
+                                want[key].shape[0]))
+    err = 0.0
+    for key in ('fused_loss', 'unfused_loss', 'loss'):
+        if key in want:
+            e = abs(got[key] - want[key]) / max(abs(want[key]), 1e-30)
+            if not e <= 1e-5:
+                raise AssertionError('%s: %s %.8g against the twin route\'s '
+                                     '%.8g' % (what, key, got[key],
+                                               want[key]))
+            err = max(err, e)
+    if 'reward' in want and not abs(got['reward'] - want['reward']) <= 1e-5:
+        raise AssertionError('%s: reward %.8g against %.8g' % (
+            what, got['reward'], want['reward']))
+    return err
+
+
+def p20_no_kernels(what, launches):
+    """The twin route launched none of the four wrappers ``twin_route``
+    replaces: else the comparison held kernels against kernels."""
+    ran = {n: launches.get(n, 0) for n in P20_TWINNED if launches.get(n)}
+    if ran:
+        raise AssertionError('%s: the twin route launched %s' % (what, ran))
+
+
+def p20_sample(torch, model, device, route, fc, att, am, opt, dropout,
+               reward=None):
+    """``Captioner.sample_train`` of ``model`` with ``opt`` at ``dropout``
+    on ``route``: its sequences, launches and, given a reward, the SCST
+    loss over the replayed tables (an autograd graph) else the carried-sums
+    decode."""
+    from captioning_tpu_torch.modules import losses
+    from captioning_tpu_torch.tools import profile_train as pt
+    cap = pt.train_captioner(model, device, drop_prob_lm=dropout,
+                             dropout=dropout).trainable()
+    gen = torch.Generator(device).manual_seed(7)
+    with _route(route):
+        before = launch_counts(torch)
+        seq, lp = cap.sample_train(fc, att, am, None, opt, gen,
+                                   return_stats=reward is None)
+        rec = {'seq': seq.cpu()}
+        if reward is not None:
+            loss = losses.reward_criterion(lp, seq, reward)
+            loss.backward()
+            rec['loss'] = float(loss.detach())
+        rec['launches'] = _grown(before, launch_counts(torch))
+    del cap
+    return rec
+
+
+def p20_train_beam(torch, device):
+    """Phase 20 (a): train-mode beam SCST of the transformer and UpDown,
+    kernel route against twin route; UpDown's diverse train beam.
+    Returns the kernel routes' launches by wrapper name."""
+    from captioning_tpu_torch.ops.cider_device import DeviceCiderD
+    from captioning_tpu_torch.tools import profile_train as pt
+    launches = {}
+    on_card = torch.device(device).type == 'cuda'
+    scorer = DeviceCiderD(*pt.corpus_df(images=PHASE18['corpus']),
+                          device=device)
+    B, beam = PHASE20['B'], PHASE20['beam']
+    need = {'transformer': ('attend_write_merged', 'logit_topk'),
+            'updown': ('additive_attention_fused', 'topk_lastdim')}
+    for model, names in need.items():
+        # the references hold each image's own greedy caption
+        cap = pt.train_captioner(model, device, drop_prob_lm=0.0)
+        fc, att, am, _, _, refs, ref_mask = pt.rl_batch(cap, B, 11)
+        del cap
+        got = p20_rl(torch, model, device, 'kernels',
+                     (fc, att, am, refs, ref_mask), scorer)
+        want = p20_rl(torch, model, device, 'twins',
+                      (fc, att, am, refs, ref_mask), scorer)
+        err = p20_same(torch, '%s train beam SCST' % model, got, want)
+        for part in ('fused', 'unfused'):
+            p20_no_kernels('%s train beam SCST (%s)' % (model, part),
+                           want['launches'][part])
+        ran = {}
+        for part in ('fused', 'unfused'):
+            for n, k in got['launches'][part].items():
+                ran[n] = ran.get(n, 0) + k
+        if on_card and not all(ran.get(n, 0) > 0 for n in names):
+            raise AssertionError('%s train beam SCST launched %s, needs %s'
+                                 % (model, ran, names))
+        for n, k in ran.items():
+            launches[n] = launches.get(n, 0) + k
+        log('  (a) %s f32, dropout %.1f, %d images x beam %d (%d samples '
+            'an image): fused and unfused SCST steps, kernel route against '
+            'twin route: sequences identical (%d + %d rows, longest %d '
+            'tokens), losses %.6f / %.6f (worst rel err %.2e), mean '
+            'advantage %.6f; fused step %.2f s (host wall, kernel route); '
+            'launches fused %s, unfused %s'
+            % (model, PHASE20['dropout'], B, beam, beam,
+               got['fused_seq'].shape[0], got['unfused_seq'].shape[0],
+               int((got['fused_seq'] > 0).sum(1).max()), got['fused_loss'],
+               got['unfused_loss'], err, got['reward'], got['fused_s'],
+               got['launches']['fused'], got['launches']['unfused']))
+        if model == 'updown':
+            opt = {'sample_method': 'greedy', 'beam_size': 2 * beam,
+                   'group_size': 2, 'diversity_lambda': 0.5,
+                   'sample_n': beam}
+            reward = torch.randn(B * beam, 20, generator=torch.Generator()
+                                 .manual_seed(3)).to(device)
+            gd, wd = (p20_sample(torch, model, device, r, fc, att, am, opt,
+                                 PHASE20['dropout'], reward)
+                      for r in ('kernels', 'twins'))
+            err = p20_same(torch, 'UpDown diverse train beam', gd, wd)
+            p20_no_kernels('UpDown diverse train beam', wd['launches'])
+            if on_card and not all(gd['launches'].get(n) for n in names):
+                raise AssertionError('UpDown diverse train beam launched '
+                                     '%s, needs %s' % (gd['launches'],
+                                                       names))
+            for n, k in gd['launches'].items():
+                launches[n] = launches.get(n, 0) + k
+            log('  (a) UpDown diverse train beam (beam %d in 2 groups, '
+                'lambda 0.5, dropout %.1f): sequences identical to the twin '
+                'route\'s, SCST loss over the replayed tables %.6f (rel err '
+                '%.2e); launches %s' % (2 * beam, PHASE20['dropout'],
+                                        gd['loss'], err, gd['launches']))
+    return launches
+
+
+def p20_dataset(torch, root, n):
+    """``n`` test images of seeded 36 x 2048 region features (their mean
+    the fc feature) in the loader's layout, one train and one val image
+    after them (the loader wants every split), no labels: the flags that
+    read them."""
+    import numpy as np
+    from captioning_tpu_torch.tools import profile_decode as pd
+    fc_dir, att_dir = (os.path.join(root, d) for d in ('fc', 'att'))
+    os.makedirs(fc_dir)
+    os.makedirs(att_dir)
+    fc, att, _ = pd.features(n + 2, 'cpu', seed=12)
+    for i in range(n + 2):
+        np.save(os.path.join(fc_dir, '%d.npy' % i), fc[i].numpy())
+        np.savez(os.path.join(att_dir, '%d.npz' % i), feat=att[i].numpy())
+    splits = ['test'] * n + ['train', 'val']
+    with open(os.path.join(root, 'data.json'), 'w') as f:
+        json.dump({'ix_to_word': pd.coco_vocab(),
+                   'images': [{'id': i, 'split': s, 'file_path': ''}
+                              for i, s in enumerate(splits)]}, f)
+    return ['--input_json', os.path.join(root, 'data.json'),
+            '--input_fc_dir', fc_dir, '--input_att_dir', att_dir,
+            '--input_label_h5', 'none']
+
+
+def p20_captions(root, what, n):
+    """The captions ``tools/eval_torch.py`` wrote to ``root/vis``, each
+    image's once and in order."""
+    with open(os.path.join(root, 'vis', 'vis.json')) as f:
+        preds = json.load(f)
+    if [p['image_id'] for p in preds] != list(range(n)) or not all(
+            p['caption'] for p in preds):
+        raise AssertionError('%s: captions for images %s of %d'
+                             % (what, [p['image_id'] for p in preds], n))
+    return [p['caption'] for p in preds]
+
+
+def p20_eval_twins(torch, argv, cwd):
+    """``tools/eval_torch.py`` in this process on ``argv`` from ``cwd``,
+    through the twins (``twin_route``) and the eager decodes, its output
+    in ``cwd/eval.log``."""
+    import runpy
+
+    from captioning_tpu_torch.utils import eval_utils
+    tool = runpy.run_path(os.path.join(HERE, 'tools', 'eval_torch.py'))
+    entry = eval_utils.decode_entry
+    here = os.getcwd()
+    os.chdir(cwd)
+    eval_utils.decode_entry = lambda cap, kind, opt: getattr(
+        cap, {'beam': 'sample_beam', 'stats': 'sample_stats'}[kind])
+    try:
+        with twin_route(), open('eval.log', 'w') as f, \
+                contextlib.redirect_stdout(f):
+            tool['main'](argv)
+    finally:
+        eval_utils.decode_entry = entry
+        os.chdir(here)
+
+
+def p20_import_and_mesh(torch, root, device):
+    """Phase 20 (b) and (c) in ``root``: a synthetic upstream state_dict
+    of the full-width transformer (the port's seeded init through the
+    converter's names, ``tests/torch_import_util.py``) through
+    ``tools/import_torch_checkpoint_torch.py``; ``tools/eval_torch.py`` at
+    beam 5 over ``PHASE20['images']`` images on the card (kernels, graph
+    decodes) beside the same command with ``--device_mesh 1`` (one GPU:
+    one process), the twin route in this process, then 2 ranks forced to
+    share the card over gloo: captions equal.  Returns the launches by
+    wrapper name."""
+    import pickle
+
+    import importlib.util
+
+    from captioning_tpu_torch.models.config import config_from_opt
+    from captioning_tpu_torch.tools import profile_decode as pd
+    from captioning_tpu_torch.utils import misc, opts, torch_convert
+    # by path: a ``tests`` package installed on the host would shadow the
+    # repository's
+    spec = importlib.util.spec_from_file_location(
+        'torch_import_util', os.path.join(HERE, 'tests',
+                                          'torch_import_util.py'))
+    util = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(util)
+    launches = {}
+    t = time.time()
+    # the options tools/train_torch.py would save (use_att, use_fc follow
+    # the caption model), at the flagship widths
+    opt = opts.parse_opt(['--caption_model', 'transformer'])
+    vars(opt).update(vars(pd.model_opt('transformer', 'float32')))
+    opt.id = 'p20'
+    cap = pd.make_captioner('transformer', 'float32', 'cpu', seed=8)
+    want = misc._flatten_tree(cap.jax_variables())
+    del cap
+    sd = util.upstream_state_dict(torch_convert.convert_state_dict,
+                                  config_from_opt(opt, pd.V), want,
+                                  misc._flatten_tree)
+    up = os.path.join(root, 'upstream')
+    os.makedirs(up)
+    torch.save(sd, os.path.join(up, 'model.pth'))
+    with open(os.path.join(up, 'infos_p20.pkl'), 'wb') as f:
+        pickle.dump({'opt': opt, 'vocab': pd.coco_vocab()}, f)
+    run = os.path.join(root, 'run')
+    run_procs([[sys.executable, os.path.join(HERE, 'tools',
+                                             'import_torch_checkpoint_torch.py'),
+                '--infos_path', os.path.join(up, 'infos_p20.pkl'),
+                '--model', os.path.join(up, 'model.pth'), '--output_dir',
+                run, '--id', 'p20']], root, 300, 'import')
+    got = misc.load_flat(os.path.join(run, 'model.npz'))
+    if sorted(got) != sorted(want) or not all(
+            (got[k] == want[k]).all() for k in want):
+        raise AssertionError('the imported model.npz is not the tree the '
+                             'upstream state_dict was made from')
+    log('  (b) a full-width transformer\'s upstream state_dict (%d tensors, '
+        '%.1f M parameters) through tools/import_torch_checkpoint_torch.py: '
+        'model.npz equals its tree (%.1f s)'
+        % (len(sd), sum(v.numel() for v in sd.values()) / 1e6,
+           time.time() - t))
+    del sd, got, want
+
+    n = PHASE20['images']
+    argv = (p20_dataset(torch, os.path.join(root, 'data'), n) +
+            ['--device', device, '--model', os.path.join(run, 'model.npz'),
+             '--infos_path', os.path.join(run, 'infos_p20.pkl'),
+             '--split', 'test', '--num_images', str(n), '--batch_size',
+             str(PHASE20['eval_batch']), '--beam_size', str(PHASE20['beam']),
+             '--language_eval', '0', '--force', '1', '--dump_images', '0',
+             '--verbose_beam', '0', '--id', 'p20'])
+    for name in ('kernels', 'mesh1', 'twins', 'mesh2'):
+        os.makedirs(os.path.join(root, name))
+    t = time.time()
+    env = dict(os.environ, OMP_NUM_THREADS='1')
+    # the CLI with and without --device_mesh 1, each in its own directory,
+    # while this process decodes through the twins
+    started = [start_procs([[sys.executable, '-c', PHASE17_DRIVER, HERE,
+                             'pil'] + argv + extra],
+                           os.path.join(root, name), 'eval', env)
+               for name, extra in (('kernels', []),
+                                   ('mesh1', ['--device_mesh', '1']))]
+    p20_eval_twins(torch, argv, os.path.join(root, 'twins'))
+    twins_s = time.time() - t
+    outs = [out for s in started for out in wait_procs(s, 600)]
+    evals_s = time.time() - t
+    ran = [json.loads([ln for ln in o.splitlines()
+                       if ln.startswith('launches ')][-1][len('launches '):])
+           for o in outs]
+    for o in outs:
+        if 'launched' in o or 'distributed: rank' in o:
+            raise AssertionError('--device_mesh 1 on one GPU started ranks')
+    caps = {name: p20_captions(os.path.join(root, name), name, n)
+            for name in ('kernels', 'mesh1', 'twins')}
+    # the two subprocesses ran in their own directories
+    if caps['kernels'] != caps['twins']:
+        raise AssertionError('the imported transformer: %d of %d captions '
+                             'differ between the kernels and the twins'
+                             % (sum(a != b for a, b in zip(
+                                 caps['kernels'], caps['twins'])), n))
+    if caps['mesh1'] != caps['kernels']:
+        raise AssertionError('--device_mesh 1 on one GPU: captions differ '
+                             'from the run without it')
+    if device == 'cuda':
+        for r in ran:
+            if not (r.get('attend_write_merged') and r.get('logit_topk')):
+                raise AssertionError('tools/eval_torch.py launched %s, needs '
+                                     'B1 and B2' % r)
+    for r in ran:
+        for name, k in r.items():
+            launches[name] = launches.get(name, 0) + k
+    log('  (b) tools/eval_torch.py on the imported run directory, beam %d '
+        'over %d images (batch %d, the graph decodes): captions equal the '
+        'twin route\'s (this process, eager; %.1f s), e.g. %s; launches %s'
+        % (PHASE20['beam'], n, PHASE20['eval_batch'], twins_s,
+           json.dumps(caps['kernels'][:2]),
+           {k: v for k, v in ran[0].items() if v}))
+    log('  (c) --device_mesh 1 on the one visible GPU: one process, '
+        'captions equal the run without it (both subprocesses %.1f s)'
+        % evals_s)
+
+    t = time.time()
+    world = PHASE20['world']
+    outs = run_procs([[sys.executable, '-c', PHASE20_MESH, HERE, str(world)]
+                      + argv + ['--device_mesh', '1']],
+                     os.path.join(root, 'mesh2'), 600, 'mesh2')
+    ranks = outs[0].count('distributed: rank')
+    if 'launched %d ranks' % world not in outs[0] or ranks != world:
+        raise AssertionError('--device_mesh 1 with %d forced ranks: %s'
+                             % (world, outs[0][-2000:]))
+    backend = sorted({ln.split('backend ')[1].split(',')[0]
+                      for ln in outs[0].splitlines()
+                      if 'distributed: rank' in ln})
+    caps['mesh2'] = p20_captions(os.path.join(root, 'mesh2'), 'mesh2', n)
+    if caps['mesh2'] != caps['kernels']:
+        raise AssertionError('--device_mesh 1, %d ranks on one card: %d of '
+                             '%d captions differ from one process\'s'
+                             % (world, sum(a != b for a, b in zip(
+                                 caps['mesh2'], caps['kernels'])), n))
+    if outs[0].count('loss: ') != 1:
+        raise AssertionError('--device_mesh 1 ranks: rank 0 alone prints')
+    log('  (c) --device_mesh 1 with %d ranks forced to share the card '
+        '(backend %s): the merged captions equal one process\'s (%.1f s)'
+        % (world, backend, time.time() - t))
+    return launches
+
+
+def phase_train_beam_import(torch, wrappers, device='cuda'):
+    """Phase 20: (a) ``p20_train_beam``, (b)-(c) ``p20_import_and_mesh``
+    in a scratch directory under ``build/``.  Returns the launches of the
+    phase."""
+    import shutil
+    root = os.path.join(HERE, 'build', 'phase20')
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    parts = (p20_train_beam(torch, device),
+             p20_import_and_mesh(torch, root, device))
+    torch.cuda.empty_cache()
+    return {name: sum(part.get(fn.__name__, 0) for part in parts)
+            for name, fn in wrappers.items()}
+
+
 def main():
     import torch
     wall = time.time()
@@ -4285,6 +4748,14 @@ def main():
                                        merge['merge_twin_ms'],
                                        merge['merge_bound'])
     log('phase 19: %.1f s' % (time.time() - t))
+
+    log('phase 20: train-mode beam SCST (kernels against twins), the '
+        'upstream checkpoint import, --device_mesh 1')
+    t = time.time()
+    for name, n in phase_train_beam_import(torch, wrappers).items():
+        launches[name] += n
+    log('phase 20: %.1f s added to the wall, on %s'
+        % (time.time() - t, gpu_line()))
 
     bad = [m for m in sys.modules
            if m.split('.')[0] in ('jax', 'flax', 'optax', 'captioning_tpu')]

@@ -1,7 +1,8 @@
 """The port imports no JAX and nothing of the JAX package: in a fresh
 interpreter where importing jax, flax, optax or ``captioning_tpu`` fails,
 every module of the port (the bench too), ``tools/eval_torch.py``,
-``tools/train_torch.py`` and ``tools/train_pl_torch.py`` import, and a tiny CPU beam, diverse beam, greedy
+``tools/train_torch.py``, ``tools/train_pl_torch.py`` and
+``tools/import_torch_checkpoint_torch.py`` import, and a tiny CPU beam, diverse beam, greedy
 and ``sample_n`` top-3 decode, the graph entries' beam and greedy (the
 second through a recorder and the graph cache), an XE train step and a
 fused SCST step (its reward on ``ops/cider_device.py``) run, for the
@@ -9,7 +10,8 @@ transformer and for RNN captioners of each family (UpDown, StackAtt,
 NewFC, LM, AdaAttMO).  An AST scan of the port's
 sources, ``chip_smoke.py``, ``tools/eval_torch.py``,
 ``tools/eval_ensemble_torch.py``, ``tools/train_torch.py``,
-``tools/train_pl_torch.py`` and ``scripts/prepro_feats_torch.py`` finds no such import either, lazy ones
+``tools/train_pl_torch.py``, ``tools/import_torch_checkpoint_torch.py``
+and ``scripts/prepro_feats_torch.py`` finds no such import either, lazy ones
 included.
 The entry points default to the GPU."""
 
@@ -37,7 +39,8 @@ mods = [m.name for m in pkgutil.walk_packages(
 assert len(mods) > 30, mods
 for mod in mods:
     importlib.import_module(mod)
-for tool in ('eval_torch', 'train_torch', 'train_pl_torch'):
+for tool in ('eval_torch', 'train_torch', 'train_pl_torch',
+             'import_torch_checkpoint_torch'):
     spec = importlib.util.spec_from_file_location(
         tool, os.path.join('tools', tool + '.py'))
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
@@ -136,6 +139,7 @@ def _sources():
            os.path.join(REPO, 'tools', 'eval_ensemble_torch.py'),
            os.path.join(REPO, 'tools', 'train_torch.py'),
            os.path.join(REPO, 'tools', 'train_pl_torch.py'),
+           os.path.join(REPO, 'tools', 'import_torch_checkpoint_torch.py'),
            os.path.join(REPO, 'scripts', 'prepro_feats_torch.py')]
     for root, _, files in os.walk(PKG):
         out += [os.path.join(root, f) for f in files if f.endswith('.py')]

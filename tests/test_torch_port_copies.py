@@ -3,7 +3,8 @@ originals: the npz tree I/O and the checkpoint writer, the options, the
 learning-rate schedules of ``utils/optimizers.py``, the data loader's
 batches on the synthetic dataset, the caption metrics through
 ``language_eval``, the RL rewards of ``utils/rewards.py`` and
-``utils/cider_native.py``, the graph cache's key (``freeze_opt``) and the
+``utils/cider_native.py``, the map-style ``CaptionDataset`` of
+``data/pth_loader.py``, the graph cache's key (``freeze_opt``) and the
 bench's FLOP model (root ``bench.py``'s ``decode_step_flops``)."""
 
 import json
@@ -252,6 +253,27 @@ def test_diversity_suite_matches_jax_package(tmp_path, monkeypatch):
         for fn in ('compute_div_n', 'compute_global_div_n'):
             _same_tree(getattr(pdiv, fn)(caps, n), getattr(jdiv, fn)(caps, n),
                        '%s %d' % (fn, n))
+
+
+def test_caption_dataset_matches_jax_package(ds):
+    """``data/pth_loader.py``, the port's copy: ``CaptionDataset`` items by
+    index (the seq_per_img captions drawn by the dataset's seeded rng) and
+    ``collate_batch`` of them equal the original's, exported from the
+    port's ``data`` package."""
+    from captioning_tpu.data.pth_loader import CaptionDataset as JaxDataset
+    from captioning_tpu_torch.data import CaptionDataset
+    from captioning_tpu_torch.data.pth_loader import (
+        CaptionDataset as PortDataset)
+    assert CaptionDataset is PortDataset
+    opt = make_opt(ds, seq_per_img=3)
+    want, got = JaxDataset(opt), CaptionDataset(opt)
+    items = {}
+    for name, dset in (('jax', want), ('port', got)):
+        items[name] = [dset[i] for i in (0, 5, 17)]
+    _same_tree(items['port'], items['jax'], 'items')
+    for split in ('train', 'val'):
+        _same_tree(got.collate_batch(items['port'], split),
+                   want.collate_batch(items['jax'], split), split)
 
 
 def test_bad_endings_match_jax_package():

@@ -360,16 +360,11 @@ def test_profile_rl_steps_on_the_cpu(model, mode, monkeypatch):
 
 @pytest.mark.parametrize('flag,value,error,match', [
     ('mesh_shape', 'data:1,model:2', ValueError, 'needs 2 ranks'),
-    ('mesh_shape', 'data:2,model:2', ValueError, 'needs 4 ranks'),
-    ('train_beam_size', 2, NotImplementedError,
-     'train-mode sampling by beam')])
+    ('mesh_shape', 'data:2,model:2', ValueError, 'needs 4 ranks')])
 def test_unported_training_raises(ds, tmp_path, monkeypatch, flag, value,
                                   error, match):
-    """What the loop does not port raises NotImplementedError naming its
-    ROADMAP item or what is left out (an SCST stage that samples by beam
-    search once it is reached, after the exception checkpoint of the JAX
-    loop); a mesh whose axes need more ranks than the run has raises
-    before training; ``--device cuda`` without a GPU raises."""
+    """A mesh whose axes need more ranks than the run has raises before
+    training; ``--device cuda`` without a GPU raises."""
     import importlib.util
 
     import torch
@@ -384,11 +379,8 @@ def test_unported_training_raises(ds, tmp_path, monkeypatch, flag, value,
     opt = popts.parse_opt(_args(ds, ckpt, 1, self_critical_after=0,
                                 cached_tokens=ds.cached_tokens))
     setattr(opt, flag, value)
-    opt.train_sample_method = 'greedy'     # with train_beam_size: beam
     with pytest.raises(error, match=match):
         mod.train(opt, device='cpu')
-    if flag == 'train_beam_size':
-        assert os.path.isfile(os.path.join(ckpt, 'model.npz'))
     if value == 'data:1,model:2':
         monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
         with pytest.raises(RuntimeError, match='CUDA'):

@@ -7,7 +7,9 @@ checkpoints of ``--ids`` (JAX-trained or written by tools/train_torch.py),
 averages the members' probabilities by ``--weights`` and evaluates with
 ``captioning_tpu_torch.utils.eval_utils.eval_split`` on ``--device`` (cuda
 by default; ``--device cpu`` runs the kernels' plain twins).  With
-``--device cuda`` and no GPU it raises.
+``--device cuda`` and no GPU it raises.  ``--device_mesh 1`` and the
+``--dist_*`` options start or join a group of one rank a GPU that decodes
+each batch cooperatively, as in ``tools/eval_torch.py``.
 
     python tools/eval_ensemble_torch.py --ids trans-best trans_nsc-best \\
         --beam_size 5 --split test --language_eval 1
@@ -28,10 +30,13 @@ import captioning_tpu_torch.utils.misc as utils  # noqa: E402
 import captioning_tpu_torch.utils.opts as opts  # noqa: E402
 from captioning_tpu_torch.models.api import setup  # noqa: E402
 from captioning_tpu_torch.models.ensemble import EnsembleCaptioner  # noqa
+from captioning_tpu_torch.parallel import launch, mesh  # noqa: E402
 from captioning_tpu_torch.utils import eval_utils  # noqa: E402
 
 
-def main(argv=None):
+def main(argv=None, n_devices=None):
+    """``n_devices`` stands in for the visible GPUs of ``--device_mesh 1``
+    (``launch.eval_ranks_to_start``)."""
     parser = argparse.ArgumentParser()
     parser.add_argument('--ids', nargs='+', required=True,
                         help='ids of the models to ensemble')
@@ -41,11 +46,21 @@ def main(argv=None):
                         choices=('cuda', 'cpu'))
     opts.add_eval_options(parser)
     opts.add_diversity_opts(parser)
+    opts.add_dist_options(parser)
     opt = parser.parse_args(argv)
     if opt.device == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError('--device cuda: no CUDA device is available '
                            '(pass --device cpu to run the plain twins)')
 
+    launch.run_eval(os.path.abspath(__file__),
+                    sys.argv[1:] if argv is None else argv, opt,
+                    lambda device: _evaluate(opt, device), n_devices)
+
+
+def _evaluate(opt, device):
+    """Decode and score on ``device``: one process, or a rank of the eval
+    group (the data axis over the whole group)."""
+    is_main = mesh.make_mesh('').rank == 0
     model_infos = []
     model_paths = []
     for mid in opt.ids:
@@ -75,7 +90,7 @@ def main(argv=None):
         model_infos[i]['opt'].start_from = None
         model_infos[i]['opt'].vocab_size = len(vocab)
         captioners.append(setup(model_infos[i]['opt'], vocab,
-                                device=opt.device).load_params(
+                                device=device).load_params(
                                     model_paths[i]))
 
     weights = ([float(w) for w in opt.weights]
@@ -94,6 +109,8 @@ def main(argv=None):
     loss, split_predictions, lang_stats = eval_utils.eval_split(
         ensemble, loader, vars(opt))
 
+    if not is_main:
+        return
     print('loss: ', loss)
     if lang_stats:
         print(lang_stats)

@@ -20,6 +20,14 @@ metrics are the port's own copies of the JAX package's host-only modules
 list in it): ``data/dataloaderraw.DataLoaderRaw`` runs the ResNet
 ``--cnn_model`` of ``./data/imagenet_weights/<cnn_model>.pth`` (a
 torchvision ``state_dict``) on ``--device`` for each image's features.
+``--device_mesh 1`` on a host with several GPUs starts one rank process a
+GPU (``parallel/launch.py``), which decode each batch cooperatively
+(``eval_split``: the batch padded to a multiple of the ranks, the pads
+dropped); rank 0 alone prints, writes ``eval_results/`` and dumps the
+JSON.  One GPU or ``--device cpu``: one process, as without it.  A
+process of a group started otherwise (``--dist_coordinator`` /
+``--dist_auto 1``, as ``tools/train_torch.py`` takes them) evaluates as
+that group's rank.
 
     python tools/eval_torch.py --model log/model-best.npz \\
         --infos_path log/infos_<id>-best.pkl --beam_size 5 --split test
@@ -29,6 +37,8 @@ torchvision ``state_dict``) on ``--device`` for each image's features.
     python tools/eval_torch.py --model log/model-best.npz \
         --infos_path log/infos_<id>-best.pkl --image_folder photos \
         --beam_size 5 --batch_size 16
+    python tools/eval_torch.py --model log/model-best.npz \
+        --infos_path log/infos_<id>-best.pkl --beam_size 5 --device_mesh 1
 """
 
 from __future__ import annotations
@@ -46,10 +56,13 @@ import torch  # noqa: E402
 import captioning_tpu_torch.utils.misc as utils  # noqa: E402
 import captioning_tpu_torch.utils.opts as opts  # noqa: E402
 from captioning_tpu_torch.models.api import setup  # noqa: E402
+from captioning_tpu_torch.parallel import launch, mesh  # noqa: E402
 from captioning_tpu_torch.utils import eval_utils  # noqa: E402
 
 
-def main(argv=None):
+def main(argv=None, n_devices=None):
+    """``n_devices`` stands in for the visible GPUs of ``--device_mesh 1``
+    (``launch.eval_ranks_to_start``)."""
     parser = argparse.ArgumentParser()
     parser.add_argument('--model', type=str, default='',
                         help='path to model .npz to evaluate')
@@ -65,6 +78,7 @@ def main(argv=None):
                         choices=('cuda', 'cpu'))
     opts.add_eval_options(parser)
     opts.add_diversity_opts(parser)
+    opts.add_dist_options(parser)
     opt = parser.parse_args(argv)
     if opt.device == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError('--device cuda: no CUDA device is available '
@@ -84,7 +98,6 @@ def main(argv=None):
             if k not in vars(opt):
                 vars(opt).update({k: vars(infos['opt'])[k]})
 
-    vocab = infos['vocab']
     pred_fn = os.path.join('eval_results/', '.saved_pred_' + opt.id + '_' +
                            opt.split + '.pkl')
     result_fn = os.path.join('eval_results/', opt.id + '_' + opt.split +
@@ -106,8 +119,18 @@ def main(argv=None):
                                        opt.split))
         return
 
+    launch.run_eval(os.path.abspath(__file__),
+                    sys.argv[1:] if argv is None else argv, opt,
+                    lambda device: _evaluate(opt, infos, device), n_devices)
+
+
+def _evaluate(opt, infos, device):
+    """Decode and score on ``device``: one process, or a rank of the eval
+    group (the data axis over the whole group)."""
+    is_main = mesh.make_mesh('').rank == 0
+    vocab = infos['vocab']
     opt.vocab_size = len(vocab)
-    captioner = setup(opt, vocab, device=opt.device).load_params(opt.model)
+    captioner = setup(opt, vocab, device=device).load_params(opt.model)
 
     if len(opt.image_folder) == 0:
         from captioning_tpu_torch.data.dataset import DataLoader
@@ -118,13 +141,15 @@ def main(argv=None):
                                 'coco_json': opt.coco_json,
                                 'batch_size': opt.batch_size,
                                 'cnn_model': opt.cnn_model,
-                                'device': opt.device})
+                                'device': device})
     # the vocab of the infos file (reference eval.py:109-111)
     loader.dataset.ix_to_word = infos['vocab']
 
     opt.dataset = opt.annfile or opt.input_json
     loss, split_predictions, lang_stats = eval_utils.eval_split(
         captioner, loader, vars(opt))
+    if not is_main:
+        return
     print('loss: ', loss)
     if lang_stats:
         print(lang_stats)
