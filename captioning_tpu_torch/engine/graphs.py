@@ -56,6 +56,7 @@ from typing import Dict, List
 import torch
 
 from ..ops import _build
+from ..utils import tracing
 from .decoding import Carry, StepProgram, write_back
 
 
@@ -166,18 +167,20 @@ class GraphDecode:
             torch.cuda.empty_cache()
             allocated = torch.cuda.memory_allocated(fc.device)
             reserved = torch.cuda.memory_reserved(fc.device)
-        recorder.warm(self._warm)
-        start = time.time()
-        # graph 0 is the setup, graph t + 1 the body of step t
-        self.captured: List[Dict[str, int]] = []
-        self.graphs = [self._capture(recorder, self._setup, 'the setup')]
-        for t in range(prog.steps):
-            self.graphs.append(self._capture(
-                recorder, lambda t=t: prog.body(self.carry, t),
-                'step %d' % t))
-        if cuda:
-            torch.cuda.synchronize(fc.device)
-        self.capture_s = time.time() - start
+        with tracing.span('graph.capture'):
+            recorder.warm(self._warm)
+            start = time.time()
+            # graph 0 is the setup, graph t + 1 the body of step t
+            self.captured: List[Dict[str, int]] = []
+            self.graphs = [self._capture(recorder, self._setup, 'the setup')]
+            for t in range(prog.steps):
+                self.graphs.append(self._capture(
+                    recorder, lambda t=t: prog.body(self.carry, t),
+                    'step %d' % t))
+            if cuda:
+                torch.cuda.synchronize(fc.device)
+            self.capture_s = time.time() - start
+        tracing.count('graph.captures')
         self.replays = [0] * len(self.graphs)
         # what the entry holds on the card: its input buffers and the carry
         # (allocated), with the pool's free blocks (reserved)

@@ -35,6 +35,7 @@ from ..engine.decoding import DecodeModel
 from ..engine.graphs import CudaRecorder, GraphDecode
 from ..ops.logit_topk import logit_topk, logit_topk_sharded
 from ..parallel import mesh, shard
+from ..utils import tracing
 from . import harness
 from .aoa import AoACaptioner
 from .bert_cap import BertCaptioner
@@ -259,13 +260,15 @@ class Captioner(DecodeEntries):
         return self._install(state_dict_from_jax(variables, self.cfg))
 
     def _install(self, state_dict):
-        module = self.module_cls(self.cfg)
-        module.load_state_dict(state_dict, strict=True)
-        # frozen until trainable(): decoding needs no autograd graph.  The
-        # parameters stay float32 (the masters); at a bf16 compute dtype the
-        # module computes with copies in that dtype (layers.compute_param)
-        self.module = module.requires_grad_(False).to(self.device).eval()
-        self._compute_pairs = self.module.install_compute_copies()
+        with tracing.span('model.install'):
+            module = self.module_cls(self.cfg)
+            module.load_state_dict(state_dict, strict=True)
+            # frozen until trainable(): decoding needs no autograd graph.
+            # The parameters stay float32 (the masters); at a bf16 compute
+            # dtype the module computes with copies in that dtype
+            # (layers.compute_param)
+            self.module = module.requires_grad_(False).to(self.device).eval()
+            self._compute_pairs = self.module.install_compute_copies()
         self._graph_cache = {}     # its graphs read the old module
         self.vocab_shards = {}
         return self

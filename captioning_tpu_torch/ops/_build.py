@@ -22,6 +22,8 @@ import threading
 
 import torch
 
+from ..utils import tracing
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, 'csrc')
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), 'build', 'kernels')
@@ -105,6 +107,7 @@ def build(name: str) -> str:
     os.close(fd)
     cmd = ([_nvcc()] + NVCC_FLAGS
            + ['-o', tmp, os.path.join(CSRC, name + '.cu')] + NVCC_LIBS)
+    tracing.count('kernels.nvcc')
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
@@ -121,11 +124,12 @@ def load(name: str) -> ctypes.CDLL:
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            lib = ctypes.CDLL(build(name))
-            for fn, argtypes in SIGNATURES[name].items():
-                f = getattr(lib, fn)
-                f.argtypes = argtypes
-                f.restype = ctypes.c_int
+            with tracing.span('kernels.load'):
+                lib = ctypes.CDLL(build(name))
+                for fn, argtypes in SIGNATURES[name].items():
+                    f = getattr(lib, fn)
+                    f.argtypes = argtypes
+                    f.restype = ctypes.c_int
             _LIBS[name] = lib
         return lib
 

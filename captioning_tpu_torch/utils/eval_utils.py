@@ -7,10 +7,16 @@ perplexity sums carried through the decode; diverse groups and other
 methods through the per-step tables), truncates to ``num_images`` and runs
 ``language_eval`` over the port's copy of ``coco_eval``; ``eval_split_n``
 adds ``sample_n`` captions an image, which ``language_eval`` scores with
-the diversity suite of ``eval_multi``.  One batch stays in flight: a
-batch's captions are post-processed after the next batch's decode has been
-issued.  Under a data axis of several ranks (``parallel.mesh``) the eval
-is cooperative, as the JAX loop's multi-host branch: every rank walks the
+the diversity suite of ``eval_multi``.  A batch's captions are
+post-processed after the next batch's decode call returns; the graph and
+eager decodes read the exit flag on the host after every step, so that
+call returns once the decode has run but for its last step and the
+output clones.  The strings of a batch therefore overlap almost no device
+work: the device idles through them (``eval.post``) and through the next
+batch's load and the host side of its pageable copy.
+
+Under a data axis of several ranks (``parallel.mesh``) the eval is
+cooperative, as the JAX loop's multi-host branch: every rank walks the
 same loader state and decodes its slice of each global batch, and every
 rank ends with the same merged predictions, val loss and metrics.  Under
 a model axis the images split over the data axis alone: the ranks of a
@@ -24,6 +30,7 @@ import functools
 import os
 import pickle
 import shutil
+import time
 
 import numpy as np
 import torch
@@ -31,6 +38,7 @@ import torch
 from ..modules import losses
 from ..parallel import mesh
 from . import misc as utils
+from . import tracing
 from .coco_eval import AnnotationDB, evaluate_captions
 
 bad_endings = ['a', 'an', 'the', 'in', 'for', 'at', 'of', 'with', 'before',
@@ -189,8 +197,20 @@ def eval_split(captioner, loader, eval_kwargs=None):
     summed numerators by the summed mask, ``gather_predictions`` merges the
     ranks' captions in rank order, and rank 0's ``language_eval`` of the
     merged list reaches every rank.  Returns (val_loss, predictions,
-    lang_stats)."""
-    eval_kwargs = eval_kwargs or {}
+    lang_stats).
+
+    ``utils.tracing``'s ``eval.*`` spans time its parts.  The whole call,
+    ``eval.split``, is kept on the host clock alone: a profiler annotation
+    around the pass would be the host event that overlaps most of any idle
+    gap that straddles two parts, and would hide them in a trace."""
+    start = time.perf_counter()
+    try:
+        return _eval_split(captioner, loader, eval_kwargs or {})
+    finally:
+        tracing.record('eval.split', start, time.perf_counter())
+
+
+def _eval_split(captioner, loader, eval_kwargs):
     verbose = eval_kwargs.get('verbose', True)
     verbose_loss = eval_kwargs.get('verbose_loss', 1)
     verbose_beam = eval_kwargs.get('verbose_beam', 0)
@@ -235,8 +255,11 @@ def eval_split(captioner, loader, eval_kwargs=None):
         int(eval_kwargs.get('seed', 0)) + grid.data_index)
 
     def dev(x, dtype=None):
-        return None if x is None else torch.as_tensor(
-            np.asarray(x), dtype=dtype).to(device)
+        if x is None:
+            return None
+        x = torch.as_tensor(np.asarray(x), dtype=dtype).to(device)
+        tracing.count('eval.h2d_bytes', x.nbytes)
+        return x
 
     n = 0
     loss = 0.0
@@ -247,6 +270,10 @@ def eval_split(captioner, loader, eval_kwargs=None):
 
     def _process(rec):
         """Post-process one issued batch, strictly in batch order."""
+        with tracing.span('eval.post'):
+            _post(rec)
+
+    def _post(rec):
         nonlocal loss, loss_sum, loss_evals
         data, rows = rec['data'], rec['rows']
         real_rows = len(rows)
@@ -327,17 +354,19 @@ def eval_split(captioner, loader, eval_kwargs=None):
 
     pending = None
     while True:
-        data = loader.get_batch(split)
+        with tracing.span('eval.load'):
+            data = loader.get_batch(split)
         n = n + len(data['infos'])
         arrays = {k: data.get(k) for k in _BATCH_KEYS}
         rows = range(len(data['infos']))     # the global rows decoded here
         if grid.data > 1:
             arrays, rows = local_rows(arrays, len(data['infos']))
-        fc = dev(arrays['fc_feats'], torch.float32)
-        att = dev(arrays['att_feats'], torch.float32)
-        am = dev(arrays['att_masks'], torch.float32)
-        labels = dev(arrays['labels'], torch.long)
-        masks = dev(arrays['masks'], torch.float32)
+        with tracing.span('eval.h2d'):
+            fc = dev(arrays['fc_feats'], torch.float32)
+            att = dev(arrays['att_feats'], torch.float32)
+            am = dev(arrays['att_masks'], torch.float32)
+            labels = dev(arrays['labels'], torch.long)
+            masks = dev(arrays['masks'], torch.float32)
 
         loss_dev = None
         if labels is not None and verbose_loss:
@@ -355,15 +384,16 @@ def eval_split(captioner, loader, eval_kwargs=None):
 
         rec = {'data': data, 'rows': rows, 'loss_dev': loss_dev,
                'done': None, 'inputs': [fc, att, am]}
-        if beam:
-            seq, stats, done = sample_beam(fc, att, am, rng, sample_opt)
-            rec.update(kind='beam', seq=seq, stats=stats, done=done)
-        elif stats_route:
-            seq, stats = sample_stats(fc, att, am, rng, sample_opt)
-            rec.update(kind='stats', seq=seq, stats=stats)
-        else:
-            seq, lp = captioner.sample(fc, att, am, rng, sample_opt)
-            rec.update(kind='slow', seq=seq, lp=lp)
+        with tracing.span('eval.decode'):
+            if beam:
+                seq, stats, done = sample_beam(fc, att, am, rng, sample_opt)
+                rec.update(kind='beam', seq=seq, stats=stats, done=done)
+            elif stats_route:
+                seq, stats = sample_stats(fc, att, am, rng, sample_opt)
+                rec.update(kind='stats', seq=seq, stats=stats)
+            else:
+                seq, lp = captioner.sample(fc, att, am, rng, sample_opt)
+                rec.update(kind='slow', seq=seq, lp=lp)
 
         ix1 = data['bounds']['it_max']
         if num_images != -1:
@@ -383,14 +413,16 @@ def eval_split(captioner, loader, eval_kwargs=None):
         n_predictions = sorted(n_predictions, key=lambda x: x['perplexity'])
     lang_stats = None
     if main:
-        os.makedirs('eval_results', exist_ok=True)
-        with open(os.path.join('eval_results/', '.saved_pred_'
-                               + eval_kwargs.get('id', '') + '_' + split +
-                               '.pkl'), 'wb') as f:
-            pickle.dump((predictions, n_predictions), f)
+        with tracing.span('eval.save'):
+            os.makedirs('eval_results', exist_ok=True)
+            with open(os.path.join('eval_results/', '.saved_pred_'
+                                   + eval_kwargs.get('id', '') + '_' + split
+                                   + '.pkl'), 'wb') as f:
+                pickle.dump((predictions, n_predictions), f)
         if lang_eval == 1:
-            lang_stats = language_eval(dataset, predictions, n_predictions,
-                                       eval_kwargs, split)
+            with tracing.span('eval.lang'):
+                lang_stats = language_eval(dataset, predictions,
+                                           n_predictions, eval_kwargs, split)
     lang_stats = mesh.broadcast_object(lang_stats)
     return loss_sum / loss_evals, predictions, lang_stats
 

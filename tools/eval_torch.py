@@ -27,7 +27,9 @@ dropped); rank 0 alone prints, writes ``eval_results/`` and dumps the
 JSON.  One GPU or ``--device cpu``: one process, as without it.  A
 process of a group started otherwise (``--dist_coordinator`` /
 ``--dist_auto 1``, as ``tools/train_torch.py`` takes them) evaluates as
-that group's rank.
+that group's rank.  After the eval the main rank prints
+``utils.tracing.summary()``: the time of each span of the set-up and the
+eval (the load, the copies, the decode, the strings) and the counters.
 
     python tools/eval_torch.py --model log/model-best.npz \\
         --infos_path log/infos_<id>-best.pkl --beam_size 5 --split test
@@ -57,7 +59,7 @@ import captioning_tpu_torch.utils.misc as utils  # noqa: E402
 import captioning_tpu_torch.utils.opts as opts  # noqa: E402
 from captioning_tpu_torch.models.api import setup  # noqa: E402
 from captioning_tpu_torch.parallel import launch, mesh  # noqa: E402
-from captioning_tpu_torch.utils import eval_utils  # noqa: E402
+from captioning_tpu_torch.utils import eval_utils, tracing  # noqa: E402
 
 
 def main(argv=None, n_devices=None):
@@ -150,6 +152,7 @@ def _evaluate(opt, infos, device):
         captioner, loader, vars(opt))
     if not is_main:
         return
+    print(tracing.summary())
     print('loss: ', loss)
     if lang_stats:
         print(lang_stats)
