@@ -7,13 +7,15 @@ perplexity sums carried through the decode; diverse groups and other
 methods through the per-step tables), truncates to ``num_images`` and runs
 ``language_eval`` over the port's copy of ``coco_eval``; ``eval_split_n``
 adds ``sample_n`` captions an image, which ``language_eval`` scores with
-the diversity suite of ``eval_multi``.  A batch's captions are
-post-processed after the next batch's decode call returns; the graph and
-eager decodes read the exit flag on the host after every step, so that
-call returns once the decode has run but for its last step and the
-output clones.  The strings of a batch therefore overlap almost no device
-work: the device idles through them (``eval.post``) and through the next
-batch's load and the host side of its pageable copy.
+the diversity suite of ``eval_multi``.  The graph and eager decodes read
+the exit flag on the host after every step, so a decode call returns
+once the decode has run but for its last step and the output clones, and
+a batch's strings overlap no decode: the device idles through them
+(``eval.post``).  What runs behind them is the copy of the batch after:
+once decode k returns, batch k + 1 is loaded and ``utils.staging`` starts
+its copy (on a CUDA device through pinned memory on a copy stream, from a
+worker thread), the strings of batch k run, and then decode k + 1 waits
+for the copy on the device, not on the host.
 
 Under a data axis of several ranks (``parallel.mesh``) the eval is
 cooperative, as the JAX loop's multi-host branch: every rank walks the
@@ -38,7 +40,7 @@ import torch
 from ..modules import losses
 from ..parallel import mesh
 from . import misc as utils
-from . import tracing
+from . import staging, tracing
 from .coco_eval import AnnotationDB, evaluate_captions
 
 bad_endings = ['a', 'an', 'the', 'in', 'for', 'at', 'of', 'with', 'before',
@@ -199,10 +201,20 @@ def eval_split(captioner, loader, eval_kwargs=None):
     merged list reaches every rank.  Returns (val_loss, predictions,
     lang_stats).
 
-    ``utils.tracing``'s ``eval.*`` spans time its parts.  The whole call,
-    ``eval.split``, is kept on the host clock alone: a profiler annotation
-    around the pass would be the host event that overlaps most of any idle
-    gap that straddles two parts, and would hide them in a trace."""
+    Each batch is loaded once the decode before it has returned, the
+    same number of times a pass and from the caller's thread, and its
+    arrays go to the device through ``utils.staging`` while the strings of
+    the batch before run; its decode waits for the copy on the device.
+
+    ``utils.tracing``'s ``eval.*`` spans time its parts: ``eval.h2d`` is
+    the wait for a batch's copy (the part of it the strings did not hide;
+    the counters ``eval.h2d_bytes`` and ``eval.h2d_hidden``, one a batch
+    whose copy had ended by then), and ``eval.stage`` the copy's worker,
+    from the batch's start to its last copy enqueued.  The whole call,
+    ``eval.split``, and ``eval.stage`` are kept on the host clock alone: a
+    profiler annotation that spans other parts would be the host event
+    that overlaps most of an idle gap, and would hide its name in a
+    trace."""
     start = time.perf_counter()
     try:
         return _eval_split(captioner, loader, eval_kwargs or {})
@@ -254,12 +266,29 @@ def _eval_split(captioner, loader, eval_kwargs):
     rng = torch.Generator(device).manual_seed(
         int(eval_kwargs.get('seed', 0)) + grid.data_index)
 
-    def dev(x, dtype=None):
-        if x is None:
-            return None
-        x = torch.as_tensor(np.asarray(x), dtype=dtype).to(device)
-        tracing.count('eval.h2d_bytes', x.nbytes)
-        return x
+    def load():
+        """The next batch from the loader, its copy to the device started
+        (``utils.staging``)."""
+        with tracing.span('eval.load'):
+            data = loader.get_batch(split)
+        arrays = {k: data.get(k) for k in _BATCH_KEYS}
+        rows = range(len(data['infos']))     # the global rows decoded here
+        if grid.data > 1:
+            arrays, rows = local_rows(arrays, len(data['infos']))
+        stage = staging.Stage({k: (arrays[k], _BATCH_DTYPES[k])
+                                for k in _BATCH_KEYS}, device)
+        return data, rows, stage
+
+    def take(stage):
+        """The batch's tensors, once its copy has been handed over; the
+        current stream's next work waits for the copy."""
+        with tracing.span('eval.h2d'):
+            got = stage.wait()
+        tracing.count('eval.h2d_bytes', stage.nbytes)
+        tracing.count('eval.h2d_hidden', int(stage.hidden))
+        if stage.end is not None:
+            tracing.record('eval.stage', stage.start, stage.end)
+        return [got[k] for k in _BATCH_KEYS]
 
     n = 0
     loss = 0.0
@@ -269,7 +298,7 @@ def _eval_split(captioner, loader, eval_kwargs):
     n_predictions = []
 
     def _process(rec):
-        """Post-process one issued batch, strictly in batch order."""
+        """Post-process one decoded batch, strictly in batch order."""
         with tracing.span('eval.post'):
             _post(rec)
 
@@ -352,62 +381,66 @@ def _eval_split(captioner, loader, eval_kwargs):
             print('evaluating validation preformance... %d/%d (%f)'
                   % (rec['n'], rec['ix1'], loss))
 
-    pending = None
-    while True:
-        with tracing.span('eval.load'):
-            data = loader.get_batch(split)
-        n = n + len(data['infos'])
-        arrays = {k: data.get(k) for k in _BATCH_KEYS}
-        rows = range(len(data['infos']))     # the global rows decoded here
-        if grid.data > 1:
-            arrays, rows = local_rows(arrays, len(data['infos']))
-        with tracing.span('eval.h2d'):
-            fc = dev(arrays['fc_feats'], torch.float32)
-            att = dev(arrays['att_feats'], torch.float32)
-            am = dev(arrays['att_masks'], torch.float32)
-            labels = dev(arrays['labels'], torch.long)
-            masks = dev(arrays['masks'], torch.float32)
+    # batch k + 1 is loaded once decode k returns, and its copy runs while
+    # the strings of batch k do; eval_split_n decodes inside the strings
+    # (a graph capture there must meet no CUDA call of the copy's worker),
+    # so with sample_n > 1 the copy is taken before them
+    data, rows, stage = load()
+    inputs = None
+    try:
+        while True:
+            if inputs is None:
+                inputs = take(stage)
+            fc, att, am, labels, masks = inputs
+            inputs = None
+            n = n + len(data['infos'])
 
-        loss_dev = None
-        if labels is not None and verbose_loss:
-            logprobs = captioner.forward_tf(fc, att, labels[..., :-1], am)
-            if label_smoothing > 0:
-                loss_dev = losses.label_smoothing_criterion(
-                    logprobs, labels[..., 1:], masks[..., 1:],
-                    label_smoothing, denom=global_denom)
+            loss_dev = None
+            if labels is not None and verbose_loss:
+                logprobs = captioner.forward_tf(fc, att, labels[..., :-1],
+                                                am)
+                if label_smoothing > 0:
+                    loss_dev = losses.label_smoothing_criterion(
+                        logprobs, labels[..., 1:], masks[..., 1:],
+                        label_smoothing, denom=global_denom)
+                else:
+                    loss_dev = losses.language_model_criterion(
+                        logprobs, labels[..., 1:], masks[..., 1:],
+                        denom=global_denom)
+                # the data ranks' shares sum to the global batch's loss
+                loss_dev = mesh.all_reduce_sum(loss_dev, grid.data_group)
+
+            rec = {'data': data, 'rows': rows, 'loss_dev': loss_dev,
+                   'done': None, 'inputs': [fc, att, am]}
+            with tracing.span('eval.decode'):
+                if beam:
+                    seq, stats, done = sample_beam(fc, att, am, rng,
+                                                   sample_opt)
+                    rec.update(kind='beam', seq=seq, stats=stats, done=done)
+                elif stats_route:
+                    seq, stats = sample_stats(fc, att, am, rng, sample_opt)
+                    rec.update(kind='stats', seq=seq, stats=stats)
+                else:
+                    seq, lp = captioner.sample(fc, att, am, rng, sample_opt)
+                    rec.update(kind='slow', seq=seq, lp=lp)
+
+            ix1 = data['bounds']['it_max']
+            if num_images != -1:
+                ix1 = min(ix1, num_images)
             else:
-                loss_dev = losses.language_model_criterion(
-                    logprobs, labels[..., 1:], masks[..., 1:],
-                    denom=global_denom)
-            # the data ranks' shares sum to the global batch's loss
-            loss_dev = mesh.all_reduce_sum(loss_dev, grid.data_group)
-
-        rec = {'data': data, 'rows': rows, 'loss_dev': loss_dev,
-               'done': None, 'inputs': [fc, att, am]}
-        with tracing.span('eval.decode'):
-            if beam:
-                seq, stats, done = sample_beam(fc, att, am, rng, sample_opt)
-                rec.update(kind='beam', seq=seq, stats=stats, done=done)
-            elif stats_route:
-                seq, stats = sample_stats(fc, att, am, rng, sample_opt)
-                rec.update(kind='stats', seq=seq, stats=stats)
-            else:
-                seq, lp = captioner.sample(fc, att, am, rng, sample_opt)
-                rec.update(kind='slow', seq=seq, lp=lp)
-
-        ix1 = data['bounds']['it_max']
-        if num_images != -1:
-            ix1 = min(ix1, num_images)
-        else:
-            num_images = ix1
-        rec['n'], rec['ix1'] = n, ix1
-        if pending is not None:
-            _process(pending)
-        pending = rec
-        if num_images >= 0 and n >= num_images:
-            break
-    if pending is not None:
-        _process(pending)
+                num_images = ix1
+            rec['n'], rec['ix1'] = n, ix1
+            last = num_images >= 0 and n >= num_images
+            if not last:
+                data, rows, stage = load()
+                if sample_n > 1:
+                    inputs = take(stage)
+            _process(rec)
+            if last:
+                break
+    finally:
+        # a copy left behind by an error ends before its memory is reused
+        stage.close()
 
     if len(n_predictions) > 0 and 'perplexity' in n_predictions[0]:
         n_predictions = sorted(n_predictions, key=lambda x: x['perplexity'])
@@ -428,6 +461,10 @@ def _eval_split(captioner, loader, eval_kwargs):
 
 
 _BATCH_KEYS = ('fc_feats', 'att_feats', 'att_masks', 'labels', 'masks')
+# the dtypes the batch's arrays take on the device
+_BATCH_DTYPES = {'fc_feats': torch.float32, 'att_feats': torch.float32,
+                 'att_masks': torch.float32, 'labels': torch.long,
+                 'masks': torch.float32}
 
 
 def local_rows(arrays, real: int):

@@ -24,11 +24,15 @@ The spans in the port, each where its work happens:
 - ``eval.split`` (``utils/eval_utils.eval_split``, the whole call, kept by
   ``record`` on the host clock alone: as an annotation it would name every
   idle gap that straddles two of its parts), and inside it ``eval.load``
-  (the loader's ``get_batch``), ``eval.h2d`` (the batch's arrays to the
-  device; the counter ``eval.h2d_bytes``), ``eval.decode`` (the decode
-  entry), ``eval.post`` (a batch's captions read back, the strings and the
+  (the loader's ``get_batch``), ``eval.h2d`` (the wait for the batch's
+  copy to the device, the part the strings before did not hide; the
+  counters ``eval.h2d_bytes`` and ``eval.h2d_hidden``, one a batch whose
+  copy had ended by then), ``eval.decode`` (the decode entry),
+  ``eval.post`` (a batch's captions read back, the strings and the
   entries), ``eval.save`` (the pickle of the pass) and ``eval.lang``
-  (``language_eval``);
+  (``language_eval``); beside them ``eval.stage`` (``utils.staging``'s
+  worker, from a batch's start to its last copy enqueued; ``record``
+  alone, as ``eval.split``);
 - ``graph.capture`` (``engine/graphs.GraphDecode``: the warm decode and
   the captures; the counter ``graph.captures``, one a graph decode built);
 - ``model.install`` (``models/api.Captioner._install``);
