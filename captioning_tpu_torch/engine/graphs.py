@@ -9,12 +9,15 @@ shapes and options.  It owns static input buffers (``fc``, ``att`` and
 setup captured as one graph and each step t as graph g_t, all in one
 memory pool.  A call replays the setup, then g_0, g_1, ..., and reads the
 exit flag after each, where the eager loop (``decoding.run_eager``) reads
-it: one host read a step, as there.  The decode's shapes are fixed per
-(B, beam, options), the model's caches are written in place and the
-program's carry keeps its addresses, so each step is one fixed sequence
-of kernels.  The transformer step's position ``t`` is a host int (B1's
-argument and the row of its positional table): one graph per step, at
-most ``seq_length`` of them, sharing the pool.
+it: one host read a step, as there.  Each replay is a device span of
+``utils.tracing`` (``decode.setup``, ``decode.step``: CUDA events around
+it, resolved at the next call with no added synchronize), and the
+counter ``decode.steps`` adds the step graphs a call replayed.  The
+decode's shapes are fixed per (B, beam, options), the model's caches are
+written in place and the program's carry keeps its addresses, so each
+step is one fixed sequence of kernels.  The transformer step's position
+``t`` is a host int (B1's argument and the row of its positional table):
+one graph per step, at most ``seq_length`` of them, sharing the pool.
 
 Before capture, one eager decode on the recorder's side stream builds
 and loads the kernels' libraries and lets cuBLAS pick its algorithms
@@ -152,13 +155,15 @@ class GraphDecode:
     """``prog`` captured at the shapes of ``fc``, ``att``, ``att_masks``
     (any of the last two may be None) by ``recorder``.  Calling it decodes
     new inputs of those shapes and returns ``prog.result``'s outputs,
-    cloned."""
+    cloned; its replays are the device spans ``decode.setup`` and
+    ``decode.step``, counted by ``decode.steps``."""
 
     def __init__(self, prog: StepProgram, fc, att, att_masks, recorder):
         self.prog = prog
         self.inputs = [None if x is None else x.clone()
                        for x in (fc, att, att_masks)]
         self.carry: Carry = None
+        self.device = fc.device
         cuda = fc.is_cuda
         if cuda:
             # each capture empties the allocator's cache: so does the
@@ -215,12 +220,21 @@ class GraphDecode:
         for buf, x in zip(self.inputs, (fc, att, att_masks)):
             if buf is not None:
                 buf.copy_(x)
-        self._replay(0)
+        # the replays' stream, fetched once a call: a span's set-up lies
+        # between a step's exit read and the next replay
+        stream = (torch.cuda.current_stream(self.device)
+                  if self.device.type == 'cuda' else None)
+        with tracing.device_span('decode.setup', stream):
+            self._replay(0)
+        # the last call's device spans, while the setup runs
+        tracing.resolve()
         steps = self.prog.steps
         for t in range(steps):
-            self._replay(t + 1)
+            with tracing.device_span('decode.step', stream):
+                self._replay(t + 1)
             if t + 1 < steps and not bool(self.carry['go']):
                 break
+        tracing.count('decode.steps', t + 1)
         return clone_tree(self.prog.result(self.carry))
 
     def _replay(self, i):

@@ -35,9 +35,21 @@ The spans in the port, each where its work happens:
   alone, as ``eval.split``);
 - ``graph.capture`` (``engine/graphs.GraphDecode``: the warm decode and
   the captures; the counter ``graph.captures``, one a graph decode built);
+- ``decode.setup`` and ``decode.step`` (``GraphDecode.__call__``: the
+  replay of the setup graph, i.e. the prepare and the bos step, and the
+  replay of one step's graph), device spans; the counter
+  ``decode.steps``, the step graphs a call replayed;
 - ``model.install`` (``models/api.Captioner._install``);
 - ``kernels.load`` (``ops/_build.load``, a library bound at first use; the
   counter ``kernels.nvcc``, one a source that nvcc compiled).
+
+``device_span(name, stream)`` times work enqueued on a CUDA stream: CUDA
+timing events on it before and after the block, a pair from a pool.  Nothing waits for them: ``resolve()`` keeps each pair whose
+end event has completed (a query, no synchronize) as the interval (the
+block's host start, that start + the events' elapsed time) in the same
+ring as a host span's, and leaves the others for a later call.
+``GraphDecode.__call__``, ``intervals`` and ``summary`` resolve.  On a
+device other than CUDA a device span is a host span.
 
 ``intervals(name, lo, hi)`` gives a span's intervals inside a stretch of
 the same clock, ``summary()`` a table of every span and counter.
@@ -50,12 +62,13 @@ import threading
 from time import perf_counter
 from typing import Dict, List, Optional, Tuple
 
+import torch
 from torch._C._autograd import _profiler_enabled
 from torch.profiler import record_function
 
-# the intervals each span name keeps: a 51 s window of batches of 120 ms
-# records about 420 of each eval span
-RING = 4096
+# the intervals each span name keeps: a 51 s window of batches of 70 ms
+# records about 730 of each eval span and 15,000 ``decode.step``s
+RING = 16384
 
 
 class _Record:
@@ -69,19 +82,28 @@ class _Record:
 
 _SPANS: Dict[str, _Record] = {}
 _COUNTERS: Dict[str, int] = {}
+# device spans not yet resolved: (name, host start, (start event, end
+# event), device index), in the order they ended; pairs of timing events
+# free for reuse, by device index
+_PENDING: collections.deque = collections.deque()
+_EVENTS: Dict[int, list] = {}
 _LOCK = threading.Lock()
+
+
+def _keep(name: str, start: float, end: float) -> None:
+    rec = _SPANS.get(name)
+    if rec is None:
+        rec = _SPANS[name] = _Record()
+    rec.ring.append((start, end))
+    rec.n += 1
+    rec.total += end - start
 
 
 def record(name: str, start: float, end: float) -> None:
     """Keep the interval (start, end) of ``perf_counter`` seconds as one of
     span ``name``."""
     with _LOCK:
-        rec = _SPANS.get(name)
-        if rec is None:
-            rec = _SPANS[name] = _Record()
-        rec.ring.append((start, end))
-        rec.n += 1
-        rec.total += end - start
+        _keep(name, start, end)
 
 
 class span:
@@ -109,6 +131,57 @@ class span:
         return False
 
 
+class device_span(span):
+    """``with device_span(name, stream):`` times the work the block
+    enqueues on the CUDA ``stream`` (``resolve``); while a profiler
+    records, the block is also a ``record_function(name)``.  With
+    ``stream`` None (no CUDA device), a ``span``."""
+
+    __slots__ = ('stream', 'events')
+
+    def __init__(self, name: str, stream):
+        super().__init__(name)
+        self.stream = stream
+
+    def __enter__(self):
+        super().__enter__()
+        if self.stream is not None:
+            with _LOCK:
+                free = _EVENTS.get(self.stream.device_index)
+                pair = free.pop() if free else None
+            if pair is None:
+                pair = (torch.cuda.Event(enable_timing=True),
+                        torch.cuda.Event(enable_timing=True))
+            pair[0].record(self.stream)
+            self.events = pair
+        return self
+
+    def __exit__(self, *exc):
+        if self.stream is None:
+            return super().__exit__(*exc)
+        self.events[1].record(self.stream)
+        with _LOCK:
+            _PENDING.append((self.name, self.start, self.events,
+                             self.stream.device_index))
+        if self.annotation is not None:
+            self.annotation.__exit__(*exc)
+        return False
+
+
+def resolve() -> None:
+    """Keep the pending device spans whose work has ended, oldest first,
+    up to the first still running; their events go back to the pool.
+    Waits for nothing."""
+    with _LOCK:
+        while _PENDING:
+            name, start, (begin, end), index = _PENDING[0]
+            if not end.query():
+                break
+            _PENDING.popleft()
+            _keep(name, start, start + begin.elapsed_time(end) / 1e3)
+            _EVENTS.setdefault(index, []).append((begin, end))
+
+
 def count(name: str, n: int = 1) -> None:
     """Add ``n`` to the counter ``name``."""
     with _LOCK:
@@ -119,6 +192,7 @@ def intervals(name: str, lo: Optional[float] = None,
               hi: Optional[float] = None) -> List[Tuple[float, float]]:
     """The kept (start, end) intervals of span ``name`` that lie inside
     [lo, hi] (an open side where None), oldest first."""
+    resolve()
     with _LOCK:
         rec = _SPANS.get(name)
         ring = list(rec.ring) if rec is not None else []
@@ -132,10 +206,11 @@ def counters() -> Dict[str, int]:
 
 
 def reset() -> None:
-    """Forget every span and counter."""
+    """Forget every span and counter, and the pending device spans."""
     with _LOCK:
         _SPANS.clear()
         _COUNTERS.clear()
+        _PENDING.clear()
 
 
 def _rank(xs, q):
@@ -145,6 +220,7 @@ def _rank(xs, q):
 def summary() -> str:
     """One line a span (its count and mean over every interval, p50 and
     p95 over the kept ones, in ms) and one a counter, by name."""
+    resolve()
     with _LOCK:
         spans = {k: (r.n, r.total, sorted(b - a for a, b in r.ring))
                  for k, r in _SPANS.items()}
